@@ -1,0 +1,37 @@
+"""Diagonal Gaussian posterior over latents (counterpart of
+``ldm_tf2_tpu.models.distribution.DiagonalGaussian``); sampling takes an
+explicit ``torch.Generator``."""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class DiagonalGaussian:
+    """q(z|x) = N(mean, diag(exp(logvar))); build it with ``create``, which
+    clips logvar to [-30, 20]."""
+
+    mean: torch.Tensor
+    logvar: torch.Tensor
+
+    @classmethod
+    def create(cls, mean, logvar) -> "DiagonalGaussian":
+        return cls(mean=mean, logvar=torch.clamp(logvar, -30.0, 20.0))
+
+    @property
+    def std(self):
+        return torch.exp(0.5 * self.logvar)
+
+    def sample(self, generator: torch.Generator | None = None):
+        """mean + std * N(0, 1), the noise drawn from ``generator``."""
+        noise = torch.randn(
+            self.mean.shape, generator=generator, device=self.mean.device,
+            dtype=self.mean.dtype,
+        )
+        return self.mean + self.std * noise
+
+    def mode(self):
+        return self.mean

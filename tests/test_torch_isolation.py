@@ -1,0 +1,93 @@
+"""The PyTorch port stands alone: no JAX, flax or ``ldm_tf2_tpu`` import,
+no library attention or ``torch.compile``, and no silent CPU fallback."""
+
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), os.pardir))
+PKG = os.path.join(ROOT, "ldm_tf2_tpu_torch")
+
+_RUN_TINY_PIPELINE = r"""
+import sys
+import torch
+from ldm_tf2_tpu_torch import factory
+from ldm_tf2_tpu_torch.cli.run_ldm_sampler import sample_txt2img, tensor_to_image
+from ldm_tf2_tpu_torch.data.tokenizer import cfg_token_ids, load_tokenizer
+
+config = {
+    "cond_stage_model": dict(vocab_size=30522, encoder_stack_size=1,
+        hidden_size=32, num_heads=2, size_per_head=8, max_seq_len=77,
+        filter_size=64, dropout_rate=0.0),
+    "unet": dict(model_channels=32, out_channels=4, num_blocks=1,
+        attention_resolutions=[1], dropout_rate=0.0, channel_mult=[1, 2],
+        num_heads=2),
+    "autoencoder_kl": dict(latent_channels=4, channels=32, num_blocks=1,
+        attention_resolutions=[], dropout_rate=0.0, multipliers=[1, 2],
+        resample_with_conv=True),
+    "ldm": dict(num_steps=50, beta_start=0.00085, beta_end=0.012,
+        v_posterior=0.0, scale_factor=0.18215, eta=0.0, num_ddim_steps=2),
+    "tpu": {"compute_dtype": "float32"},
+}
+from ldm_tf2_tpu_torch.configs.loader import validate
+validate(config)
+models = [factory.randomize_(build(config, device="cpu"), seed)
+          for seed, build in enumerate((factory.build_cond_model,
+                                        factory.build_unet,
+                                        factory.build_autoencoder))]
+ids = cfg_token_ids(load_tokenizer(sys.argv[1]), "a red fox", 1)
+images, _ = sample_txt2img(*models, factory.build_schedule(config),
+                           torch.as_tensor(ids), (1, 8, 8, 4), device="cpu")
+assert tensor_to_image(images.numpy()).shape == (1, 16, 16, 3)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "ldm_tf2_tpu"))
+print("FOREIGN", bad)
+"""
+
+
+def test_port_runs_without_jax_or_the_jax_package():
+    out = subprocess.run(
+        [sys.executable, "-c", _RUN_TINY_PIPELINE,
+         os.path.join(ROOT, "bert_model")],
+        cwd=ROOT, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": ROOT},
+    )
+    assert out.returncode == 0, out.stderr
+    assert "FOREIGN []" in out.stdout, out.stdout
+
+
+def test_entry_point_refuses_to_fall_back_to_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from ldm_tf2_tpu_torch.cli.run_ldm_sampler import sample_txt2img
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        sample_txt2img(None, None, None, None, torch.zeros(2, 77), (1, 8, 8, 4))
+
+
+def _sources():
+    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, files in os.walk(PKG):
+        paths += [os.path.join(dirpath, f) for f in files
+                  if f.endswith((".py", ".cu"))]
+    return paths
+
+
+def test_sources_import_nothing_foreign_and_use_no_library_attention():
+    foreign = re.compile(
+        r"^\s*(import|from)\s+(jax|flax|orbax|absl|transformers|ldm_tf2_tpu)\b"
+    )
+    banned = ("scaled_dot_product_attention", "torch.compile")
+    for path in _sources():
+        with open(path, encoding="utf-8") as f:
+            text = f.read()
+        for line in text.splitlines():
+            assert not foreign.match(line), f"{path}: {line}"
+        if path.endswith("chip_smoke.py"):
+            continue  # times SDPA as a yardstick only, never on the path
+        for word in banned:
+            assert word not in text, f"{path} mentions {word}"
