@@ -10,8 +10,10 @@ per-image min-max normalized), like ``ldm_tf2_tpu.cli.run_ldm_sampler``:
 The weights come from the single-blob artifact the JAX package exports
 (``checkpoints/blob.py``).  Only DDIM txt2img sampling with the KL
 autoencoder is ported; every other branch of the JAX CLI raises
-``NotImplementedError`` naming its ROADMAP item.  The pipeline itself is
-``sample_txt2img``.
+``NotImplementedError`` naming its ROADMAP item.  The serving modes
+``tpu.quantize: int8`` and ``tpu.quantize_attention: int8pv`` apply here
+as in the JAX CLI, which honours both (``factory.apply_serving_modes``).
+The pipeline itself is ``sample_txt2img``.
 """
 
 from __future__ import annotations
@@ -62,29 +64,36 @@ def sample_txt2img(cond_model, unet, autoencoder, schedule, token_ids, shape,
     return images, x0
 
 
-_UNSUPPORTED = (
+def _multi_device(config: dict) -> bool:
+    mesh = config["tpu"].get("mesh") or {}
+    return (config["tpu"]["sequence_parallel"] or config["tpu"]["tensor_parallel"]
+            or any(size not in (-1, 1) for size in mesh.values()))
+
+
+# Branches of the JAX CLIs not ported yet, as (test of (ldm_sampling,
+# config), what).  The first four apply to the server too.
+UNSUPPORTED_PIPELINE = (
     (lambda s, c: s.get("sampler", "ddim") != "ddim",
      "samplers other than ddim (ROADMAP queue A item 8)"),
-    (lambda s, c: s.get("sample_save_progress", False),
-     "sample_save_progress (ROADMAP queue A item 8)"),
     (lambda s, c: s.get("cache_interval", 1) > 1,
      "DeepCache cache_interval > 1 (ROADMAP queue A item 8)"),
-    (lambda s, c: s.get("init_image_path") or s.get("mask_path"),
-     "img2img / inpainting (ROADMAP queue A item 8)"),
     (lambda s, c: s.get("autoencoder_type", "kl") != "kl",
      "the VQ autoencoder (ROADMAP queue A item 9)"),
-    (lambda s, c: c["tpu"]["quantize"] != "none"
-     or c["tpu"]["quantize_attention"] != "none",
-     "int8 serving modes (ROADMAP queue A item 10)"),
-    (lambda s, c: c["tpu"]["sequence_parallel"] or c["tpu"]["tensor_parallel"],
-     "sequence / tensor parallelism (ROADMAP queue A item 13)"),
+    (lambda s, c: _multi_device(c),
+     "a device mesh, sequence or tensor parallelism (ROADMAP queue A item 13)"),
+)
+_UNSUPPORTED = UNSUPPORTED_PIPELINE + (
+    (lambda s, c: s.get("sample_save_progress", False),
+     "sample_save_progress (ROADMAP queue A item 8)"),
+    (lambda s, c: s.get("init_image_path") or s.get("mask_path"),
+     "img2img / inpainting (ROADMAP queue A item 8)"),
 )
 
 
-def check_supported(config: dict) -> None:
+def check_supported(config: dict, unsupported=_UNSUPPORTED) -> None:
     sampling = config.get("ldm_sampling") or {}
-    for unsupported, what in _UNSUPPORTED:
-        if unsupported(sampling, config):
+    for test, what in unsupported:
+        if test(sampling, config):
             raise NotImplementedError(f"not ported yet: {what}")
 
 
@@ -114,6 +123,7 @@ def main(argv=None) -> None:
     unet = load_params(factory.build_unet(config, device), blob["unet"])
     autoencoder = load_params(factory.build_autoencoder(config, "kl", device),
                               blob["autoencoder"])
+    factory.apply_serving_modes(config, unet, autoencoder)
     schedule = factory.build_schedule(config)
 
     shape = tuple(sampling["latent_shape"])

@@ -2,7 +2,8 @@
 
 The key surface is the JAX package's ``all_in_one_config.yaml``; the
 ``tpu:`` section's ``compute_dtype`` and ``weights_dtype`` choose the
-port's activation and weight dtypes.  ``yaml`` is imported only when a
+port's activation and weight dtypes, and ``quantize`` (none | int8) and
+``quantize_attention`` (none | int8pv) its serving modes.  ``yaml`` is imported only when a
 file is loaded, so a config built as a dict needs no yaml package.
 """
 
@@ -71,6 +72,21 @@ def validate(config: dict) -> dict:
         raise ValueError(
             f"tpu.weights_dtype must be null or one of {sorted(_DTYPES)}, got "
             f"{tpu['weights_dtype']!r}"
+        )
+    if tpu["quantize"] not in ("none", "int8"):
+        raise ValueError(
+            f"tpu.quantize must be 'none' or 'int8', got {tpu['quantize']!r}"
+        )
+    if tpu["quantize_attention"] not in ("none", "int8pv"):
+        raise ValueError(
+            "tpu.quantize_attention must be 'none' or 'int8pv', got "
+            f"{tpu['quantize_attention']!r}"
+        )
+    if tpu["tensor_parallel"] and tpu["quantize"] != "none":
+        raise ValueError(
+            "tpu.quantize int8 is a single-device serving mode: the int8 conv "
+            "chains are not decomposed over the model axis; disable one of "
+            "tpu.tensor_parallel / tpu.quantize"
         )
     config["tpu"] = tpu
     return config

@@ -1,13 +1,19 @@
 // Helpers shared by the package's kernels: f32 <-> operand-type conversion,
-// warp reductions, and the warp-level bf16 tensor-core instructions
-// (sm_80+, run on sm_90a): ldmatrix, mma.sync m16n8k16 with f32
-// accumulation, and cp.async.
+// warp reductions, and the warp-level tensor-core instructions (sm_80+, run
+// on sm_90a): ldmatrix, mma.sync m16n8k16 bf16 with f32 accumulation,
+// mma.sync m16n8k32 s8 with s32 accumulation, and cp.async.
 //
-// Fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4):
+// Fragment layouts of mma.m16n8k16 bf16 (g = lane / 4, t = lane % 4):
 //   A (16x16, row-major) a[0]: (g, 2t..2t+1)  a[1]: (g+8, 2t..)  a[2]: (g, 2t+8..)
 //                        a[3]: (g+8, 2t+8..)
 //   B (16x8)             b0: (k 2t..2t+1, n g)   b1: (k 2t+8..2t+9, n g)
 //   C (16x8, f32)        c[0..1]: (g, 2t..2t+1)  c[2..3]: (g+8, 2t..2t+1)
+// and of mma.m16n8k32 s8 (four 8-bit values per register, low byte first):
+//   A (16x32, row-major) a[0]: (g, 4t..4t+3)  a[1]: (g+8, 4t..)  a[2]: (g, 4t+16..)
+//                        a[3]: (g+8, 4t+16..)
+//   B (32x8)             b0: (k 4t..4t+3, n g)   b1: (k 4t+16..4t+19, n g)
+//   C (16x8, s32)        as for bf16.
+// In bytes the s8 fragments are the bf16 ones, so ldmatrix loads both.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -43,14 +49,14 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 
 // Four 8x8 b16 matrices; lane i gives the address of row i % 8 of matrix
 // i / 8, and register j receives matrix j in the A/B fragment layout.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_u32(p)));
 }
 
 // The same, each matrix transposed: B fragments of a [k][n] row-major tile.
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_u32(p)));
@@ -66,9 +72,19 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// c += a (16x32) * b (32x8), s8 operands, s32 accumulation.
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // 16-byte global -> shared copy; writes zeros (and reads nothing) when
 // !valid.
-__device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src, bool valid) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
                "l"(src), "r"(valid ? 16 : 0));
 }

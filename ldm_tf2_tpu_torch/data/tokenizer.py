@@ -150,3 +150,15 @@ def cfg_token_ids(tokenizer: BertTokenizer, prompt, batch_size: int,
     if cond.shape[0] == 1:
         cond = np.tile(cond, (batch_size, 1))
     return np.concatenate([np.tile(uncond, (batch_size, 1)), cond])
+
+
+def packed_cfg_token_ids(tokenizer: BertTokenizer, prompts, negative_prompts,
+                         max_length: int = 77):
+    """[2B, L] ids for a micro-batched CFG call: one negative prompt per
+    slot (the unconditional rows), then the per-slot prompts."""
+    if len(prompts) != len(negative_prompts):
+        raise ValueError(
+            f"{len(prompts)} prompts vs {len(negative_prompts)} negatives"
+        )
+    return tokenize_prompts(tokenizer, list(negative_prompts) + list(prompts),
+                            max_length)

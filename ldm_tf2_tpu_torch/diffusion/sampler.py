@@ -23,9 +23,17 @@ EpsModel = Callable[..., torch.Tensor]
 def apply_cfg(eps2, guidance_scale, guidance_rescale: float = 0.0):
     """``eps_u + s * (eps_c - eps_u)`` over a doubled batch (uncond first),
     with optional guidance rescale phi (Lin et al. 2023, §3.4):
-    ``phi * eps_cfg * std(eps_c)/std(eps_cfg) + (1-phi) * eps_cfg``."""
+    ``phi * eps_cfg * std(eps_c)/std(eps_cfg) + (1-phi) * eps_cfg``.
+
+    ``guidance_scale`` is a number or a per-slot [B, 1, 1, 1] tensor (the
+    server's micro-batches); either is cast to eps's dtype first, as the
+    JAX package does, so a float32 scale never upcasts bf16 eps."""
     eps_uncond, eps_cond = torch.chunk(eps2, 2, dim=0)
-    eps = eps_uncond + guidance_scale * (eps_cond - eps_uncond)
+    if torch.is_tensor(guidance_scale):
+        scale = guidance_scale.to(device=eps_cond.device, dtype=eps_cond.dtype)
+    else:  # rounded on the host: a device scalar would cost a copy a step
+        scale = torch.tensor(float(guidance_scale), dtype=eps_cond.dtype).item()
+    eps = eps_uncond + scale * (eps_cond - eps_uncond)
     if guidance_rescale == 0.0:
         return eps
     dims = tuple(range(1, eps.dim()))

@@ -69,6 +69,19 @@ def build_schedule(config: dict) -> DiffusionSchedule:
     )
 
 
+def apply_serving_modes(config: dict, unet: UNet, autoencoder) -> None:
+    """Switch the built, loaded models into the serving modes the config
+    asks for: ``tpu.quantize: int8`` (W8A8 U-Net ResBlock chains) and
+    ``tpu.quantize_attention: int8pv`` (int8 P.V in the U-Net's and the
+    autoencoder's self-attentions of 1024 or more tokens).  The only place
+    that reads these two keys."""
+    tpu = config["tpu"]
+    pv_int8 = tpu["quantize_attention"] == "int8pv"
+    unet.set_serving_modes(conv_quant=tpu["quantize"] == "int8",
+                           attention_pv_int8=pv_int8)
+    autoencoder.set_serving_modes(attention_pv_int8=pv_int8)
+
+
 @torch.no_grad()
 def randomize_(module: torch.nn.Module, seed: int, scale: float = 0.05):
     """Fill every parameter with N(0, 1) * ``scale`` drawn from a generator

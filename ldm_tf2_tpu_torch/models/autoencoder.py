@@ -5,7 +5,10 @@ Numerics kept from the JAX package: GroupNorm(32, eps=1e-6) throughout; the
 encoder's downsample pads asymmetrically [[0,1],[0,1]] before its stride-2
 VALID conv; the decoder upsamples nearest 2x + 3x3 conv; the residual
 shortcut is a Dense projection made only when the channel count changes.
-The single-head mid-block attention goes through the flash kernel.
+The single-head mid-block attention goes through the flash kernel, in
+its int8-P.V form at 1024 or more tokens when ``attention_pv_int8`` is set
+(``set_serving_modes``).  The int8 conv chains never apply here: the
+ResBlocks pass no int8 weights, as the JAX package's autoencoder opts out.
 ``AutoencoderVQ`` is not ported yet.
 """
 
@@ -17,7 +20,7 @@ from torch import nn
 
 from ldm_tf2_tpu_torch.models.distribution import DiagonalGaussian
 from ldm_tf2_tpu_torch.models.layers import Conv, Dense, GroupNorm, Norm
-from ldm_tf2_tpu_torch.ops.flash_attention import flash_attention
+from ldm_tf2_tpu_torch.ops.flash_attention import spatial_self_attention
 from ldm_tf2_tpu_torch.ops.fused_conv import gn_silu_conv3x3
 from ldm_tf2_tpu_torch.ops.resize import nearest_upsample_2x
 
@@ -50,7 +53,7 @@ class ResidualBlock(nn.Module):
 
 class AttentionBlock(nn.Module):
     """Single-head spatial self-attention over H*W tokens of width C,
-    scale C**-0.5, through the flash kernel."""
+    scale C**-0.5, through the flash kernel (int8 P.V when ``pv_int8``)."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -59,14 +62,15 @@ class AttentionBlock(nn.Module):
         self.key = Dense(channels, channels)
         self.value = Dense(channels, channels)
         self.output = Dense(channels, channels)
+        self.pv_int8 = False
 
     def forward(self, x):
         b, h, w, c = x.shape
         y = self.group_norm(x)
         shape = (b, h * w, 1, c)
-        out = flash_attention(
+        out = spatial_self_attention(
             self.query(y).reshape(shape), self.key(y).reshape(shape),
-            self.value(y).reshape(shape), c**-0.5,
+            self.value(y).reshape(shape), c**-0.5, self.pv_int8,
         ).reshape(b, h, w, c)
         return x + self.output(out)
 
@@ -193,6 +197,15 @@ class AutoencoderKL(nn.Module):
         self.post_quant_conv = Dense(latent_channels, latent_channels)
         self.decoder = Decoder(channels, 3, num_blocks, multipliers,
                                latent_channels)
+        self.attention_pv_int8 = False
+
+    def set_serving_modes(self, attention_pv_int8: bool = False) -> None:
+        """``tpu.quantize_attention: int8pv`` for the mid-block
+        attentions."""
+        self.attention_pv_int8 = bool(attention_pv_int8)
+        for m in self.modules():
+            if isinstance(m, AttentionBlock):
+                m.pv_int8 = self.attention_pv_int8
 
     def encode(self, x) -> DiagonalGaussian:
         h = self.quant_conv(self.encoder(x.to(self.dtype)))

@@ -16,6 +16,13 @@ Dispatch: every spatial self-attention goes through the flash kernel
 (``ops.flash_attention``), every FeedForward through the fused FFN kernel
 (``ops.fused_ffn``); the 77-token cross-attention is plain PyTorch.
 DeepCache (``shallow_cache``/``return_cache``) is not ported yet.
+
+Serving modes (``set_serving_modes``, set by ``factory.apply_serving_modes``
+from ``tpu.quantize`` / ``tpu.quantize_attention``): ``conv_quant`` sends the
+ResBlock chains the JAX package's int8 gate claims through the W8A8 kernels
+(``ops.quant_conv``), and ``attention_pv_int8`` runs the P.V product of the
+self-attentions of 1024 or more tokens in int8.  Both are attributes of
+the modules, so two models in one process do not share them.
 """
 
 from __future__ import annotations
@@ -30,9 +37,10 @@ from ldm_tf2_tpu_torch.models.layers import (
     Conv, Dense, GroupNorm, LayerNorm, Norm, Projection,
 )
 from ldm_tf2_tpu_torch.ops.attention import dot_product_attention
-from ldm_tf2_tpu_torch.ops.flash_attention import flash_attention
+from ldm_tf2_tpu_torch.ops.flash_attention import spatial_self_attention
 from ldm_tf2_tpu_torch.ops.fused_conv import gn_silu_conv3x3
 from ldm_tf2_tpu_torch.ops.fused_ffn import fused_ffn
+from ldm_tf2_tpu_torch.ops.quant_conv import int8_conv_weights
 from ldm_tf2_tpu_torch.ops.resize import nearest_upsample_2x
 
 
@@ -86,25 +94,41 @@ class ResidualBlock(nn.Module):
         self.shortcut = (
             Dense(in_channels, channels) if in_channels != channels else None
         )
+        self.set_conv_quant(False)
+
+    def set_conv_quant(self, enabled: bool) -> None:
+        """Switch the int8 chains on or off.  On, both conv kernels are
+        quantized once, from the weights as stored, into non-persistent
+        buffers (the weights are frozen at inference): switch it on after
+        the weights are loaded and cast."""
+        for i, conv in ((1, self.conv2d_1), (2, self.conv2d_2)):
+            w8, ws = (int8_conv_weights(conv.kernel.detach()) if enabled
+                      else (None, None))
+            self.register_buffer(f"w8_{i}", w8, persistent=False)
+            self.register_buffer(f"ws_{i}", ws, persistent=False)
 
     def forward(self, x, time_embedding):
         t = self.dense(F.silu(time_embedding))
+        q1, q2 = ((self.w8_1, self.ws_1), (self.w8_2, self.ws_2)) \
+            if self.w8_1 is not None else (None, None)
         h = gn_silu_conv3x3(
             x, self.group_norm_1.scale, self.group_norm_1.bias,
             self.conv2d_1.kernel, self.conv2d_1.bias, time_add=t, eps=1e-5,
+            int8_weights=q1,
         )
         shortcut = x if self.shortcut is None else self.shortcut(x)
         return gn_silu_conv3x3(
             h, self.group_norm_2.scale, self.group_norm_2.bias,
             self.conv2d_2.kernel, self.conv2d_2.bias, residual_add=shortcut,
-            eps=1e-5,
+            eps=1e-5, int8_weights=q2,
         )
 
 
 class CrossAttention(nn.Module):
     """q from the query, k/v from the context (self-attention when the
-    context is None).  Self-attention takes the flash kernel; attention to
-    the short text context takes plain PyTorch."""
+    context is None).  Self-attention takes the flash kernel (its int8-P.V
+    form at 1024 or more tokens when ``pv_int8`` is set); attention to the
+    short text context takes plain PyTorch."""
 
     def __init__(self, num_heads: int, size_per_head: int,
                  hidden_size: int | None = None):
@@ -116,13 +140,14 @@ class CrossAttention(nn.Module):
         self.value = Projection(num_heads, size_per_head, hidden_size)
         self.output = Projection(num_heads, size_per_head, width,
                                  use_bias=True, mode="merge")
+        self.pv_int8 = False
 
     def forward(self, query, context=None):
         is_self = context is None
         context = query if is_self else context
         q, k, v = self.query(query), self.key(context), self.value(context)
         if is_self:
-            out = flash_attention(q, k, v, self.scale)
+            out = spatial_self_attention(q, k, v, self.scale, self.pv_int8)
         else:
             out = dot_product_attention(q, k, v, self.scale)
         return self.output(out)
@@ -323,6 +348,22 @@ class UNet(nn.Module):
         self.num_output_blocks = idx
         self.group_norm = GroupNorm(ch, eps=1e-5, activate=True)
         self.conv_out = Conv(ch, out_channels)
+        self.conv_quant = False
+        self.attention_pv_int8 = False
+
+    def set_serving_modes(self, conv_quant: bool = False,
+                          attention_pv_int8: bool = False) -> None:
+        """The int8 serving modes (``tpu.quantize: int8``,
+        ``tpu.quantize_attention: int8pv``), pushed down to every ResBlock
+        and self-attention.  Call it after the weights are loaded and cast:
+        the int8 conv weights are taken from them once."""
+        self.conv_quant = bool(conv_quant)
+        self.attention_pv_int8 = bool(attention_pv_int8)
+        for m in self.modules():
+            if isinstance(m, ResidualBlock):
+                m.set_conv_quant(self.conv_quant)
+            elif isinstance(m, CrossAttention):
+                m.pv_int8 = self.attention_pv_int8
 
     def forward(self, x, time, context=None):
         """x: [B, H, W, C] latents (NHWC); time: [B]; context: [B, S, D].

@@ -11,7 +11,9 @@ that has only PyTorch:
 import pytest
 import torch
 
+from ldm_tf2_tpu_torch.ops import flash_attention as tfa
 from ldm_tf2_tpu_torch.ops import fused_ffn as tff
+from ldm_tf2_tpu_torch.ops import quant_conv as tqc
 from ldm_tf2_tpu_torch.ops.attention import dot_product_attention
 from ldm_tf2_tpu_torch.ops.flash_attention import flash_attention
 
@@ -77,3 +79,86 @@ def test_ffn_kernel_matches_plain_on_card(dtype, m, d):
     # f32: summation order only; bf16: rounding of y, u and the output
     tol = 1e-4 if dtype == torch.float32 else 6e-2
     assert float((got - ref).abs().max()) < tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 8, 8, 640), (2, 64, 64, 320)])
+def test_gn_silu_quant_kernel_matches_plain_on_card(dtype, shape):
+    """The serving path's 8x8 stage-1 shape and a large map (the TPU's
+    streaming class): one kernel covers both."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(1)
+    c = shape[-1]
+    x = (torch.randn(shape, generator=g, device="cuda") * 2 + 0.5).to(dtype)
+    gamma = torch.randn(c, generator=g, device="cuda") * 0.5 + 1.0
+    beta = torch.randn(c, generator=g, device="cuda") * 0.5
+    before = tqc.gn_silu_quant.launches
+    y8, sa = tqc.gn_silu_quant(x, gamma, beta)
+    assert tqc.gn_silu_quant.launches == before + 1
+    r8, rsa = tqc._plain_gn_silu_quant(x, gamma, beta, 32, 1e-5)
+    # float32 sums in another order: the scale to an ulp or two, the codes
+    # to one step where a value lies within that of a rounding midpoint
+    assert float(((sa - rsa).abs() / rsa).max()) <= 1e-6
+    diff = (y8.int() - r8.int()).abs()
+    assert int(diff.max()) <= 1 and float((diff > 0).float().mean()) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,cout,epilogue", [((8, 32, 32, 320), 320, "t"),
+                                                 ((8, 8, 8, 1280), 1280, "residual"),
+                                                 ((3, 5, 7, 64), 40, "t")])
+def test_s8_conv_kernel_matches_plain_on_card(dtype, shape, cout, epilogue):
+    """The plain version is F.conv2d in float64 on the int8 values, which is
+    exact, and the epilogue's float32 operations in the kernel's order: the
+    outputs must be equal, bit for bit."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(2)
+    b, h, w, cin = shape
+
+    def codes(*s):
+        return torch.randint(-127, 128, s, generator=g, device="cuda").to(torch.int8)
+
+    y8, w8 = codes(b, h, w, cin), codes(cout, 3, 3, cin)
+    sa = torch.rand(b, generator=g, device="cuda") * 0.1 + 0.01
+    ws = torch.rand(cout, generator=g, device="cuda") * 0.01 + 1e-3
+    bias = torch.randn(cout, generator=g, device="cuda")
+    extra = {"time_add": torch.randn(b, cout, generator=g, device="cuda").to(dtype)} \
+        if epilogue == "t" else \
+        {"residual_add": torch.randn(b, h, w, cout, generator=g, device="cuda").to(dtype)}
+    before = tqc.s8_conv3x3.launches
+    got = tqc.s8_conv3x3(y8, sa, w8, ws, bias, out_dtype=dtype, **extra)
+    assert tqc.s8_conv3x3.launches == before + 1
+    want = tqc._plain_s8_conv3x3(y8, sa, w8, ws, bias, extra.get("time_add"),
+                                 extra.get("residual_add"), dtype)
+    assert torch.equal(got, want)
+    one = torch.ones_like(sa), torch.ones_like(ws), torch.zeros_like(bias)
+    acc = tqc.s8_conv3x3(y8, one[0], w8, one[1], one[2])
+    exact = tqc._plain_s8_conv3x3(y8, one[0], w8, one[1], one[2], None, None,
+                                  torch.float32)
+    assert torch.equal(acc, exact)  # the integer sums
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,kv,h,s", [(2, 1024, 1024, 8, 40),
+                                         (1, 1024, 1024, 1, 512),
+                                         (2, 1000, 1000, 8, 40)])
+def test_pv_int8_kernel_matches_plain_on_card(dtype, b, t, kv, h, s):
+    """bf16 S = 40 takes the tensor-core path (s8 mma.sync for P.V); S = 512
+    and float32 the FMA path.  Both keep the JAX package's kv blocks."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v = (torch.randn(b, n, h, s, generator=g, device="cuda").to(dtype)
+               for n in (t, kv, kv))
+    before = tfa.flash_attention_pv_int8.launches
+    got = tfa.flash_attention_pv_int8(q, k, v, s**-0.5).float()
+    assert tfa.flash_attention_pv_int8.launches == before + 1
+    ref = tfa._plain_pv_int8(q.float(), k.float(), v.float(), s**-0.5)
+    # a p or v code flips where scores or values lie within an ulp of a
+    # rounding midpoint, moving an output by about 4/127; bf16 adds one
+    # rounding of the output (2^-8 relative)
+    err = (got - ref).abs()
+    assert float(err.max()) <= (2e-3 if dtype == torch.float32 else 1e-2)
+    assert float(err.norm() / ref.norm()) <= (1e-3 if dtype == torch.float32 else 5e-3)

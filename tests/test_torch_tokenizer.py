@@ -48,3 +48,15 @@ def test_cfg_token_ids_match(tokenizers):
         )
     with pytest.raises(ValueError):
         ttok.cfg_token_ids(ours, ["a", "b", "c"], 2)
+
+
+def test_packed_cfg_token_ids_match(tokenizers):
+    """The server's per-slot negatives (uncond rows) then per-slot prompts."""
+    fast, ours = tokenizers
+    prompts, negatives = ["a red fox", "two cats"], ["", "blurry, dark"]
+    np.testing.assert_array_equal(
+        ttok.packed_cfg_token_ids(ours, prompts, negatives, 12),
+        jtok.packed_cfg_token_ids(fast, prompts, negatives, 12),
+    )
+    with pytest.raises(ValueError):
+        ttok.packed_cfg_token_ids(ours, prompts, negatives[:1])
