@@ -7,12 +7,13 @@ Phases, each printed as it runs; any failure exits non-zero before the
 final line is printed:
 
 1. device: the card's name and power limit (nvidia-smi), CUDA present;
-2. build: the five CUDA sources compiled from ldm_tf2_tpu_torch/csrc with
+2. build: the six CUDA sources compiled from ldm_tf2_tpu_torch/csrc with
    nvcc, one process each, all started together;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes its path gives it, with its time, the plain version's time,
    the card's bound and, where one PyTorch call computes a comparable
-   function, that call's time as a yardstick (attention: SDPA; the s8
+   function, that call's time as a yardstick (attention: SDPA, and the
+   backward of SDPA through autograd for the flash backward; the s8
    conv: cuDNN's float32 conv of the same codes, and the bf16 GN -> SiLU
    -> conv chain that int8 replaces);
 4. unet: one full-width U-Net eval (CFG batch 4, 32x32 latent, seeded
@@ -27,7 +28,16 @@ final line is printed:
    modes (``tpu.quantize: int8``, ``quantize_attention: int8pv``) at the
    north-star widths, batch 4, 50 steps, on four requests from an
    in-memory stream, with the launch counts read around it and held to
-   what the north-star U-Net dispatches (``SERVE_EVAL``).
+   what the north-star U-Net dispatches (``SERVE_EVAL``);
+7. train: the stage-2 trainer (``cli/run_ldm_trainer.train``) at the
+   north-star widths, batch 8, 256^2, bf16 compute over float32 U-Net
+   masters, frozen text encoder and autoencoder in bf16, U-Net and
+   condition dropout 0.1, EMA on, in-memory batches: 2 warm-up steps, then
+   5 timed steps with the launch counts read around them (``TRAIN_STEP``),
+   then 2 steps under the profiler.  Before it, the kernels phase checks
+   the flash backward kernels at the training path's shapes, and a gradient
+   phase holds a north-star-width U-Net's parameter gradients on the card
+   to the CPU's in float32.
 
 The last lines are the kernels JSON, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``.
@@ -49,8 +59,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # elementwise work use FMAs), and HBM bandwidth.
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 PEAK_BYTES = 3.35e12
+SOURCES = ("flash_attention", "fused_ffn", "gn_silu_quant", "s8_conv3x3",
+           "flash_attention_pv_int8", "flash_attention_bwd")
 KERNELS = ("flash_attention", "fused_ffn", "gn_silu_quant", "s8_conv3x3",
-           "flash_attention_pv_int8")
+           "flash_attention_pv_int8", "flash_backward_dq", "flash_backward_dkv")
 
 # (B, Tq, Tk, H, S): the main path's self-attentions (CFG batch 4), then
 # the serve path's bf16 ones (CFG batch 8; its level-0 ones take int8 P.V)
@@ -89,6 +101,30 @@ FFN_TOL = {"float32": (1e-3, 1e-5), "bfloat16": (1e-1, 1e-2)}
 # a rounding midpoint, moving an output by about 4/127 of the block's |v|
 # range; bf16 adds one rounding of the output.
 PV_TOL = {"float32": (2e-3, 1e-3), "bfloat16": (1e-2, 5e-3)}  # (max abs, rel L2)
+# (B, Tq, Tk, H, S, extreme): the training path's self-attentions at batch
+# 8, 256^2, then a ragged kv whose logits lie near -160 (an unmasked padded
+# key would overflow exp()), then the autoencoder's 512-wide head
+BWD_SHAPES = [
+    (8, 1024, 1024, 8, 40, False), (8, 256, 256, 8, 80, False),
+    (8, 64, 64, 8, 160, False), (8, 16, 16, 8, 160, False),
+    (4, 1000, 1000, 8, 40, True), (2, 1024, 1024, 1, 512, False),
+]
+# rel-L2 of dq, dk, dv against the plain version on the kernel's own lse and
+# di: float32 differs in summation order only; bf16 rounds each output once
+# (about 2^-9 relative)
+BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# Gradient phase: a north-star-width U-Net (one block per level), card vs
+# CPU, float32 with TF32 off: summation order through ~40 layers forward and
+# back; rel-L2 of each parameter group's gradients
+GRAD_TOL = 1e-3
+# What one train step launches at the north star: 16 U-Net self-attention
+# forwards (saving lse) plus the autoencoder encoder's mid-block attention,
+# 16 dq and 16 dk/dv backward launches, 16 FFN forwards (its backward
+# recomputes in PyTorch), no int8 kernel
+TRAIN_STEP = {"flash_attention": 17, "flash_backward_dq": 16,
+              "flash_backward_dkv": 16, "fused_ffn": 16,
+              "flash_attention_pv_int8": 0, "gn_silu_quant": 0, "s8_conv3x3": 0}
+
 # Full-width U-Net, card vs CPU float32: float32 differs in summation order
 # through ~70 layers; bfloat16 stores weights and activations in 8 bits of
 # mantissa throughout.  In the int8 modes summation order also flips a code
@@ -242,6 +278,7 @@ def phase_kernels():
                 f"{'PASS' if ok else 'FAIL'}; ms {ms:.4f} plain {plain:.4f} "
                 f"bound {bms:.4f} ({by})")
     phase_int8_kernels(results, randn)
+    phase_backward_kernels(results, randn)
     summary = ", ".join(
         f"{k} {'pass' if all(r['ok'] for r in rows) else 'FAIL'} "
         f"({sum(r['ok'] for r in rows)}/{len(rows)} checks)"
@@ -367,6 +404,145 @@ def phase_int8_kernels(results, randn):
                 f"{max_abs:.3e} (tol {tol_abs:g}) rel_l2 {rel:.3e} (tol {tol_rel:g}) "
                 f"{'PASS' if ok else 'FAIL'}; ms {ms:.4f} plain {plain:.4f} sdpa "
                 f"{lib:.4f} bound {bms:.4f} ({by})")
+
+
+def phase_backward_kernels(results, randn):
+    """The training path's flash backward: the forward's lse and the dq and
+    dk/dv kernels, each against its plain version on the kernel's own
+    residuals, with times, bounds and the SDPA backward as the yardstick."""
+    import torch
+    import torch.nn.functional as F
+
+    from ldm_tf2_tpu_torch.ops import flash_attention as fa
+
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        for b, tq, tk, h, s, extreme in BWD_SHAPES:
+            q, k, v, do = (randn(b, n, h, s) for n in (tq, tk, tk, tq))
+            if extreme:
+                q, k = q + 5.0, k - 5.0
+            q, k, v, do = (x.to(dtype) for x in (q, k, v, do))
+            scale = s**-0.5
+            out, lse = fa._launch(q, k, v, scale, with_lse=True)
+            di = fa._di(out, do)
+            dq = fa.flash_backward_dq(q, k, v, do, lse, di, scale)
+            dk, dv = fa.flash_backward_dkv(q, k, v, do, lse, di, scale)
+            args = (q.float(), k.float(), v.float(), do.float(), lse, di, scale)
+            ref_lse = fa._plain_forward(q.float(), k.float(), v.float(), scale)[1]
+            ref = {"dq": fa._plain_dq(*args), "dkv": fa._plain_dkv(*args)}
+            torch.cuda.synchronize()
+            lse_err = float((lse - ref_lse).abs().max())
+            errs = {"dq": [errors(dq, ref["dq"])],
+                    "dkv": [errors(dk, ref["dkv"][0]), errors(dv, ref["dkv"][1])]}
+            finite = all(bool(torch.isfinite(x.float()).all()) for x in (dq, dk, dv))
+            plain = {"dq": lambda: fa._plain_dq(q, k, v, do, lse, di, scale),
+                     "dkv": lambda: fa._plain_dkv(q, k, v, do, lse, di, scale)}
+            kernel = {"dq": lambda: fa.flash_backward_dq(q, k, v, do, lse, di, scale),
+                      "dkv": lambda: fa.flash_backward_dkv(q, k, v, do, lse, di, scale)}
+            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                          for x in (q, k, v))
+            sdpa = F.scaled_dot_product_attention(qt, kt, vt, scale=scale)
+            dot = do.transpose(1, 2)
+            lib = time_ms(lambda: torch.autograd.grad(sdpa, (qt, kt, vt), dot,
+                                                      retain_graph=True))
+            flops = 2.0 * b * h * tq * tk * s
+            elem = q.element_size()
+            # dq reads q, dO, k, v, lse, di and writes dq; dk/dv reads q, dO,
+            # k, v, lse, di and writes dk, dv
+            io = {"dq": (3 * b * tq + 2 * b * tk) * h * s * elem + 8 * b * h * tq,
+                  "dkv": (2 * b * tq + 4 * b * tk) * h * s * elem + 8 * b * h * tq}
+            for part, n_ops in (("dq", 3), ("dkv", 4)):
+                max_abs = max(e[0] for e in errs[part])
+                rel = max(e[1] for e in errs[part])
+                ok = finite and rel < BWD_TOL[name] and lse_err < 1e-4
+                ms = time_ms(kernel[part])
+                plain_ms = time_ms(plain[part], iters=5)
+                bms, by = bound_ms(io[part], n_ops * flops, name)
+                results[f"flash_backward_{part}"].append(dict(
+                    shape=[b, tq, tk, h, s], extreme=extreme, dtype=name,
+                    max_abs_err=max_abs, rel_l2=rel, ok=ok, ms=ms, plain_ms=plain_ms,
+                    library_ms=lib, bound_ms=bms, bound_by=by))
+                log(f"flash_backward_{part} {name} q[{b},{tq},{h},{s}] kv {tk}"
+                    f"{' extreme' if extreme else ''}: rel_l2 {rel:.3e} (tol "
+                    f"{BWD_TOL[name]:g}) max_abs {max_abs:.3e} lse {lse_err:.1e} "
+                    f"finite {finite} {'PASS' if ok else 'FAIL'}; ms {ms:.4f} plain "
+                    f"{plain_ms:.4f} sdpa-backward {lib:.4f} bound {bms:.4f} ({by})")
+
+
+def _grad_group(name: str) -> str:
+    if ".att_layer" in name:
+        return "attention projections"
+    if ".ffn.geglu." in name:
+        return "GEGLU"
+    if ".ffn.dense." in name or "layernorm3" in name:
+        return "FFN out + layernorm3"
+    if name.endswith("kernel") and ("conv" in name or "sample" in name):
+        return "convs"
+    return "norms, biases, other dense"
+
+
+def phase_grad():
+    """Parameter gradients of a U-Net at the north-star widths (one block
+    per level to spare the CPU), batch 1 at a 32x32 latent, training mode
+    with dropout on at a rate that keeps every element (1e-9: the split
+    ResidualBlock chain and the attention output dropout run, as in the
+    train phase, and neither device drops anything): card against CPU,
+    float32, TF32 off."""
+    import torch
+
+    from ldm_tf2_tpu_torch import factory
+    from ldm_tf2_tpu_torch.configs.loader import validate
+    from ldm_tf2_tpu_torch.ops import flash_attention as fa
+
+    config = json.loads(json.dumps(NORTH_STAR))
+    config["unet"].update(num_blocks=1, dropout_rate=1e-9)
+    config = validate({**config, "tpu": {"compute_dtype": "float32"}})
+    gen = torch.Generator().manual_seed(41)
+    x = torch.randn(1, 32, 32, 4, generator=gen)
+    ctx = torch.randn(1, 77, 1280, generator=gen)
+    target = torch.randn(1, 32, 32, 4, generator=gen)
+    t = torch.tensor([437.0])
+    grads, seconds = {}, {}
+    cpu_unet = factory.build_trainable_unet(config, "cpu", seed=42)
+    for device in ("cuda", "cpu"):
+        if device == "cpu":
+            unet = cpu_unet
+        else:
+            unet = factory.build_trainable_unet(config, device, seed=42)
+            unet.load_state_dict(cpu_unet.state_dict())
+        start = time.perf_counter()
+        before = fa.flash_backward_dq.launches
+        out = unet(x.to(device), t.to(device), ctx.to(device), training=True,
+                   generator=torch.Generator(device).manual_seed(0))
+        loss = ((out - target.to(device)) ** 2).mean()
+        names, params = zip(*unet.named_parameters())
+        got = torch.autograd.grad(loss, params, allow_unused=True)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            check(fa.flash_backward_dq.launches - before > 0,
+                  "the card's backward ran no dq kernel")
+        seconds[device] = time.perf_counter() - start
+        check(all(g is not None for g in got), f"{device}: a parameter got no gradient")
+        grads[device] = {n: g.float().cpu() for n, g in zip(names, got)}
+        del unet, out, loss, got
+    del cpu_unet
+    torch.cuda.empty_cache()
+    groups: dict[str, list] = {}
+    for n, want in grads["cpu"].items():
+        groups.setdefault(_grad_group(n), []).append((grads["cuda"][n].flatten(),
+                                                      want.flatten()))
+    report = {}
+    for group, pairs in groups.items():
+        got = torch.cat([a for a, _ in pairs])
+        want = torch.cat([b for _, b in pairs])
+        report[group] = (float((got - want).norm() / want.norm()), len(pairs))
+    ok = all(rel < GRAD_TOL for rel, _ in report.values())
+    log(f"grad: north-star-width U-Net (1 block per level, {len(grads['cpu'])} "
+        f"tensors), batch 1, 32x32, card vs CPU float32 (card {seconds['cuda']:.2f} s, "
+        f"CPU {seconds['cpu']:.1f} s): " + "; ".join(
+            f"{g} rel_l2 {r:.2e} ({n} tensors)" for g, (r, n) in report.items())
+        + f" (bound {GRAD_TOL:g}) {'PASS' if ok else 'FAIL'}")
+    check(ok, f"U-Net gradients on the card disagree with the CPU's: {report}")
 
 
 def phase_unet():
@@ -570,6 +746,8 @@ def phase_serve(card: str, models):
 
 def _kernel_group(name: str) -> str:
     low = name.lower()
+    if "flash_bwd" in low:
+        return "flash backward kernels"
     if "flash_fwd" in low:
         return "flash_attention kernel"
     if "pv_int8" in low or "v_scale" in low:
@@ -585,6 +763,136 @@ def _kernel_group(name: str) -> str:
     if "gemm" in low or "cutlass" in low or "xmma" in low:
         return "matmul (cuBLAS)"
     return "elementwise / norm / copy"
+
+
+def phase_train(card: str):
+    """The stage-2 trainer at the north star through ``train()``: 2 warm-up
+    steps, 5 timed steps with the launch counts read around them, 2 steps
+    under the profiler; each call starts from a fresh optimizer state and
+    goes on training the same U-Net."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ldm_tf2_tpu_torch import factory
+    from ldm_tf2_tpu_torch.cli.run_ldm_trainer import train
+    from ldm_tf2_tpu_torch.configs.loader import validate
+    from ldm_tf2_tpu_torch.ops import flash_attention as fa
+    from ldm_tf2_tpu_torch.ops import quant_conv as qc
+    from ldm_tf2_tpu_torch.ops.fused_ffn import fused_ffn
+
+    batch, size = 8, 256
+    config = json.loads(json.dumps(NORTH_STAR))
+    config["tpu"] = dict(compute_dtype="bfloat16", frozen_weights_dtype="bfloat16",
+                         log_per_iterations=1)
+    config["ldm_training"] = dict(
+        root_path=None, params=dict(batch_size=batch, image_size=size),
+        autoencoder_type="kl", ckpt_path=None, num_iterations=2,
+        train_cond_model=False, condition_dropout_rate=0.1, ema_decay=0.9999)
+    config["latent_diffusion_optimizer"] = dict(learning_rate=5e-5)
+    config = validate(config)
+    start = time.perf_counter()
+    models = (
+        factory.randomize_(factory.build_cond_model(config, "cuda", "frozen_weights_dtype"), 51),
+        factory.build_trainable_unet(config, "cuda", seed=52),
+        factory.randomize_(factory.build_autoencoder(config, "kl", "cuda",
+                                                     "frozen_weights_dtype"), 53),
+    )
+    frozen = [p.detach().clone() for m in (models[0], models[2]) for p in m.parameters()]
+    unet0 = [p.detach().clone() for p in models[1].parameters()]
+    torch.cuda.synchronize()
+    log(f"train: built the models (U-Net "
+        f"{sum(p.numel() for p in models[1].parameters()) / 1e9:.3f} B float32 params) "
+        f"in {time.perf_counter() - start:.1f} s")
+    rng = np.random.default_rng(54)
+
+    def batches(n):
+        for _ in range(n):
+            ids = rng.integers(1000, 30000, (batch, 77))
+            ids[:, 0], ids[:, 20], ids[:, 21:] = 101, 102, 0
+            yield (rng.uniform(-1, 1, (batch, size, size, 3)).astype(np.float32), ids)
+
+    def run(steps):
+        config["ldm_training"]["num_iterations"] = steps
+        data = list(batches(steps))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, records = train(config, device="cuda", seed=55, batches=data, models=models)
+        torch.cuda.synchronize()
+        return records, time.perf_counter() - t0
+
+    warm, _ = run(2)
+    counters = {"flash_attention": fa.flash_attention,
+                "flash_backward_dq": fa.flash_backward_dq,
+                "flash_backward_dkv": fa.flash_backward_dkv, "fused_ffn": fused_ffn,
+                "flash_attention_pv_int8": fa.flash_attention_pv_int8,
+                "gn_silu_quant": qc.gn_silu_quant, "s8_conv3x3": qc.s8_conv3x3}
+    steps = 5
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    records, seconds = run(steps)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prof_records, prof_seconds = run(2)
+    losses = [r["loss"] for r in warm + records + prof_records]
+    check(all(np.isfinite(losses)), f"train losses {losses}")
+    step_s = [b["time"] - a["time"] for a, b in zip(records, records[1:])]
+    s_per_step = statistics.median(step_s)
+    log(f"train on {card}: batch {batch}, {size}^2, bf16 compute, float32 U-Net masters, "
+        f"{steps} steps in {seconds:.3f} s (optimizer state and first step included); "
+        f"steps 2-{steps}: {s_per_step:.4f} s/step median "
+        f"({', '.join(f'{x:.4f}' for x in step_s)}), {batch / s_per_step:.3f} img/s; "
+        f"peak memory {peak_gb:.2f} GB; losses {', '.join(f'{x:.4f}' for x in losses)}; "
+        f"launches over {steps} steps {launches}")
+    want = {k: steps * v for k, v in TRAIN_STEP.items()}
+    check(launches == want, f"train launch counts {launches}, expected {want}")
+    moved = sum(not torch.equal(a, p) for a, p in zip(unet0, models[1].parameters()))
+    same = all(torch.equal(a, p) for a, p in zip(
+        frozen, [p for m in (models[0], models[2]) for p in m.parameters()]))
+    log(f"train: {moved} of {len(unet0)} U-Net parameter tensors moved; text encoder "
+        f"and autoencoder {'bit-unchanged' if same else 'CHANGED'}")
+    check(moved == len(unet0) and same, "train: parameters moved where they should not, "
+          "or stayed where they should move")
+    _profile_report(prof, 2, f"train step at batch {batch}", prof_seconds * 1e3,
+                    bare_ms=2 * s_per_step * 1e3)
+    return launches
+
+
+def _profile_report(prof, n: int, what: str, wall_ms: float,
+                    bare_ms: float | None = None) -> None:
+    """Device time by kernel group per unit over a profiled window of ``n``
+    units, and the device's idle share of the window's wall time (and of
+    ``bare_ms``, the same work timed without the profiler, when given)."""
+    import torch
+
+    groups: dict[str, float] = {}
+    kernels: dict[str, tuple[float, int]] = {}
+    for evt in prof.key_averages():
+        dev_us = getattr(evt, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(evt, "self_cuda_time_total", 0.0)
+        if dev_us and getattr(evt, "device_type", None) == torch.autograd.DeviceType.CUDA:
+            key = _kernel_group(evt.key)
+            groups[key] = groups.get(key, 0.0) + dev_us / 1e3
+            kernels[evt.key] = (dev_us / 1e3, evt.count)
+    busy = sum(groups.values())
+    if busy <= 0.0:
+        log("profile: the profiler recorded no device time")
+        return
+    parts = ", ".join(f"{k} {v / n:.2f} ms ({v / busy:.1%})"
+                      for k, v in sorted(groups.items(), key=lambda kv: -kv[1]))
+    launches = sum(c for _, c in kernels.values()) / n
+    bare = "" if bare_ms is None else (
+        f"{bare_ms / n:.2f} ms wall per unit without the profiler, ")
+    idle = "" if bare_ms is None else f"{1 - busy / bare_ms:.1%} of the unprofiled wall, "
+    log(f"profile: {what}, {n} units: {bare}{wall_ms / n:.2f} ms with it; device busy "
+        f"{busy / n:.2f} ms in {launches:.0f} kernel launches, idle share {idle}"
+        f"{1 - busy / wall_ms:.1%} profiled; by group: {parts}")
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
+    log("profile: top kernels per unit: " + "; ".join(
+        f"{name[:60]} {ms / n:.3f} ms x{c // n}" for name, (ms, c) in top))
 
 
 def phase_profile(unet, shape, evals: int = 3):
@@ -614,33 +922,8 @@ def phase_profile(unet, shape, evals: int = 3):
                 unet(x, t, ctx)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - start) * 1e3
-    groups: dict[str, float] = {}
-    kernels: dict[str, tuple[float, int]] = {}
-    for evt in prof.key_averages():
-        dev_us = getattr(evt, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(evt, "self_cuda_time_total", 0.0)
-        if dev_us and getattr(evt, "device_type", None) == torch.autograd.DeviceType.CUDA:
-            key = _kernel_group(evt.key)
-            groups[key] = groups.get(key, 0.0) + dev_us / 1e3
-            kernels[evt.key] = (dev_us / 1e3, evt.count)
-    busy = sum(groups.values())
-    if busy <= 0.0:
-        log("profile: the profiler recorded no device time")
-        return
-    parts = ", ".join(f"{k} {v / evals:.2f} ms ({v / busy:.1%})"
-                      for k, v in sorted(groups.items(), key=lambda kv: -kv[1]))
-    launches = sum(n for _, n in kernels.values()) / evals
     modes = "int8 + int8-P.V" if unet.conv_quant else "bf16"
-    log(f"profile: {modes} U-Net eval at CFG batch {b2}, {evals} evals: "
-        f"{bare_ms / evals:.2f} ms wall per eval without the profiler, "
-        f"{wall_ms / evals:.2f} ms with it; device busy {busy / evals:.2f} ms "
-        f"in {launches:.0f} kernel launches, idle share "
-        f"{1 - busy / bare_ms:.1%} of the unprofiled wall "
-        f"({1 - busy / wall_ms:.1%} profiled); by group: {parts}")
-    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
-    log("profile: top kernels per eval: " + "; ".join(
-        f"{name[:60]} {ms / evals:.3f} ms x{n // evals}" for name, (ms, n) in top))
+    _profile_report(prof, evals, f"{modes} U-Net eval at CFG batch {b2}", wall_ms, bare_ms)
 
 
 def main() -> int:
@@ -657,27 +940,36 @@ def main() -> int:
     from ldm_tf2_tpu_torch.ops import _build
 
     factory.set_float32_precision()
-    seconds = _build.build(KERNELS)
+    seconds = _build.build(SOURCES)
     log("build: " + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()))
 
     results = phase_kernels()
     phase_unet()
+    phase_grad()
     launches, models = phase_main_path(card)
-    # the serving path's kernels report their launches in the serve run
+    # the serving path's kernels report their launches in the serve run,
+    # the backward kernels theirs in the train run
     launches.update({k: v for k, v in phase_serve(card, models).items()
                      if k not in launches})
+    del models
+    torch.cuda.empty_cache()
+    launches.update({k: v for k, v in phase_train(card).items() if k not in launches})
 
     replaces = {"flash_attention": "ldm_tf2_tpu/ops/flash_attention.py:147",
                 "fused_ffn": "ldm_tf2_tpu/ops/fused_ffn.py:132",
                 "gn_silu_quant": "ldm_tf2_tpu/ops/quant_conv.py:104",
                 "s8_conv3x3": "ldm_tf2_tpu/ops/quant_conv.py:722",
-                "flash_attention_pv_int8": "ldm_tf2_tpu/ops/flash_attention.py:186"}
+                "flash_attention_pv_int8": "ldm_tf2_tpu/ops/flash_attention.py:186",
+                "flash_backward_dq": "ldm_tf2_tpu/ops/flash_attention.py:347",
+                "flash_backward_dkv": "ldm_tf2_tpu/ops/flash_attention.py:392"}
+    source = {"flash_backward_dq": "flash_attention_bwd",
+              "flash_backward_dkv": "flash_attention_bwd"}
     kernels = []
     for name, rows in results.items():
         main_row = rows[0]  # bf16 at the path's first (level-0) shape
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"ldm_tf2_tpu_torch/csrc/{name}.cu",
+            "source": f"ldm_tf2_tpu_torch/csrc/{source.get(name, name)}.cu",
             "replaces": replaces[name], "launches": launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],

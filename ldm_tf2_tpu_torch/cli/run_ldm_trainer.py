@@ -1,0 +1,164 @@
+"""Stage-2 LDM training CLI of the PyTorch port (counterpart of
+``ldm_tf2_tpu.cli.run_ldm_trainer``):
+
+    python -m ldm_tf2_tpu_torch.cli.run_ldm_trainer \\
+        --config_path <yaml> --params_blob <path without .bin/.json> \\
+        [--seed 0] [--device cuda]
+
+A fresh U-Net (float32 masters, ``tpu.compute_dtype`` compute) is trained
+against the pretrained text encoder and KL autoencoder from the weight
+blob, both frozen in ``tpu.frozen_weights_dtype`` (the text encoder
+trains, in float32, when ``ldm_training.train_cond_model`` is true).
+Batches come from the ``*.tfrecord`` files under
+``ldm_training.root_path``.  The state (step, U-Net and trained
+text-encoder parameters, optimizer state, EMA, seed) is saved to
+``ldm_training.ckpt_path`` every ``tpu.persist_per_iterations`` steps
+(1000 when null) and at the end, and the newest checkpoint there is
+restored at start; a null ``ckpt_path`` saves nothing.  Loss and images/s
+are logged every ``tpu.log_per_iterations`` steps.
+
+Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
+item: ``tpu.remat``, ``tpu.deterministic_data`` (the indexed loader), the
+VQ autoencoder and a device mesh.  ``train(config, ..., batches=...,
+models=...)`` takes in-memory batches and built models instead of the
+files and the blob.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+from ldm_tf2_tpu_torch import factory
+from ldm_tf2_tpu_torch.cli.run_ldm_sampler import _multi_device
+
+_UNSUPPORTED = (
+    (lambda c: c["tpu"]["remat"] not in (False, None),
+     "tpu.remat: recomputing the forward must replay the dropout draws of "
+     "explicit generators (ROADMAP queue A item 15)"),
+    (lambda c: c["tpu"]["deterministic_data"],
+     "tpu.deterministic_data, the indexed loader (ROADMAP queue A item 12)"),
+    (lambda c: c["ldm_training"].get("autoencoder_type", "kl") != "kl",
+     "the VQ autoencoder (ROADMAP queue A item 9)"),
+    (_multi_device,
+     "a device mesh or multi-process data parallelism (ROADMAP queue A item 13)"),
+)
+
+
+def check_supported(config: dict) -> None:
+    for test, what in _UNSUPPORTED:
+        if test(config):
+            raise NotImplementedError(f"not ported yet: {what}")
+
+
+def _load_models(config, params_blob_path, device, seed):
+    from ldm_tf2_tpu_torch.checkpoints.bridge import load_params, read_blob
+
+    train_cond = config["ldm_training"]["train_cond_model"]
+    blob = read_blob(params_blob_path)
+    cond_model = load_params(
+        factory.build_cond_model(
+            config, device, None if train_cond else "frozen_weights_dtype"),
+        blob["cond_stage_model"])
+    autoencoder = load_params(
+        factory.build_autoencoder(config, "kl", device, "frozen_weights_dtype"),
+        blob["autoencoder"])
+    return cond_model, factory.build_trainable_unet(config, device, seed), autoencoder
+
+
+def train(config: dict, params_blob_path: str | None = None, device="cuda", *,
+          seed: int = 0, batches=None, models=None):
+    """Run the trainer on a validated config.  ``models``: (cond_model,
+    unet, autoencoder) already on ``device``, else they come from the blob
+    and a fresh U-Net seeded with ``seed``.  ``batches``: an iterable of
+    (images [B, H, W, 3] in [-1, 1], token ids [B, L]), else the TFRecord
+    loader.  Returns (train state, the logger's records)."""
+    from ldm_tf2_tpu_torch.checkpoints.manager import CheckpointManager
+    from ldm_tf2_tpu_torch.configs.loader import compute_dtype
+    from ldm_tf2_tpu_torch.data.dataset import create_dataset, list_tfrecords
+    from ldm_tf2_tpu_torch.data.tokenizer import null_condition_ids
+    from ldm_tf2_tpu_torch.training.ldm_trainer import (
+        checkpoint_state, init_ldm_train_state, make_ldm_train_step,
+        make_optimizer, restore_state,
+    )
+    from ldm_tf2_tpu_torch.utils.logging import MetricLogger
+
+    check_supported(config)
+    device = factory.resolve_device(device)
+    factory.set_float32_precision()
+    training, tpu = config["ldm_training"], config["tpu"]
+    train_cond = training["train_cond_model"]
+    if models is None:
+        models = _load_models(config, params_blob_path, device, seed)
+    cond_model, unet, autoencoder = models
+    unet.requires_grad_(True)
+    cond_model.requires_grad_(train_cond)
+    autoencoder.requires_grad_(False)
+
+    ema_decay = training.get("ema_decay")
+    optimizer = make_optimizer(**(config.get("latent_diffusion_optimizer") or {}),
+                               accum_steps=training.get("grad_accum_steps", 1))
+    max_seq_len = config["cond_stage_model"]["max_seq_len"]
+    train_step = make_ldm_train_step(
+        unet, cond_model, autoencoder, factory.build_schedule(config), optimizer,
+        scale_factor=config["ldm"]["scale_factor"],
+        condition_dropout_rate=training["condition_dropout_rate"],
+        train_cond_model=train_cond,
+        null_token_ids=null_condition_ids(1, max_seq_len)[0],
+        ema_decay=ema_decay, encode_chunks=tpu["encode_chunks"], seed=seed,
+    )
+    state = init_ldm_train_state(unet, cond_model, optimizer, train_cond, ema_decay)
+    trained_cond = cond_model if train_cond else None
+
+    manager = (CheckpointManager(training["ckpt_path"])
+               if training.get("ckpt_path") else None)
+    restored = manager.restore_latest() if manager else None
+    if restored is not None:
+        state = restore_state(restored[1], unet, trained_cond)
+        print(f"[INFO] Restored checkpoint at step {state.step}...")
+    else:
+        print("[INFO] Training from scratch...")
+    if batches is None:
+        batches = create_dataset(list_tfrecords(training["root_path"]),
+                                 **training["params"], max_seq_len=max_seq_len,
+                                 random_seed=seed)
+
+    persist_every = tpu["persist_per_iterations"] or 1000
+    logger = MetricLogger(log_per_iterations=tpu["log_per_iterations"])
+    num_iterations = training["num_iterations"]
+    img_dtype = compute_dtype(config)
+    step = state.step
+    for images, token_ids in batches if step < num_iterations else ():
+        images = torch.as_tensor(images).to(device=device, dtype=img_dtype)
+        token_ids = torch.as_tensor(token_ids).to(device=device, dtype=torch.long)
+        state, metrics = train_step(state, images, token_ids)
+        step = state.step
+        logger.log(step, metrics, batch_size=images.shape[0])
+        if manager and step % persist_every == 0:
+            print(f"[INFO] Saving checkpoint at global step {step}...")
+            manager.save(step, checkpoint_state(state, unet, trained_cond, seed))
+        if step >= num_iterations:
+            break
+    if manager and step % persist_every != 0:
+        print(f"[INFO] Saving final checkpoint at global step {step}...")
+        manager.save(step, checkpoint_state(state, unet, trained_cond, seed))
+    return state, logger.records
+
+
+def main(argv=None) -> None:
+    from ldm_tf2_tpu_torch.configs.loader import load_config
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--config_path", required=True)
+    parser.add_argument("--params_blob", required=True,
+                        help="blob path without the .bin/.json suffix")
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--device", default="cuda")
+    args = parser.parse_args(argv)
+    train(load_config(args.config_path), args.params_blob, args.device,
+          seed=args.seed)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,10 +1,16 @@
-"""Config loading and validation for the port's DDIM sampling path.
+"""Config loading and validation for the port's sampling, serving and
+LDM-training paths.
 
 The key surface is the JAX package's ``all_in_one_config.yaml``; the
 ``tpu:`` section's ``compute_dtype`` and ``weights_dtype`` choose the
 port's activation and weight dtypes, and ``quantize`` (none | int8) and
-``quantize_attention`` (none | int8pv) its serving modes.  ``yaml`` is imported only when a
-file is loaded, so a config built as a dict needs no yaml package.
+``quantize_attention`` (none | int8pv) its serving modes.  The trainer
+reads ``ldm_training``, ``latent_diffusion_optimizer`` and the ``tpu:``
+keys ``frozen_weights_dtype``, ``remat``, ``encode_chunks``,
+``persist_per_iterations``, ``log_per_iterations`` and
+``deterministic_data``; they are checked when present.  ``yaml`` is
+imported only when a file is loaded, so a config built as a dict needs no
+yaml package.
 """
 
 from __future__ import annotations
@@ -20,11 +26,24 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _TPU_DEFAULTS: dict[str, Any] = {
     "compute_dtype": "bfloat16",
     "weights_dtype": None,
+    "frozen_weights_dtype": None,
     "quantize": "none",
     "quantize_attention": "none",
     "sequence_parallel": False,
     "tensor_parallel": False,
+    "remat": False,
+    "deterministic_data": False,
+    "encode_chunks": 1,
+    "persist_per_iterations": None,
+    "log_per_iterations": 100,
 }
+
+# make_optimizer's keywords (the JAX package's latent_diffusion_optimizer)
+OPTIMIZER_KEYS = (
+    "learning_rate", "beta_1", "beta_2", "epsilon", "weight_decay",
+    "warmup_steps", "decay_steps", "end_learning_rate_factor",
+    "clip_grad_norm", "mu_dtype",
+)
 
 
 def _is_int(x: Any) -> bool:
@@ -68,10 +87,27 @@ def validate(config: dict) -> dict:
             f"tpu.compute_dtype must be one of {sorted(_DTYPES)}, got "
             f"{tpu['compute_dtype']!r}"
         )
-    if tpu["weights_dtype"] is not None and tpu["weights_dtype"] not in _DTYPES:
+    for key in ("weights_dtype", "frozen_weights_dtype"):
+        if tpu[key] is not None and tpu[key] not in _DTYPES:
+            raise ValueError(
+                f"tpu.{key} must be null or one of {sorted(_DTYPES)}, got "
+                f"{tpu[key]!r}"
+            )
+    for key in ("encode_chunks", "log_per_iterations"):
+        if not _is_int(tpu[key]) or tpu[key] < 1:
+            raise ValueError(f"tpu.{key} must be an int >= 1, got {tpu[key]!r}")
+    persist = tpu["persist_per_iterations"]
+    if persist is not None and (not _is_int(persist) or persist < 1):
         raise ValueError(
-            f"tpu.weights_dtype must be null or one of {sorted(_DTYPES)}, got "
-            f"{tpu['weights_dtype']!r}"
+            f"tpu.persist_per_iterations must be null or an int >= 1, got {persist!r}"
+        )
+    if tpu["remat"] not in (False, True, "full", "blocks", "dots"):
+        raise ValueError(
+            f"tpu.remat must be one of false|true|full|blocks|dots, got {tpu['remat']!r}"
+        )
+    if not isinstance(tpu["deterministic_data"], bool):
+        raise ValueError(
+            f"tpu.deterministic_data must be a bool, got {tpu['deterministic_data']!r}"
         )
     if tpu["quantize"] not in ("none", "int8"):
         raise ValueError(
@@ -89,7 +125,42 @@ def validate(config: dict) -> dict:
             "tpu.tensor_parallel / tpu.quantize"
         )
     config["tpu"] = tpu
+    if "ldm_training" in config:
+        _validate_training(config)
     return config
+
+
+def _validate_training(config: dict) -> None:
+    training = config["ldm_training"]
+    if training.get("autoencoder_type", "kl") not in ("kl", "vq"):
+        raise ValueError(
+            "ldm_training.autoencoder_type must be 'kl' or 'vq', got "
+            f"{training['autoencoder_type']!r}"
+        )
+    accum = training.get("grad_accum_steps", 1)
+    if not _is_int(accum) or accum < 1:
+        raise ValueError(
+            f"ldm_training.grad_accum_steps must be an int >= 1, got {accum!r}"
+        )
+    rate = training.get("condition_dropout_rate", 0.1)
+    if not _is_number(rate) or not 0.0 <= rate <= 1.0:
+        raise ValueError(
+            f"ldm_training.condition_dropout_rate must be in [0, 1], got {rate!r}"
+        )
+    if not isinstance(training.get("train_cond_model", False), bool):
+        raise ValueError("ldm_training.train_cond_model must be a bool")
+    ema = training.get("ema_decay")
+    if ema is not None and (not _is_number(ema) or not 0.0 <= ema < 1.0):
+        raise ValueError(f"ldm_training.ema_decay must be null or in [0, 1), got {ema!r}")
+    params = training.get("params") or {}
+    for key in ("batch_size", "image_size"):
+        if not _is_int(params.get(key)) or params[key] < 1:
+            raise ValueError(
+                f"ldm_training.params.{key} must be an int >= 1, got {params.get(key)!r}"
+            )
+    unknown = set(config.get("latent_diffusion_optimizer") or {}) - set(OPTIMIZER_KEYS)
+    if unknown:
+        raise ValueError(f"unknown latent_diffusion_optimizer keys {sorted(unknown)}")
 
 
 def load_config(path: str) -> dict:
@@ -104,8 +175,9 @@ def compute_dtype(config: dict) -> torch.dtype:
     return _DTYPES[config["tpu"]["compute_dtype"]]
 
 
-def weights_dtype(config: dict) -> torch.dtype:
-    """Parameter storage dtype: float32 unless ``tpu.weights_dtype`` says
-    otherwise."""
-    name = config["tpu"].get("weights_dtype")
+def weights_dtype(config: dict, key: str = "weights_dtype") -> torch.dtype:
+    """Parameter storage dtype: float32 unless ``tpu.<key>`` says otherwise
+    (``weights_dtype`` for sampling, ``frozen_weights_dtype`` for the
+    trainer's frozen models)."""
+    name = config["tpu"].get(key)
     return torch.float32 if name is None else _DTYPES[name]

@@ -39,6 +39,11 @@
 // uses 64x64 tiles (at most 182 KB of shared memory), larger S 16x32 tiles
 // (199 KB).  Its float32 arithmetic keeps float32 results to summation
 // order; it runs far below the tensor-core peak.
+//
+// Residual for the backward (csrc/flash_attention_bwd.cu): when the caller
+// passes a non-null `lse` ([B, H, Tq] float32), both paths also write each
+// row's log-sum-exp m + log(l) of the scaled logits, as the TPU kernel does
+// with save_residuals=True.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -68,7 +73,8 @@ size_t smem_bytes(int s) {
 template <typename T, int BQ, int BK>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, int tq, int tk, int h, int s, float scale) {
+                 T* __restrict__ o, float* __restrict__ lse, int tq, int tk, int h, int s,
+                 float scale) {
   extern __shared__ __align__(16) float smem[];
   const int sk = s + 1;
   float* qs = smem;                // [s][BQ]
@@ -172,11 +178,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const int r = i / s, c = i % s, t = q0 + r;
     if (t < tq) ob[t * tok + c] = from_f32<T>(os[i] / l_s[r]);
   }
+  if (lse != nullptr) {
+    float* lb = lse + (long)blockIdx.y * tq;  // blockIdx.y = b * h + head
+    for (int r = tid; r < BQ; r += kThreads)
+      if (q0 + r < tq) lb[q0 + r] = m_s[r] + logf(l_s[r]);
+  }
 }
 
 template <typename T, int BQ, int BK>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int b, int tq, int tk,
-                   int h, int s, float scale, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int b,
+                   int tq, int tk, int h, int s, float scale, cudaStream_t stream) {
   const size_t bytes = smem_bytes<BQ, BK>(s);
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, BQ, BK>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -184,15 +195,16 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int b, 
   dim3 grid((tq + BQ - 1) / BQ, b * h);
   flash_fwd_kernel<T, BQ, BK><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), tq, tk, h, s, scale);
+      static_cast<T*>(o), lse, tq, tk, h, s, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch_fma(const void* q, const void* k, const void* v, void* o, int b, int tq,
-                         int tk, int h, int s, float scale, cudaStream_t stream) {
-  if (s <= 160) return launch<T, 64, 64>(q, k, v, o, b, tq, tk, h, s, scale, stream);
-  return launch<T, 16, 32>(q, k, v, o, b, tq, tk, h, s, scale, stream);
+cudaError_t dispatch_fma(const void* q, const void* k, const void* v, void* o, float* lse,
+                         int b, int tq, int tk, int h, int s, float scale,
+                         cudaStream_t stream) {
+  if (s <= 160) return launch<T, 64, 64>(q, k, v, o, lse, b, tq, tk, h, s, scale, stream);
+  return launch<T, 16, 32>(q, k, v, o, lse, b, tq, tk, h, s, scale, stream);
 }
 
 // ------------------------------------------------------ tensor-core path
@@ -210,8 +222,8 @@ constexpr size_t mma_smem_bytes() {
 template <int SP>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ o, int tq, int tk, int h,
-                     int s, float scale_log2) {
+                     const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+                     int tq, int tk, int h, int s, float scale_log2) {
   constexpr int LD = SP + 8;  // row stride in elements (16 bytes of pad)
   constexpr int KS = SP / 16;
   constexpr int CH = SP / 8;  // 16-byte chunks per row
@@ -354,6 +366,10 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     inv_l[r] = 1.f / l;
+    // natural-log lse: m_r is the row max of the logits times log2(e)
+    const int t = q0 + warp * 16 + g + 8 * r;
+    if (lse != nullptr && t4 == 0 && t < tq)
+      lse[(long)blockIdx.y * tq + t] = m_r[r] * 0.6931471805599453f + logf(l);
   }
   const int row = q0 + warp * 16 + g;
 #pragma unroll
@@ -371,8 +387,8 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int SP>
-cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, int b, int tq,
-                       int tk, int h, int s, float scale, cudaStream_t stream) {
+cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, float* lse, int b,
+                       int tq, int tk, int h, int s, float scale, cudaStream_t stream) {
   constexpr size_t bytes = mma_smem_bytes<SP>();
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_mma_kernel<SP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -380,7 +396,7 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, int
   dim3 grid((tq + kMmaRows - 1) / kMmaRows, b * h);
   flash_fwd_mma_kernel<SP><<<grid, kThreads, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), tq, tk, h, s, scale * 1.4426950408889634f);
+      static_cast<bf16*>(o), lse, tq, tk, h, s, scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
@@ -389,33 +405,34 @@ bool takes_mma(const void* q, const void* k, const void* v, const void* o, int s
   return s % 8 == 0 && s <= 160 && aligned16(q) && aligned16(k) && aligned16(v) && aligned16(o);
 }
 
-cudaError_t dispatch_mma(const void* q, const void* k, const void* v, void* o, int b, int tq,
-                         int tk, int h, int s, float scale, cudaStream_t st) {
+cudaError_t dispatch_mma(const void* q, const void* k, const void* v, void* o, float* lse,
+                         int b, int tq, int tk, int h, int s, float scale, cudaStream_t st) {
   switch ((s + 15) / 16) {
-    case 1: return launch_mma<16>(q, k, v, o, b, tq, tk, h, s, scale, st);
-    case 2: return launch_mma<32>(q, k, v, o, b, tq, tk, h, s, scale, st);
-    case 3: return launch_mma<48>(q, k, v, o, b, tq, tk, h, s, scale, st);
-    case 4: return launch_mma<64>(q, k, v, o, b, tq, tk, h, s, scale, st);
-    case 5: return launch_mma<80>(q, k, v, o, b, tq, tk, h, s, scale, st);
-    case 6: case 7: case 8: return launch_mma<128>(q, k, v, o, b, tq, tk, h, s, scale, st);
-    default: return launch_mma<160>(q, k, v, o, b, tq, tk, h, s, scale, st);
+    case 1: return launch_mma<16>(q, k, v, o, lse, b, tq, tk, h, s, scale, st);
+    case 2: return launch_mma<32>(q, k, v, o, lse, b, tq, tk, h, s, scale, st);
+    case 3: return launch_mma<48>(q, k, v, o, lse, b, tq, tk, h, s, scale, st);
+    case 4: return launch_mma<64>(q, k, v, o, lse, b, tq, tk, h, s, scale, st);
+    case 5: return launch_mma<80>(q, k, v, o, lse, b, tq, tk, h, s, scale, st);
+    case 6: case 7: case 8: return launch_mma<128>(q, k, v, o, lse, b, tq, tk, h, s, scale, st);
+    default: return launch_mma<160>(q, k, v, o, lse, b, tq, tk, h, s, scale, st);
   }
 }
 
 }  // namespace
 
 // Returns a cudaError_t value (0 on success).  is_bf16: 1 for bfloat16
-// operands, 0 for float32.  The caller checks shapes (s <= 512, tk >= 1).
+// operands, 0 for float32.  lse: null, or [B, H, Tq] float32 for the
+// backward's residual.  The caller checks shapes (s <= 512, tk >= 1).
 extern "C" int ldm_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                       int b, int tq, int tk, int h, int s, float scale,
-                                       int is_bf16, void* stream) {
+                                       float* lse, int b, int tq, int tk, int h, int s,
+                                       float scale, int is_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (!is_bf16)
-    err = dispatch_fma<float>(q, k, v, o, b, tq, tk, h, s, scale, st);
+    err = dispatch_fma<float>(q, k, v, o, lse, b, tq, tk, h, s, scale, st);
   else if (takes_mma(q, k, v, o, s))
-    err = dispatch_mma(q, k, v, o, b, tq, tk, h, s, scale, st);
+    err = dispatch_mma(q, k, v, o, lse, b, tq, tk, h, s, scale, st);
   else
-    err = dispatch_fma<bf16>(q, k, v, o, b, tq, tk, h, s, scale, st);
+    err = dispatch_fma<bf16>(q, k, v, o, lse, b, tq, tk, h, s, scale, st);
   return static_cast<int>(err);
 }

@@ -1,0 +1,175 @@
+"""Host-side input pipeline of the trainers (the port's own copy of the
+Python path of ``ldm_tf2_tpu.data.dataset``).
+
+``create_dataset`` keeps the JAX package's transform chain: filename
+shuffle + repeat -> per-file record shuffle buffer -> JPEG decode ->
+/127.5 - 1 normalize -> centered pad-to-square -> **nearest** resize
+(half-pixel centers) -> optional horizontal flip -> drop-remainder
+batching, as an infinite generator of numpy batches decoded ahead by a
+thread pool.  The record order is a function of the seed alone, so the
+batches equal the JAX package's Python path batch for batch.  One
+difference: the flip coin is drawn in record order in the producer, where
+the JAX package draws it in its decode workers (whose order varies with
+thread timing), so here flipped runs repeat too.  The JAX package's native
+C++ decoder is not used.
+"""
+
+from __future__ import annotations
+
+import glob
+import io
+import os
+import queue
+import random
+import threading
+from typing import Iterator, Sequence
+
+import numpy as np
+
+from ldm_tf2_tpu_torch.data.example_proto import decode_example
+from ldm_tf2_tpu_torch.data.tfrecord import TFRecordReader
+
+BUFFER_SIZE = 1024
+PREFETCH = 2  # batches staged ahead of the consumer
+NUM_WORKERS = 8  # decode threads
+
+
+def _decode_jpeg(data: bytes) -> np.ndarray:
+    from PIL import Image
+
+    img = Image.open(io.BytesIO(data))
+    if img.mode != "RGB":
+        img = img.convert("RGB")
+    return np.asarray(img, dtype=np.uint8)
+
+
+def _pad_to_square(image: np.ndarray) -> np.ndarray:
+    """Centered zero-pad to square."""
+    h, w = image.shape[:2]
+    if h > w:
+        pad = h - w
+        lo = pad // 2
+        return np.pad(image, [(0, 0), (lo, pad - lo), (0, 0)])
+    if w > h:
+        pad = w - h
+        lo = pad // 2
+        return np.pad(image, [(lo, pad - lo), (0, 0), (0, 0)])
+    return image
+
+
+def _nearest_resize(image: np.ndarray, size: int) -> np.ndarray:
+    """Nearest-neighbor with half-pixel centers."""
+    h, w = image.shape[:2]
+    rows = np.clip(
+        np.floor((np.arange(size) + 0.5) * (h / size)).astype(np.int64), 0, h - 1
+    )
+    cols = np.clip(
+        np.floor((np.arange(size) + 0.5) * (w / size)).astype(np.int64), 0, w - 1
+    )
+    return image[rows[:, None], cols[None, :]]
+
+
+def process_image(image: np.ndarray, image_size: int) -> np.ndarray:
+    """Normalize + pad-to-square + nearest resize."""
+    image = image.astype(np.float32) / 127.5 - 1.0
+    image = _pad_to_square(image)
+    return _nearest_resize(image, image_size)
+
+
+def _record_stream(filenames: Sequence[str], seed: int | None,
+                   buffer_size: int) -> Iterator[bytes]:
+    """Shuffled, repeated record stream: filename shuffle + per-file
+    shuffle buffer."""
+    rng = random.Random(seed)
+    files = list(filenames)
+    while True:
+        rng.shuffle(files)
+        for path in files:
+            buffer: list[bytes] = []
+            for record in TFRecordReader(path):
+                buffer.append(record)
+                if len(buffer) >= buffer_size:
+                    idx = rng.randrange(len(buffer))
+                    buffer[idx], buffer[-1] = buffer[-1], buffer[idx]
+                    yield buffer.pop()
+            rng.shuffle(buffer)
+            yield from buffer
+
+
+def _make_example(record: bytes, image_size: int, flip: bool,
+                  with_captions: bool, max_seq_len: int):
+    example = decode_example(record)
+    image = _decode_jpeg(example["image"][0])
+    if flip:
+        image = image[:, ::-1]
+    image = process_image(image, image_size)
+    if not with_captions:
+        return image
+    caption = np.asarray(example["caption"], dtype=np.int64)[:max_seq_len]
+    if caption.shape[0] < max_seq_len:
+        caption = np.pad(caption, (0, max_seq_len - caption.shape[0]))
+    return image, caption
+
+
+def create_dataset(
+    filenames: Sequence[str],
+    batch_size: int = 1,
+    image_size: int = 256,
+    keys: Sequence[str] = ("image", "caption"),
+    flip: bool = False,
+    max_seq_len: int = 77,
+    random_seed: int | None = None,
+) -> Iterator:
+    """Infinite iterator of numpy batches: ``images [B, S, S, 3] float32``,
+    or ``(images, captions [B, L] int64)`` when "caption" is in ``keys``.
+    Decoding runs in a thread pool; ``PREFETCH`` batches are staged ahead
+    of the consumer."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    rng = random.Random(random_seed)
+    with_captions = "caption" in keys
+    records = _record_stream(filenames, random_seed, BUFFER_SIZE)
+    pool = ThreadPoolExecutor(max_workers=NUM_WORKERS)
+
+    def batches():
+        q: queue.Queue = queue.Queue(maxsize=PREFETCH)
+        stop = threading.Event()
+
+        def producer():
+            try:
+                while not stop.is_set():
+                    futures = [
+                        pool.submit(_make_example, next(records), image_size,
+                                    flip and rng.random() < 0.5, with_captions,
+                                    max_seq_len)
+                        for _ in range(batch_size)
+                    ]
+                    items = [f.result() for f in futures]
+                    if with_captions:
+                        q.put((np.stack([i[0] for i in items]),
+                               np.stack([i[1] for i in items])))
+                    else:
+                        q.put(np.stack(items))
+            except StopIteration:
+                pass
+            finally:
+                q.put(None)
+
+        thread = threading.Thread(target=producer, daemon=True)
+        thread.start()
+        try:
+            while True:
+                batch = q.get()
+                if batch is None:
+                    return
+                yield batch
+        finally:
+            stop.set()
+            pool.shutdown(wait=False, cancel_futures=True)
+
+    return batches()
+
+
+def list_tfrecords(root_path: str) -> list[str]:
+    """The ``*.tfrecord`` files under a directory, sorted."""
+    return sorted(glob.glob(os.path.join(root_path, "*.tfrecord")))

@@ -162,3 +162,11 @@ def packed_cfg_token_ids(tokenizer: BertTokenizer, prompts, negative_prompts,
         )
     return tokenize_prompts(tokenizer, list(negative_prompts) + list(prompts),
                             max_length)
+
+
+def null_condition_ids(batch_size: int, max_length: int = 77) -> np.ndarray:
+    """Tokenized "" = [CLS][SEP] pad ids, tiled over the batch: the
+    trainer's condition-dropout ids."""
+    row = np.zeros((max_length,), dtype=np.int64)
+    row[0], row[1] = 101, 102
+    return np.tile(row, (batch_size, 1))

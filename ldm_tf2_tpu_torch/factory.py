@@ -30,15 +30,20 @@ def set_float32_precision() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
-def _build(cls, kwargs, config, device):
+def _build(cls, kwargs, config, device, dtype_key="weights_dtype"):
     with torch.device(device):
         model = cls(**kwargs, dtype=compute_dtype(config))
-    return model.to(weights_dtype(config)).eval().requires_grad_(False)
+    dtype = torch.float32 if dtype_key is None else weights_dtype(config, dtype_key)
+    return model.to(dtype).eval().requires_grad_(False)
 
 
-def build_cond_model(config: dict, device="cpu") -> TransformerModel:
+def build_cond_model(config: dict, device="cpu",
+                     dtype_key="weights_dtype") -> TransformerModel:
+    """The text encoder without grad, its weights stored in
+    ``tpu.<dtype_key>`` (``frozen_weights_dtype`` for the trainer's frozen
+    copy; None for float32, the trainer's masters when it trains)."""
     return _build(TransformerModel, dict(config["cond_stage_model"]), config,
-                  device)
+                  device, dtype_key)
 
 
 def build_unet(config: dict, device="cpu") -> UNet:
@@ -47,13 +52,26 @@ def build_unet(config: dict, device="cpu") -> UNet:
     return _build(UNet, kwargs, config, device)
 
 
-def build_autoencoder(config: dict, ae_type: str = "kl", device="cpu"):
+def build_trainable_unet(config: dict, device="cpu", seed: int = 0) -> UNet:
+    """A fresh U-Net for training: float32 masters that require grad,
+    initialized by ``init_params_`` from ``seed``, computing in
+    ``tpu.compute_dtype`` (the layers cast the weights to it)."""
+    kwargs = dict(config["unet"])
+    kwargs["context_channels"] = config["cond_stage_model"]["hidden_size"]
+    with torch.device(device):
+        unet = UNet(**kwargs, dtype=compute_dtype(config))
+    return init_params_(unet, seed).float().requires_grad_(True)
+
+
+def build_autoencoder(config: dict, ae_type: str = "kl", device="cpu",
+                      dtype_key="weights_dtype"):
     if ae_type != "kl":
         raise NotImplementedError(
             f"autoencoder type {ae_type!r}: only 'kl' is ported "
             "(AutoencoderVQ is ROADMAP queue A item 9)"
         )
-    return _build(AutoencoderKL, dict(config["autoencoder_kl"]), config, device)
+    return _build(AutoencoderKL, dict(config["autoencoder_kl"]), config, device,
+                  dtype_key)
 
 
 def build_schedule(config: dict) -> DiffusionSchedule:
@@ -80,6 +98,37 @@ def apply_serving_modes(config: dict, unet: UNet, autoencoder) -> None:
     unet.set_serving_modes(conv_quant=tpu["quantize"] == "int8",
                            attention_pv_int8=pv_int8)
     autoencoder.set_serving_modes(attention_pv_int8=pv_int8)
+
+
+@torch.no_grad()
+def init_params_(module: torch.nn.Module, seed: int):
+    """flax's default initializers, by leaf name: norm ``scale`` ones,
+    ``bias`` zeros, every ``kernel`` lecun-normal (a normal truncated at
+    two standard deviations, std sqrt(1 / fan_in) / 0.8796), fan_in being
+    all input dims (Dense [in, out]: in; conv OIHW: I*H*W; projection
+    split [D, H, S]: D; merge [H, S, D]: H*S).  Draws come from a generator
+    seeded with ``seed`` on the parameters' device."""
+    params = list(module.named_parameters())
+    gen = torch.Generator(device=params[0][1].device).manual_seed(seed)
+    for name, p in params:
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf == "scale":
+            p.fill_(1.0)
+        elif leaf == "bias":
+            p.zero_()
+        else:
+            if p.dim() == 4:
+                fan_in = p[0].numel()
+            elif p.dim() == 3 and name.rsplit(".", 2)[-2] == "output":
+                fan_in = p.shape[0] * p.shape[1]
+            else:
+                fan_in = p.shape[0]
+            std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+            noise = torch.empty(p.shape, device=p.device)
+            torch.nn.init.trunc_normal_(noise, 0.0, std, -2 * std, 2 * std,
+                                        generator=gen)
+            p.copy_(noise)
+    return module
 
 
 @torch.no_grad()

@@ -25,13 +25,15 @@ class DiagonalGaussian:
     def std(self):
         return torch.exp(0.5 * self.logvar)
 
-    def sample(self, generator: torch.Generator | None = None):
-        """mean + std * N(0, 1), the noise drawn from ``generator``."""
-        noise = torch.randn(
-            self.mean.shape, generator=generator, device=self.mean.device,
-            dtype=self.mean.dtype,
-        )
-        return self.mean + self.std * noise
+    def sample(self, generator: torch.Generator | None = None, noise=None):
+        """mean + std * N(0, 1): the given ``noise`` (cast to the mean's
+        dtype), or noise drawn from ``generator`` in the mean's dtype."""
+        if noise is None:
+            noise = torch.randn(
+                self.mean.shape, generator=generator, device=self.mean.device,
+                dtype=self.mean.dtype,
+            )
+        return self.mean + self.std * noise.to(self.mean.dtype)
 
     def mode(self):
         return self.mean

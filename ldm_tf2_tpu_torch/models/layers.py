@@ -23,6 +23,18 @@ def _param(*shape):
     return nn.Parameter(torch.empty(*shape))
 
 
+def dropout(x, rate: float, generator: torch.Generator | None):
+    """flax ``nn.Dropout`` in training mode: keep each element with
+    probability 1 - rate (a uniform draw from ``generator`` below it) and
+    scale the kept ones by 1 / (1 - rate).  Identity when ``generator`` is
+    None (not training) or the rate is 0."""
+    if generator is None or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 class Dense(nn.Module):
     def __init__(self, in_features: int, features: int, bias: bool = True):
         super().__init__()

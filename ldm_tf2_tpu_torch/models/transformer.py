@@ -4,6 +4,10 @@ Counterpart of ``ldm_tf2_tpu.models.transformer.TransformerModel``; the
 production config is 32 layers, hidden 1280, 8 heads x 64 (the attention
 width 512 is narrower than the hidden size, as in the CompVis checkpoint).
 Its attention runs in plain PyTorch (77 tokens: ``ops.attention``).
+Training mode (``forward(ids, training=True, generator=g)``, used when
+``train_cond_model`` is on) applies the JAX package's dropout at
+``dropout_rate``: after the embeddings, after each attention and each FFN
+before its residual add, and inside the FFN after the GELU.
 """
 
 from __future__ import annotations
@@ -12,7 +16,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ldm_tf2_tpu_torch.models.layers import Dense, Embed, LayerNorm, Projection
+from ldm_tf2_tpu_torch.models.layers import (
+    Dense, Embed, LayerNorm, Projection, dropout,
+)
 from ldm_tf2_tpu_torch.ops.attention import dot_product_attention
 
 LAYER_NORM_EPS = 1e-5
@@ -40,33 +46,40 @@ class Attention(nn.Module):
 
 
 class FeedForwardNetwork(nn.Module):
-    def __init__(self, hidden_size: int, filter_size: int):
+    def __init__(self, hidden_size: int, filter_size: int,
+                 dropout_rate: float = 0.0):
         super().__init__()
+        self.dropout_rate = dropout_rate
         self.filter = Dense(hidden_size, filter_size)
         self.output = Dense(filter_size, hidden_size)
 
-    def forward(self, x):
-        return self.output(F.gelu(self.filter(x)))
+    def forward(self, x, generator=None):
+        h = dropout(F.gelu(self.filter(x)), self.dropout_rate, generator)
+        return self.output(h)
 
 
 class EncoderLayer(nn.Module):
-    def __init__(self, hidden_size, num_heads, size_per_head, filter_size):
+    def __init__(self, hidden_size, num_heads, size_per_head, filter_size,
+                 dropout_rate: float = 0.0):
         super().__init__()
+        self.dropout_rate = dropout_rate
         self.layernorm_mha = LayerNorm(hidden_size, LAYER_NORM_EPS)
         self.mha = Attention(num_heads, size_per_head, hidden_size)
         self.layernorm_ffn = LayerNorm(hidden_size, LAYER_NORM_EPS)
-        self.ffn = FeedForwardNetwork(hidden_size, filter_size)
+        self.ffn = FeedForwardNetwork(hidden_size, filter_size, dropout_rate)
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
+        rate = self.dropout_rate
         y = self.layernorm_mha(x)
-        x = self.mha(y, y) + x
-        return self.ffn(self.layernorm_ffn(x)) + x
+        x = dropout(self.mha(y, y), rate, generator) + x
+        y = self.ffn(self.layernorm_ffn(x), generator)
+        return dropout(y, rate, generator) + x
 
 
 class TransformerModel(nn.Module):
     """Token + learned positional embeddings -> N pre-LN layers -> final LN.
     Output [B, seq, hidden] is the U-Net's cross-attention context.
-    ``dropout_rate`` is accepted for config parity; sampling never drops."""
+    ``dropout_rate`` applies only in training mode."""
 
     def __init__(self, vocab_size: int, encoder_stack_size: int = 6,
                  hidden_size: int = 512, num_heads: int = 8,
@@ -75,22 +88,29 @@ class TransformerModel(nn.Module):
                  dtype=torch.float32):
         super().__init__()
         self.dtype = dtype
+        self.dropout_rate = dropout_rate
         self.token_embedding = Embed(vocab_size, hidden_size)
         self.positional_embedding = Embed(max_seq_len, hidden_size)
         for i in range(encoder_stack_size):
             self.add_module(
                 f"layer_{i}",
-                EncoderLayer(hidden_size, num_heads, size_per_head, filter_size),
+                EncoderLayer(hidden_size, num_heads, size_per_head, filter_size,
+                             dropout_rate),
             )
         self.num_layers = encoder_stack_size
         self.layernorm_out = LayerNorm(hidden_size, LAYER_NORM_EPS)
 
-    def forward(self, token_ids):
+    def forward(self, token_ids, *, training: bool = False,
+                generator: torch.Generator | None = None):
+        if training and self.dropout_rate > 0.0 and generator is None:
+            raise ValueError("training with dropout needs a generator")
+        gen = generator if training else None
         seq_len = token_ids.shape[1]
         pos = torch.arange(seq_len, device=token_ids.device)[None]
         x = self.token_embedding(token_ids, self.dtype) + self.positional_embedding(
             pos, self.dtype
         )
+        x = dropout(x, self.dropout_rate, gen)
         for i in range(self.num_layers):
-            x = getattr(self, f"layer_{i}")(x)
+            x = getattr(self, f"layer_{i}")(x, gen)
         return self.layernorm_out(x)

@@ -14,8 +14,16 @@ after the QK product.
 
 Dispatch: every spatial self-attention goes through the flash kernel
 (``ops.flash_attention``), every FeedForward through the fused FFN kernel
-(``ops.fused_ffn``); the 77-token cross-attention is plain PyTorch.
-DeepCache (``shallow_cache``/``return_cache``) is not ported yet.
+(``ops.fused_ffn``); the 77-token cross-attention is plain PyTorch.  Both
+kernels are differentiable.  DeepCache (``shallow_cache``/``return_cache``)
+is not ported yet.
+
+Training mode (``forward(..., training=True, generator=g)``) applies the
+JAX package's dropout, each mask drawn from ``g`` in forward order: a
+ResidualBlock splits its second chain into GN+SiLU -> dropout -> conv ->
+shortcut + h, and every CrossAttention drops its output, both at
+``dropout_rate``; the FeedForward's rate is 0, so the fused FFN stays on
+the training path.  ``training=False`` is the sampling path.
 
 Serving modes (``set_serving_modes``, set by ``factory.apply_serving_modes``
 from ``tpu.quantize`` / ``tpu.quantize_attention``): ``conv_quant`` sends the
@@ -34,12 +42,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from ldm_tf2_tpu_torch.models.layers import (
-    Conv, Dense, GroupNorm, LayerNorm, Norm, Projection,
+    Conv, Dense, GroupNorm, LayerNorm, Norm, Projection, dropout,
 )
 from ldm_tf2_tpu_torch.ops.attention import dot_product_attention
 from ldm_tf2_tpu_torch.ops.flash_attention import spatial_self_attention
-from ldm_tf2_tpu_torch.ops.fused_conv import gn_silu_conv3x3
+from ldm_tf2_tpu_torch.ops.fused_conv import conv3x3, gn_silu_conv3x3
 from ldm_tf2_tpu_torch.ops.fused_ffn import fused_ffn
+from ldm_tf2_tpu_torch.ops.group_norm import group_norm
 from ldm_tf2_tpu_torch.ops.quant_conv import int8_conv_weights
 from ldm_tf2_tpu_torch.ops.resize import nearest_upsample_2x
 
@@ -81,11 +90,13 @@ class Upsample(nn.Module):
 
 
 class ResidualBlock(nn.Module):
-    """GN(1e-5)/SiLU/conv + time-MLP broadcast + GN/SiLU/conv + shortcut
-    (a Dense projection when the channel count changes)."""
+    """GN(1e-5)/SiLU/conv + time-MLP broadcast + GN/SiLU/(dropout)/conv +
+    shortcut (a Dense projection when the channel count changes)."""
 
-    def __init__(self, in_channels: int, channels: int, time_channels: int):
+    def __init__(self, in_channels: int, channels: int, time_channels: int,
+                 dropout_rate: float = 0.0):
         super().__init__()
+        self.dropout_rate = dropout_rate
         self.group_norm_1 = Norm(in_channels)
         self.conv2d_1 = Conv(in_channels, channels)
         self.dense = Dense(time_channels, channels)
@@ -107,7 +118,7 @@ class ResidualBlock(nn.Module):
             self.register_buffer(f"w8_{i}", w8, persistent=False)
             self.register_buffer(f"ws_{i}", ws, persistent=False)
 
-    def forward(self, x, time_embedding):
+    def forward(self, x, time_embedding, generator=None):
         t = self.dense(F.silu(time_embedding))
         q1, q2 = ((self.w8_1, self.ws_1), (self.w8_2, self.ws_2)) \
             if self.w8_1 is not None else (None, None)
@@ -117,6 +128,11 @@ class ResidualBlock(nn.Module):
             int8_weights=q1,
         )
         shortcut = x if self.shortcut is None else self.shortcut(x)
+        if generator is not None and self.dropout_rate > 0.0:
+            g2 = self.group_norm_2
+            h = group_norm(h, g2.scale, g2.bias, 32, 1e-5, activate=True)
+            h = dropout(h, self.dropout_rate, generator)
+            return shortcut + conv3x3(h, self.conv2d_2.kernel, self.conv2d_2.bias)
         return gn_silu_conv3x3(
             h, self.group_norm_2.scale, self.group_norm_2.bias,
             self.conv2d_2.kernel, self.conv2d_2.bias, residual_add=shortcut,
@@ -128,11 +144,13 @@ class CrossAttention(nn.Module):
     """q from the query, k/v from the context (self-attention when the
     context is None).  Self-attention takes the flash kernel (its int8-P.V
     form at 1024 or more tokens when ``pv_int8`` is set); attention to the
-    short text context takes plain PyTorch."""
+    short text context takes plain PyTorch.  The output is dropped at
+    ``dropout_rate`` in training mode."""
 
     def __init__(self, num_heads: int, size_per_head: int,
-                 hidden_size: int | None = None):
+                 hidden_size: int | None = None, dropout_rate: float = 0.0):
         super().__init__()
+        self.dropout_rate = dropout_rate
         self.scale = size_per_head**-0.5
         width = num_heads * size_per_head
         self.query = Projection(num_heads, size_per_head, width)
@@ -142,7 +160,7 @@ class CrossAttention(nn.Module):
                                  use_bias=True, mode="merge")
         self.pv_int8 = False
 
-    def forward(self, query, context=None):
+    def forward(self, query, context=None, generator=None):
         is_self = context is None
         context = query if is_self else context
         q, k, v = self.query(query), self.key(context), self.value(context)
@@ -150,7 +168,7 @@ class CrossAttention(nn.Module):
             out = spatial_self_attention(q, k, v, self.scale, self.pv_int8)
         else:
             out = dot_product_attention(q, k, v, self.scale)
-        return self.output(out)
+        return dropout(self.output(out), self.dropout_rate, generator)
 
 
 class GEGLU(nn.Module):
@@ -187,19 +205,22 @@ class BasicTransformerBlock(nn.Module):
     """Pre-LN(1e-5): self-attn, cross-attn(context), GEGLU FFN, each with a
     residual add."""
 
-    def __init__(self, num_heads: int, size_per_head: int, hidden_size: int):
+    def __init__(self, num_heads: int, size_per_head: int, hidden_size: int,
+                 dropout_rate: float = 0.0):
         super().__init__()
         width = num_heads * size_per_head
         self.layernorm1 = LayerNorm(width)
-        self.att_layer1 = CrossAttention(num_heads, size_per_head)
+        self.att_layer1 = CrossAttention(num_heads, size_per_head,
+                                         dropout_rate=dropout_rate)
         self.layernorm2 = LayerNorm(width)
-        self.att_layer2 = CrossAttention(num_heads, size_per_head, hidden_size)
+        self.att_layer2 = CrossAttention(num_heads, size_per_head, hidden_size,
+                                         dropout_rate)
         self.layernorm3 = Norm(width)
         self.ffn = FeedForward(width)
 
-    def forward(self, x, context=None):
-        x = self.att_layer1(self.layernorm1(x)) + x
-        x = self.att_layer2(self.layernorm2(x), context) + x
+    def forward(self, x, context=None, generator=None):
+        x = self.att_layer1(self.layernorm1(x), generator=generator) + x
+        x = self.att_layer2(self.layernorm2(x), context, generator) + x
         return self.ffn(x, self.layernorm3.scale, self.layernorm3.bias)
 
 
@@ -207,18 +228,19 @@ class SpatialTransformer(nn.Module):
     """GN(1e-6) -> proj_in -> [B,HW,C] transformer block -> proj_out -> +res."""
 
     def __init__(self, channels: int, num_heads: int, size_per_head: int,
-                 hidden_size: int):
+                 hidden_size: int, dropout_rate: float = 0.0):
         super().__init__()
         width = num_heads * size_per_head
         self.group_norm = GroupNorm(channels, eps=1e-6)
         self.proj_in = Dense(channels, width)
-        self.block = BasicTransformerBlock(num_heads, size_per_head, hidden_size)
+        self.block = BasicTransformerBlock(num_heads, size_per_head, hidden_size,
+                                           dropout_rate)
         self.proj_out = Dense(width, width)
 
-    def forward(self, x, context=None):
+    def forward(self, x, context=None, generator=None):
         b, h, w, c = x.shape
         y = self.proj_in(self.group_norm(x)).reshape(b, h * w, c)
-        y = self.block(y, context).reshape(b, h, w, c)
+        y = self.block(y, context, generator).reshape(b, h, w, c)
         return x + self.proj_out(y)
 
 
@@ -228,41 +250,46 @@ class InputBlock(nn.Module):
     def __init__(self, in_channels: int, channels: int, time_channels: int = 0,
                  use_spatial_transformer: bool = False,
                  use_downsample: bool = False, num_heads: int = 8,
-                 size_per_head: int = 40, hidden_size: int = 512):
+                 size_per_head: int = 40, hidden_size: int = 512,
+                 dropout_rate: float = 0.0):
         super().__init__()
         self.use_downsample = use_downsample
         if use_downsample:
             self.downsample = Downsample(channels)
             return
-        self.residual = ResidualBlock(in_channels, channels, time_channels)
+        self.residual = ResidualBlock(in_channels, channels, time_channels,
+                                      dropout_rate)
         self.spatial_transformer = (
-            SpatialTransformer(channels, num_heads, size_per_head, hidden_size)
+            SpatialTransformer(channels, num_heads, size_per_head, hidden_size,
+                               dropout_rate)
             if use_spatial_transformer else None
         )
 
-    def forward(self, x, time_embedding=None, context=None):
+    def forward(self, x, time_embedding=None, context=None, generator=None):
         if self.use_downsample:
             return self.downsample(x)
-        x = self.residual(x, time_embedding)
+        x = self.residual(x, time_embedding, generator)
         if self.spatial_transformer is not None:
-            x = self.spatial_transformer(x, context)
+            x = self.spatial_transformer(x, context, generator)
         return x
 
 
 class MiddleBlock(nn.Module):
     def __init__(self, channels, time_channels, context_channels, num_heads,
-                 size_per_head):
+                 size_per_head, dropout_rate: float = 0.0):
         super().__init__()
-        self.residual1 = ResidualBlock(channels, channels, time_channels)
+        self.residual1 = ResidualBlock(channels, channels, time_channels,
+                                       dropout_rate)
         self.spatial_transformer = SpatialTransformer(
-            channels, num_heads, size_per_head, context_channels
+            channels, num_heads, size_per_head, context_channels, dropout_rate
         )
-        self.residual2 = ResidualBlock(channels, channels, time_channels)
+        self.residual2 = ResidualBlock(channels, channels, time_channels,
+                                       dropout_rate)
 
-    def forward(self, x, time_embedding, context):
-        x = self.residual1(x, time_embedding)
-        x = self.spatial_transformer(x, context)
-        return self.residual2(x, time_embedding)
+    def forward(self, x, time_embedding, context, generator=None):
+        x = self.residual1(x, time_embedding, generator)
+        x = self.spatial_transformer(x, context, generator)
+        return self.residual2(x, time_embedding, generator)
 
 
 class OutputBlock(nn.Module):
@@ -270,29 +297,31 @@ class OutputBlock(nn.Module):
 
     def __init__(self, in_channels, channels, time_channels,
                  use_spatial_transformer, use_upsample, num_heads,
-                 size_per_head, hidden_size):
+                 size_per_head, hidden_size, dropout_rate: float = 0.0):
         super().__init__()
-        self.residual = ResidualBlock(in_channels, channels, time_channels)
+        self.residual = ResidualBlock(in_channels, channels, time_channels,
+                                      dropout_rate)
         self.spatial_transformer = (
-            SpatialTransformer(channels, num_heads, size_per_head, hidden_size)
+            SpatialTransformer(channels, num_heads, size_per_head, hidden_size,
+                               dropout_rate)
             if use_spatial_transformer else None
         )
         self.upsample = Upsample(channels) if use_upsample else None
 
-    def forward(self, x, time_embedding, context=None):
-        x = self.residual(x, time_embedding)
+    def forward(self, x, time_embedding, context=None, generator=None):
+        x = self.residual(x, time_embedding, generator)
         if self.spatial_transformer is not None:
-            x = self.spatial_transformer(x, context)
+            x = self.spatial_transformer(x, context, generator)
         if self.upsample is not None:
             x = self.upsample(x)
         return x
 
 
 class UNet(nn.Module):
-    """Text-conditioned epsilon predictor.  ``attention_resolutions`` and
-    ``dropout_rate`` are accepted for config parity; the placement rule is
-    "spatial transformers on every level except the deepest", and
-    sampling never drops."""
+    """Text-conditioned epsilon predictor.  ``attention_resolutions`` is
+    accepted for config parity; the placement rule is "spatial transformers
+    on every level except the deepest".  ``dropout_rate`` applies only in
+    training mode."""
 
     def __init__(self, model_channels: int = 320, out_channels: int = 4,
                  num_blocks: int = 2, attention_resolutions=(4, 2, 1),
@@ -301,6 +330,7 @@ class UNet(nn.Module):
                  in_channels: int = 4, dtype=torch.float32):
         super().__init__()
         self.dtype = dtype
+        self.dropout_rate = dropout_rate
         self.model_channels = model_channels
         self.num_blocks = num_blocks
         self.channel_mult = tuple(channel_mult)
@@ -317,7 +347,7 @@ class UNet(nn.Module):
                     ch, mc * mult, tc, use_spatial_transformer=i < levels - 1,
                     num_heads=num_heads,
                     size_per_head=(mc // num_heads) * mult,
-                    hidden_size=context_channels,
+                    hidden_size=context_channels, dropout_rate=dropout_rate,
                 ))
                 ch = mc * mult
                 skips.append(ch)
@@ -330,7 +360,7 @@ class UNet(nn.Module):
         self.num_input_blocks = idx
         self.middle_block = MiddleBlock(
             ch, tc, context_channels, num_heads,
-            (mc // num_heads) * channel_mult[-1],
+            (mc // num_heads) * channel_mult[-1], dropout_rate,
         )
         idx = 0
         for i, mult in list(enumerate(channel_mult))[::-1]:
@@ -341,7 +371,7 @@ class UNet(nn.Module):
                     use_upsample=i > 0 and j == num_blocks,
                     num_heads=num_heads,
                     size_per_head=(mc // num_heads) * mult,
-                    hidden_size=context_channels,
+                    hidden_size=context_channels, dropout_rate=dropout_rate,
                 ))
                 ch = mc * mult
                 idx += 1
@@ -365,19 +395,25 @@ class UNet(nn.Module):
             elif isinstance(m, CrossAttention):
                 m.pv_int8 = self.attention_pv_int8
 
-    def forward(self, x, time, context=None):
+    def forward(self, x, time, context=None, *, training: bool = False,
+                generator: torch.Generator | None = None):
         """x: [B, H, W, C] latents (NHWC); time: [B]; context: [B, S, D].
-        Returns [B, H, W, out_channels] predicted noise."""
+        Returns [B, H, W, out_channels] predicted noise.  ``training`` with
+        a nonzero ``dropout_rate`` draws the dropout masks from
+        ``generator``."""
+        if training and self.dropout_rate > 0.0 and generator is None:
+            raise ValueError("training with dropout needs a generator")
+        gen = generator if training else None
         h = self.conv_in(x.to(self.dtype))
         t = get_time_embedding(time, self.model_channels).to(self.dtype)
         t = self.time_dense2(F.silu(self.time_dense1(t)))
         context = None if context is None else context.to(self.dtype)
         hiddens = [h]
         for i in range(self.num_input_blocks):
-            h = getattr(self, f"input_block_{i}")(h, t, context)
+            h = getattr(self, f"input_block_{i}")(h, t, context, gen)
             hiddens.append(h)
-        h = self.middle_block(h, t, context)
+        h = self.middle_block(h, t, context, gen)
         for i in range(self.num_output_blocks):
             h = torch.cat([h, hiddens.pop()], dim=-1)
-            h = getattr(self, f"output_block_{i}")(h, t, context)
+            h = getattr(self, f"output_block_{i}")(h, t, context, gen)
         return self.conv_out(self.group_norm(h))

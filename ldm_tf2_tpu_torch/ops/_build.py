@@ -6,7 +6,7 @@ the hash covers the source text, the shared headers (``csrc/*.cuh``) and
 the compiler flags, so an edited source is rebuilt and an unchanged one is
 reused.  The shared libraries have a plain C interface (no PyTorch
 headers), which keeps a build to seconds.  Nothing here runs at import
-time.
+time.  Also the wrappers' shared checks: launch errors and differentiation.
 """
 
 from __future__ import annotations
@@ -17,6 +17,8 @@ import os
 import shutil
 import subprocess
 import time
+
+import torch
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -101,3 +103,21 @@ def load(name: str) -> ctypes.CDLL:
 def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def needs_grad(*tensors) -> bool:
+    """True when autograd is recording and an input requires a gradient."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors
+    )
+
+
+def refuse_grad(mode: str, *tensors) -> None:
+    """The int8 serving kernels have no backward: under differentiation
+    they raise, as the JAX package's ``_require_exact_forward`` does,
+    instead of returning a result with no gradient."""
+    if needs_grad(*tensors):
+        raise NotImplementedError(
+            f"{mode} is a sampling-only serving mode and does not support "
+            "differentiation; disable it for training."
+        )

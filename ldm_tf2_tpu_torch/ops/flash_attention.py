@@ -1,17 +1,28 @@
-"""Flash-attention forward: CUDA kernels for CUDA tensors, plain PyTorch for
-CPU tensors.
+"""Flash attention: CUDA kernels for CUDA tensors, plain PyTorch for CPU
+tensors, differentiable on both.
 
 Counterpart of ``ldm_tf2_tpu.ops.flash_attention.flash_attention``.  The
-kernel (``csrc/flash_attention.cu``) replaces the TPU kernel
+forward kernel (``csrc/flash_attention.cu``) replaces the TPU kernel
 ``_flash_kernel``; it reads the unpadded ``[B, T, H, S]`` layout directly
 (no 128-lane head padding, no head-major relayout).
+
+Differentiation follows the JAX package's ``custom_vjp``: when an input
+needs a gradient, ``flash_attention`` runs as a ``torch.autograd.Function``
+whose forward also returns the per-row log-sum-exp ``lse`` ([B, H, Tq]
+float32, scaled-logit domain) and saves (q, k, v, o, lse); its backward is
+FlashAttention-2 on two kernels (``csrc/flash_attention_bwd.cu``, replacing
+``_dq_kernel`` and ``_dkv_kernel``), ``di = rowsum(dO * O)`` computed
+beside them in PyTorch as the JAX package computes it in XLA.  CPU tensors
+take the same Function with the plain forward and the plain backward.
+Without a gradient nothing changes: no ``lse`` is written.
 
 ``flash_attention_pv_int8`` is the serving mode
 ``tpu.quantize_attention: int8pv``: the TPU kernel with ``pv_int8=True``
 (``csrc/flash_attention_pv_int8.cu``).  Its results depend on the TPU
 kernel's kv block (v is quantized per block, p against the running max up
 to the block), so that block size, ``jax_block_k``, is copied from the JAX
-package as a definition of the function, not as a tuning choice.
+package as a definition of the function, not as a tuning choice.  It
+refuses to be differentiated, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -31,6 +42,15 @@ _DTYPES = (torch.float32, torch.bfloat16)
 def _plain(q, k, v, scale):
     """The plain version: the same function in plain PyTorch."""
     return dot_product_attention(q, k, v, scale)
+
+
+def _plain_forward(q, k, v, scale):
+    """The plain version with the backward's residual: (out, lse), lse the
+    row log-sum-exp of the scaled logits, [B, H, Tq] float32."""
+    logits = torch.einsum("bqhs,bchs->bhqc", q.float(), k.float()) * scale
+    weights = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bhqc,bchs->bqhs", weights, v)
+    return out, torch.logsumexp(logits, dim=-1)
 
 
 def _check(q, k, v):
@@ -66,40 +86,177 @@ def _check_launch(q, k, v, what):
             raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(q, k, v, scale):
+def _launch(q, k, v, scale, with_lse=False):
     _check_launch(q, k, v, "flash_attention")
-    s = q.shape[-1]
+    b, tq, h, s = q.shape
     lib = _build.load("flash_attention")
     fn = lib.ldm_flash_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     out = torch.empty_like(q)
-    b, tq, h, _ = q.shape
+    lse = (torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(),
         b, tq, k.shape[1], h, s, float(scale),
         int(q.dtype == torch.bfloat16), stream,
     )
     _build.check(err, "flash_attention kernel launch")
     flash_attention.launches += 1
-    return out
+    return (out, lse) if with_lse else out
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The forward with its residual (the kernel, or the plain version on
+    CPU tensors) and the FA-2 backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        if q.device.type == "cpu":
+            out, lse = _plain_forward(q, k, v, scale)
+        else:
+            out, lse = _launch(q, k, v, scale, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, out, lse,
+                                              dout.contiguous(), ctx.scale)
+        return dq, dk, dv, None
 
 
 def flash_attention(q, k, v, scale: float):
     """softmax(scale * q k^T) v over [B, T, H, S] tensors (bf16 or f32).
 
     A CPU tensor takes the plain version; a CUDA tensor takes the kernel,
-    or raises.  ``flash_attention.launches`` counts kernel launches."""
+    or raises.  Differentiable on both (see the module docstring).
+    ``flash_attention.launches`` counts forward-kernel launches."""
     _check(q, k, v)
+    if _build.needs_grad(q, k, v):
+        return _FlashAttention.apply(q, k, v, scale)
     if q.device.type == "cpu":
         return _plain(q, k, v, scale)
     return _launch(q, k, v, scale)
 
 
 flash_attention.launches = 0
+
+
+# ------------------------------------------------------------- backward --
+
+def _plain_probs_and_ds(q, k, v, dout, lse, di, scale):
+    """p = exp(scale * q k^T - lse) and ds = p * (dO v^T - di), [B, H, Tq,
+    Tk] float32."""
+    logits = torch.einsum("bqhs,bchs->bhqc", q.float(), k.float()) * scale
+    p = torch.exp(logits - lse[..., None])
+    dp = torch.einsum("bqhs,bchs->bhqc", dout.float(), v.float())
+    return p, p * (dp - di[..., None])
+
+
+def _plain_dq(q, k, v, dout, lse, di, scale):
+    """The plain version of the dq kernel: dq = scale * ds k."""
+    _, ds = _plain_probs_and_ds(q, k, v, dout, lse, di, scale)
+    return (torch.einsum("bhqc,bchs->bqhs", ds, k.float()) * scale).to(q.dtype)
+
+
+def _plain_dkv(q, k, v, dout, lse, di, scale):
+    """The plain version of the dk/dv kernel: dk = scale * ds^T q and
+    dv = p^T dO."""
+    p, ds = _plain_probs_and_ds(q, k, v, dout, lse, di, scale)
+    dk = torch.einsum("bhqc,bqhs->bchs", ds, q.float()) * scale
+    dv = torch.einsum("bhqc,bqhs->bchs", p, dout.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _di(out, dout):
+    """di = rowsum(dO * O) in float32, [B, H, Tq]."""
+    return (dout.float() * out.float()).sum(dim=-1).transpose(1, 2).contiguous()
+
+
+def _check_backward(q, k, v, dout, lse, di):
+    _check(q, k, v)
+    b, tq, h, _ = q.shape
+    if dout.shape != q.shape or dout.dtype != q.dtype:
+        raise ValueError(f"dout must match q {tuple(q.shape)} {q.dtype}")
+    for name, t in (("lse", lse), ("di", di)):
+        if tuple(t.shape) != (b, h, tq) or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be [{b}, {h}, {tq}] float32")
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+
+
+def _launch_backward(name, q, k, v, dout, lse, di, scale, outs):
+    _check_launch(q, k, v, f"flash_backward_{name}")
+    for what, t in (("dout", dout), ("lse", lse), ("di", di)):
+        if not t.is_contiguous():
+            raise ValueError(f"{what} must be contiguous")
+    b, tq, h, s = q.shape
+    fn = getattr(_build.load("flash_attention_bwd"),
+                 f"ldm_flash_attention_bwd_{name}")
+    fn.argtypes = [ctypes.c_void_p] * (6 + len(outs)) + [ctypes.c_int] * 5 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), di.data_ptr(), *(o.data_ptr() for o in outs),
+        b, tq, k.shape[1], h, s, float(scale),
+        int(q.dtype == torch.bfloat16), stream,
+    )
+    _build.check(err, f"flash_backward_{name} kernel launch")
+
+
+def flash_backward_dq(q, k, v, dout, lse, di, scale: float):
+    """dq of flash attention from the forward's ``lse`` and ``di``.
+
+    A CPU tensor takes the plain version; a CUDA tensor takes the dq kernel,
+    or raises.  ``flash_backward_dq.launches`` counts kernel launches."""
+    _check_backward(q, k, v, dout, lse, di)
+    if q.device.type == "cpu":
+        return _plain_dq(q, k, v, dout, lse, di, scale)
+    dq = torch.empty_like(q)
+    _launch_backward("dq", q, k, v, dout, lse, di, scale, (dq,))
+    flash_backward_dq.launches += 1
+    return dq
+
+
+flash_backward_dq.launches = 0
+
+
+def flash_backward_dkv(q, k, v, dout, lse, di, scale: float):
+    """(dk, dv) of flash attention from the forward's ``lse`` and ``di``.
+
+    A CPU tensor takes the plain version; a CUDA tensor takes the dk/dv
+    kernel, or raises.  ``flash_backward_dkv.launches`` counts kernel
+    launches."""
+    _check_backward(q, k, v, dout, lse, di)
+    if q.device.type == "cpu":
+        return _plain_dkv(q, k, v, dout, lse, di, scale)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch_backward("dkv", q, k, v, dout, lse, di, scale, (dk, dv))
+    flash_backward_dkv.launches += 1
+    return dk, dv
+
+
+flash_backward_dkv.launches = 0
+
+
+def flash_attention_backward(q, k, v, out, lse, dout, scale: float):
+    """(dq, dk, dv) from the forward's residuals: di in PyTorch, then the
+    dq and dk/dv kernels.  On CPU tensors this is FlashAttention-2's
+    backward in plain PyTorch."""
+    di = _di(out, dout)
+    dq = flash_backward_dq(q, k, v, dout, lse, di, scale)
+    dk, dv = flash_backward_dkv(q, k, v, dout, lse, di, scale)
+    return dq, dk, dv
 
 
 # ------------------------------------------------------------- int8 P.V --
@@ -196,8 +353,10 @@ def flash_attention_pv_int8(q, k, v, scale: float):
 
     A CPU tensor takes the plain version; a CUDA tensor takes the kernel,
     or raises.  ``flash_attention_pv_int8.launches`` counts kernel
-    launches."""
+    launches.  Refuses to be differentiated."""
     _check(q, k, v)
+    _build.refuse_grad("flash attention int8-PV (tpu.quantize_attention: int8pv)",
+                q, k, v)
     if q.device.type == "cpu":
         return _plain_pv_int8(q, k, v, scale)
     return _launch_pv_int8(q, k, v, scale)

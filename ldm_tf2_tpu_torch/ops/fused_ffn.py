@@ -10,6 +10,14 @@ the kernel ``csrc/fused_ffn.cu`` (which replaces the TPU kernel
     out = u @ w2 + b2 + x
 
 Weights keep the JAX layouts: w1v, w1g [d, 4d] (in x out), w2 [4d, d].
+
+Differentiation is the JAX package's ``_fused_bwd`` design: when an input
+needs a gradient, ``fused_ffn`` runs as a ``torch.autograd.Function``
+whose forward is the kernel (the plain version on CPU tensors) and whose
+backward recomputes the chain through ``_plain_ffn`` and differentiates
+that.  The JAX package has no Pallas FFN backward: its recompute is plain
+matmuls that XLA runs outside any kernel, so the port's stays plain
+PyTorch too.
 """
 
 from __future__ import annotations
@@ -103,14 +111,39 @@ def _launch(x, ln_scale, ln_bias, w1v, b1v, w1g, b1g, w2, b2, eps):
     return out
 
 
+class _FusedFFN(torch.autograd.Function):
+    """The kernel forward (plain on CPU tensors); the backward recomputes
+    through ``_plain_ffn`` and differentiates it."""
+
+    @staticmethod
+    def forward(ctx, x, ln_scale, ln_bias, w1v, b1v, w1g, b1g, w2, b2, eps):
+        args = (x, ln_scale, ln_bias, w1v, b1v, w1g, b1g, w2, b2)
+        ctx.save_for_backward(*args)
+        ctx.eps = eps
+        if x.device.type == "cpu":
+            return _plain_ffn(*args, eps)
+        return _launch(*args, eps)
+
+    @staticmethod
+    def backward(ctx, grad):
+        args = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = _plain_ffn(*args, ctx.eps)
+        return (*torch.autograd.grad(out, args, grad), None)
+
+
 def fused_ffn(x, ln_scale, ln_bias, w1v, b1v, w1g, b1g, w2, b2, eps=1e-5):
     """LN -> GEGLU -> Dense -> +residual over [B, T, d].
 
     x: [B, T, d] bf16 or f32; ln_scale, ln_bias: [d] (f32 on the card);
     w1v, w1g: [d, F]; b1v, b1g: [F]; w2: [F, d]; b2: [d], all in x's dtype
     on the card.  A CPU tensor takes the plain version; a CUDA tensor takes
-    the kernel, or raises.  ``fused_ffn.launches`` counts kernel launches."""
+    the kernel, or raises.  Differentiable on both (see the module
+    docstring).  ``fused_ffn.launches`` counts kernel launches."""
     _check(x, ln_scale, ln_bias, w1v, b1v, w1g, b1g, w2, b2)
+    if _build.needs_grad(x, ln_scale, ln_bias, w1v, b1v, w1g, b1g, w2, b2):
+        return _FusedFFN.apply(x, ln_scale, ln_bias, w1v, b1v, w1g, b1g, w2,
+                               b2, eps)
     if x.device.type == "cpu":
         return _plain_ffn(x, ln_scale, ln_bias, w1v, b1v, w1g, b1g, w2, b2, eps)
     return _launch(x, ln_scale, ln_bias, w1v, b1v, w1g, b1g, w2, b2, eps)

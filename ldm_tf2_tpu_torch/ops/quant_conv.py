@@ -23,7 +23,8 @@ Dispatch semantics: which convs are quantized changes the images, not only
 the speed, so the JAX package's shape gate (``use_int8_conv``,
 ``use_fused_int8_chain``, ``_chain_pick`` and their TPU VMEM models) is
 copied here verbatim as pure functions of shape.  The kernels choose their
-own tiling.
+own tiling.  Like the JAX package's, the int8 path refuses to be
+differentiated: both wrappers raise under grad.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ import torch.nn.functional as F
 from ldm_tf2_tpu_torch.ops import _build
 
 _DTYPES = (torch.float32, torch.bfloat16)
+_MODE = "the int8 conv path (tpu.quantize: int8)"
 
 # ------------------------------------------------------------------ gate --
 # Copied from ldm_tf2_tpu/ops/quant_conv.py:367-375, 378-408, 527-592.
@@ -192,6 +194,7 @@ def gn_silu_quant(x, gamma, beta, num_groups: int = 32, eps: float = 1e-5):
         raise ValueError(f"channels {c} not divisible by groups {num_groups}")
     if tuple(gamma.shape) != (c,) or tuple(beta.shape) != (c,):
         raise ValueError(f"gamma and beta must be [{c}]")
+    _build.refuse_grad(_MODE, x, gamma, beta)
     if x.device.type == "cpu":
         return _plain_gn_silu_quant(x, gamma, beta, num_groups, eps)
     return _launch_gn_silu_quant(x, gamma, beta, num_groups, eps)
@@ -281,6 +284,7 @@ def s8_conv3x3(y8, sa, w8, ws, bias, *, time_add=None, residual_add=None,
             raise ValueError(f"{name} has shape {tuple(t.shape)}, want {shape}")
         if t.device != y8.device:
             raise ValueError(f"{name} is on {t.device}, y8 on {y8.device}")
+    _build.refuse_grad(_MODE, sa, ws, bias, time_add, residual_add)
     if y8.device.type == "cpu":
         return _plain_s8_conv3x3(y8, sa, w8, ws, bias, time_add, residual_add,
                                  out_dtype)

@@ -162,3 +162,97 @@ def test_pv_int8_kernel_matches_plain_on_card(dtype, b, t, kv, h, s):
     err = (got - ref).abs()
     assert float(err.max()) <= (2e-3 if dtype == torch.float32 else 1e-2)
     assert float(err.norm() / ref.norm()) <= (1e-3 if dtype == torch.float32 else 5e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,kv,h,s,extreme", [(2, 1024, 1024, 8, 40, False),
+                                                 (2, 256, 256, 8, 80, False),
+                                                 (2, 64, 64, 8, 160, False),
+                                                 (1, 1024, 1024, 1, 512, False),
+                                                 (2, 1000, 999, 8, 40, True),
+                                                 (2, 100, 77, 4, 36, False)])
+def test_flash_backward_kernels_match_plain_on_card(dtype, b, t, kv, h, s, extreme):
+    """The forward's lse and the dq and dk/dv kernels against their plain
+    versions on the forward's own residuals.  ``extreme``: logits near
+    -160 over a ragged kv, where an unmasked padded key overflows exp()."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(4)
+    q, k, v, do = (torch.randn(b, n, h, s, generator=g, device="cuda")
+                   for n in (t, kv, kv, t))
+    if extreme:
+        q, k = q + 5.0, k - 5.0
+    q, k, v, do = (x.to(dtype) for x in (q, k, v, do))
+    scale = s**-0.5
+    counts = (tfa.flash_attention.launches, tfa.flash_backward_dq.launches,
+              tfa.flash_backward_dkv.launches)
+    out, lse = tfa._launch(q, k, v, scale, with_lse=True)
+    _, ref_lse = tfa._plain_forward(q.float(), k.float(), v.float(), scale)
+    di = tfa._di(out, do)
+    dq = tfa.flash_backward_dq(q, k, v, do, lse, di, scale)
+    dk, dv = tfa.flash_backward_dkv(q, k, v, do, lse, di, scale)
+    assert (tfa.flash_attention.launches, tfa.flash_backward_dq.launches,
+            tfa.flash_backward_dkv.launches) == tuple(c + 1 for c in counts)
+    args = (q.float(), k.float(), v.float(), do.float(), lse, di, scale)
+    ref = (tfa._plain_dq(*args), *tfa._plain_dkv(*args))
+    # lse: float32 in both; f32 gradients: summation order only; bf16: one
+    # rounding of each output (2^-9 relative) on the same residuals
+    assert float((lse - ref_lse).abs().max()) < 1e-4
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    for got, want in zip((dq, dk, dv), ref):
+        assert bool(torch.isfinite(got.float()).all())
+        assert float((got.float() - want).norm() / want.norm()) < tol
+
+
+@pytest.mark.cuda
+def test_unet_gradients_on_card_equal_cpu():
+    """Every parameter gradient of a tiny U-Net on the card equals the
+    CPU's for the same weights (float32, TF32 off), each tensor within 1e-4
+    rel-L2 of its own norm, so a small gradient (the q and k projections',
+    through the dq and dk kernels) is held as tightly as a large one.
+    Before the kernels were autograd Functions the card returned none
+    through self-attention and the FFN: the q, k, v, out, GEGLU and
+    layernorm3 parameters had no gradient, and everything upstream of them
+    a wrong one.  The weights are drawn once, on the CPU: one seed gives
+    different draws on a CPU and a CUDA generator."""
+    _need_cuda()
+    from ldm_tf2_tpu_torch import factory
+    from ldm_tf2_tpu_torch.models import UNet
+
+    factory.set_float32_precision()
+    g = torch.Generator().manual_seed(1)
+    x, ctx = torch.randn(2, 16, 16, 4, generator=g), torch.randn(2, 7, 32, generator=g)
+    t = torch.tensor([10.0, 500.0])
+    kwargs = dict(model_channels=64, num_blocks=1, channel_mult=(1, 2), num_heads=2,
+                  context_channels=32, dropout_rate=0.0)
+    weights = factory.init_params_(UNet(**kwargs), seed=3).state_dict()
+    grads = {}
+    for device in ("cpu", "cuda"):
+        with torch.device(device):
+            unet = UNet(**kwargs)
+        unet.load_state_dict(weights)
+        before = tfa.flash_backward_dq.launches
+        out = unet(x.to(device), t.to(device), ctx.to(device), training=True)
+        names, params = zip(*unet.named_parameters())
+        got = torch.autograd.grad((out**2).mean(), params, allow_unused=True)
+        grads[device] = dict(zip(names, got))
+        if device == "cuda":  # 4 spatial self-attentions
+            assert tfa.flash_backward_dq.launches == before + 4
+    for name, want in grads["cpu"].items():
+        got = grads["cuda"][name]
+        assert got is not None, name
+        assert float(want.norm()) > 0, name
+        rel = float((got.cpu() - want).norm() / want.norm())
+        assert rel < 1e-4, (name, rel)
+
+
+@pytest.mark.cuda
+def test_int8_kernels_refuse_grad_on_card():
+    _need_cuda()
+    q = torch.randn(1, 64, 2, 40, device="cuda", requires_grad=True)
+    with pytest.raises(NotImplementedError, match="sampling-only"):
+        tfa.flash_attention_pv_int8(q, q, q, 0.2)
+    x = torch.randn(1, 8, 8, 64, device="cuda")
+    gamma = torch.ones(64, device="cuda", requires_grad=True)
+    with pytest.raises(NotImplementedError, match="sampling-only"):
+        tqc.gn_silu_quant(x, gamma, torch.zeros(64, device="cuda"))
