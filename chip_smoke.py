@@ -7,7 +7,7 @@ Phases, each printed as it runs; any failure exits non-zero before the
 final line is printed:
 
 1. device: the card's name and power limit (nvidia-smi), CUDA present;
-2. build: the six CUDA sources compiled from ldm_tf2_tpu_torch/csrc with
+2. build: the nine CUDA sources compiled from ldm_tf2_tpu_torch/csrc with
    nvcc, one process each, all started together;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes its path gives it, with its time, the plain version's time,
@@ -15,7 +15,10 @@ final line is printed:
    function, that call's time as a yardstick (attention: SDPA, and the
    backward of SDPA through autograd for the flash backward; the s8
    conv: cuDNN's float32 conv of the same codes, and the bf16 GN -> SiLU
-   -> conv chain that int8 replaces);
+   -> conv chain that int8 replaces; the opt-in kernels: F.group_norm,
+   torch.var_mean, the default bf16 chain and SDPA), the opt-in kernels
+   at every shape of the opt-in main path (``OPT_GN``, ``OPT_CHAINS``,
+   ``OPT_CROSS``) in both dtypes;
 4. unet: one full-width U-Net eval (CFG batch 4, 32x32 latent, seeded
    weights) on the card against the same weights on the CPU in float32,
    plain and in the int8 serving modes;
@@ -24,6 +27,14 @@ final line is printed:
    with the kernels' launch counts read around that one run; then a
    torch.profiler window over a few U-Net evals (device time by kernel
    group, idle share);
+5b. opt-in main path: the same call with the JAX package's three opt-in
+   switches on (GroupNorm, fused conv, packed cross), in turns with the
+   default route, exact launch counts (``OPT_EVAL``, ``OPT_DECODE``),
+   latents and images against the default route's, a profiled window; a
+   10-step run with GroupNorm "stats";
+5c. samplers, switches on: PLMS, DPM-Solver++(2M) (karras), DDPM on a
+   100-step timeline, the progressive DDIM loop, one ``serve()`` call with
+   dpm_solver_pp_2m;
 6. serve: the JSONL server (``cli/serve_ldm.serve``) in the int8 serving
    modes (``tpu.quantize: int8``, ``quantize_attention: int8pv``) at the
    north-star widths, batch 4, 50 steps, on four requests from an
@@ -37,7 +48,7 @@ final line is printed:
    then 2 steps under the profiler.  Before it, the kernels phase checks
    the flash backward kernels at the training path's shapes, and a gradient
    phase holds a north-star-width U-Net's parameter gradients on the card
-   to the CPU's in float32.
+   to the CPU's in float32, with the opt-in switches off and on.
 
 The last lines are the kernels JSON, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``.
@@ -60,9 +71,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 PEAK_BYTES = 3.35e12
 SOURCES = ("flash_attention", "fused_ffn", "gn_silu_quant", "s8_conv3x3",
-           "flash_attention_pv_int8", "flash_attention_bwd")
+           "flash_attention_pv_int8", "flash_attention_bwd", "group_norm",
+           "gn_silu_conv3x3", "cross_attention")
 KERNELS = ("flash_attention", "fused_ffn", "gn_silu_quant", "s8_conv3x3",
-           "flash_attention_pv_int8", "flash_backward_dq", "flash_backward_dkv")
+           "flash_attention_pv_int8", "flash_backward_dq", "flash_backward_dkv",
+           "group_norm_fused", "group_stats", "gn_silu_conv3x3_fused",
+           "cross_attention")
 
 # (B, Tq, Tk, H, S): the main path's self-attentions (CFG batch 4), then
 # the serve path's bf16 ones (CFG batch 8; its level-0 ones take int8 P.V)
@@ -123,7 +137,57 @@ GRAD_TOL = 1e-3
 # recomputes in PyTorch), no int8 kernel
 TRAIN_STEP = {"flash_attention": 17, "flash_backward_dq": 16,
               "flash_backward_dkv": 16, "fused_ffn": 16,
-              "flash_attention_pv_int8": 0, "gn_silu_quant": 0, "s8_conv3x3": 0}
+              "flash_attention_pv_int8": 0, "gn_silu_quant": 0, "s8_conv3x3": 0,
+              "group_norm_fused": 0, "group_stats": 0, "gn_silu_conv3x3_fused": 0,
+              "cross_attention": 0}
+
+# The opt-in main path (the JAX package's switches set_groupnorm_impl,
+# set_fused_conv_impl and set_packed_cross on): every distinct shape it
+# gives the four opt-in kernels, the U-Net at CFG batch 4 (32x32 latent)
+# and the KL decoder at batch 2, read off the module graph.  GroupNorms
+# ([B, H, W, C], eps, SiLU): the spatial transformers' (1e-6) at each
+# level, the U-Net head's, the decoder's mid-block attention's and head's.
+OPT_GN = [((4, 32, 32, 320), 1e-6, False), ((4, 16, 16, 640), 1e-6, False),
+          ((4, 8, 8, 1280), 1e-6, False), ((4, 4, 4, 1280), 1e-6, False),
+          ((4, 32, 32, 320), 1e-5, True), ((2, 32, 32, 512), 1e-6, False),
+          ((2, 256, 256, 128), 1e-6, True)]
+# ResBlock chains ([B, H, W, Cin], Cout, epilogue): the U-Net's 18 distinct
+# (44 chains an eval), then the decoder's 10 (28 chains a decode)
+OPT_CHAINS = [
+    ((4, 32, 32, 320), 320, "t"), ((4, 32, 32, 320), 320, "residual"),
+    ((4, 16, 16, 320), 640, "t"), ((4, 16, 16, 640), 640, "residual"),
+    ((4, 16, 16, 640), 640, "t"), ((4, 8, 8, 640), 1280, "t"),
+    ((4, 8, 8, 1280), 1280, "residual"), ((4, 8, 8, 1280), 1280, "t"),
+    ((4, 4, 4, 1280), 1280, "t"), ((4, 4, 4, 1280), 1280, "residual"),
+    ((4, 4, 4, 2560), 1280, "t"), ((4, 8, 8, 2560), 1280, "t"),
+    ((4, 8, 8, 1920), 1280, "t"), ((4, 16, 16, 1920), 640, "t"),
+    ((4, 16, 16, 1280), 640, "t"), ((4, 16, 16, 960), 640, "t"),
+    ((4, 32, 32, 960), 320, "t"), ((4, 32, 32, 640), 320, "t"),
+    ((2, 32, 32, 512), 512, None), ((2, 32, 32, 512), 512, "residual"),
+    ((2, 64, 64, 512), 512, None), ((2, 64, 64, 512), 512, "residual"),
+    ((2, 128, 128, 512), 256, None), ((2, 128, 128, 256), 256, None),
+    ((2, 128, 128, 256), 256, "residual"), ((2, 256, 256, 256), 128, None),
+    ((2, 256, 256, 128), 128, None), ((2, 256, 256, 128), 128, "residual"),
+]
+# Cross-attentions (B, Tq, Tk, H, S): the 77-token text context per level
+OPT_CROSS = [(4, 1024, 77, 8, 40), (4, 256, 77, 8, 80), (4, 64, 77, 8, 160),
+             (4, 16, 77, 8, 160)]
+# What one U-Net eval launches with the switches on (22 ResBlocks of two
+# chains, 16 spatial transformers with a GroupNorm and a cross-attention
+# each, the head's GroupNorm), and what one decode adds (14 ResBlocks, the
+# mid-block attention's and the head's GroupNorms)
+OPT_EVAL = {"gn_silu_conv3x3_fused": 44, "group_norm": 17, "cross_attention": 16}
+OPT_DECODE = {"gn_silu_conv3x3_fused": 28, "group_norm": 2, "cross_attention": 0}
+# rel-L2 against the plain version on the same inputs: float32 differs in
+# summation order; bfloat16 rounds the output (and the chain its normalized
+# input, the cross-attention its weights) at 2^-9, and an element whose
+# value lies near a rounding midpoint may land one bf16 step away
+OPT_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# The opt-in route against the default route, both bf16 through 50 DDIM
+# steps: the routes round at other places (the chain's epilogue adds in bf16
+# after a bf16 cast, cuDNN adds the bias before it), and 50 steps of a
+# random-weight U-Net carry the differences on; rel-L2 of latents and images
+OPT_ROUTE_TOL = 1e-1
 
 # Full-width U-Net, card vs CPU float32: float32 differs in summation order
 # through ~70 layers; bfloat16 stores weights and activations in 8 bits of
@@ -279,6 +343,7 @@ def phase_kernels():
                 f"bound {bms:.4f} ({by})")
     phase_int8_kernels(results, randn)
     phase_backward_kernels(results, randn)
+    phase_opt_in_kernels(results, randn)
     summary = ", ".join(
         f"{k} {'pass' if all(r['ok'] for r in rows) else 'FAIL'} "
         f"({sum(r['ok'] for r in rows)}/{len(rows)} checks)"
@@ -406,6 +471,108 @@ def phase_int8_kernels(results, randn):
                 f"{lib:.4f} bound {bms:.4f} ({by})")
 
 
+def phase_opt_in_kernels(results, randn):
+    """The opt-in kernels (GroupNorm, GroupNorm stats, the GN+SiLU+3x3
+    chain, short-kv cross-attention), each against its plain version on the
+    card at every shape of the opt-in main path, in float32 and bf16.  Times
+    in bf16 at every shape (float32 at the first only)."""
+    import torch
+    import torch.nn.functional as F
+
+    from ldm_tf2_tpu_torch.ops import cross_attention as ca
+    from ldm_tf2_tpu_torch.ops import fused_conv as fc
+    from ldm_tf2_tpu_torch.ops import group_norm as gn
+
+    def row(name, shape, dtype, got, want, timed, fns, nbytes, ops, ops_type, **extra):
+        pairs = list(zip(got, want))
+        rel = max(errors(a, b)[1] for a, b in pairs)
+        max_abs = max(errors(a, b)[0] for a, b in pairs)
+        finite = all(bool(torch.isfinite(a.float()).all()) for a in got)
+        ok = finite and rel < OPT_TOL[dtype]
+        times = {k: (time_ms(f) if timed else None) for k, f in fns.items()}
+        bms, by = bound_ms(nbytes, ops, ops_type)
+        results[name].append(dict(
+            shape=list(shape), dtype=dtype, max_abs_err=max_abs, rel_l2=rel, ok=ok,
+            ms=times["kernel"], plain_ms=times["plain"], library_ms=times["library"],
+            bound_ms=bms, bound_by=by, **extra))
+        note = "" if not timed else (
+            f"; ms {times['kernel']:.4f} plain {times['plain']:.4f} library "
+            f"{times['library']:.4f} bound {bms:.4f} ({by})")
+        log(f"{name} {dtype} {list(shape)}{' ' + str(extra) if extra else ''}: rel_l2 "
+            f"{rel:.3e} (tol {OPT_TOL[dtype]:g}) max_abs {max_abs:.3e} finite {finite} "
+            f"{'PASS' if ok else 'FAIL'}{note}")
+
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        f32_ops = "bfloat16" if dtype == torch.bfloat16 else "float32"
+        for i, (shape, eps, act) in enumerate(OPT_GN):
+            timed = dtype == torch.bfloat16 or i == 0
+            c = shape[-1]
+            x = (randn(*shape) * 2 + 0.5).to(dtype)
+            gamma, beta = randn(c, scale=0.5) + 1.0, randn(c, scale=0.5)
+            n, elem = x.numel(), x.element_size()
+            got = gn.group_norm_fused(x, gamma, beta, 32, eps, act)
+            want = gn._plain_group_norm_fused(x, gamma, beta, 32, eps, act)
+            xn = x.permute(0, 3, 1, 2)  # channels-last NCHW view
+            gd, bd = gamma.to(dtype), beta.to(dtype)
+            row("group_norm_fused", shape, name, [got], [want], timed,
+                {"kernel": lambda: gn.group_norm_fused(x, gamma, beta, 32, eps, act),
+                 "plain": lambda: gn._plain_group_norm_fused(x, gamma, beta, 32, eps, act),
+                 "library": lambda: F.group_norm(xn, 32, gd, bd, eps)},
+                2 * n * elem + 8 * c, 12.0 * n, "float32", eps=eps, silu=act)
+            if act:
+                continue  # the stats do not depend on the activation
+            mean, rstd = gn.group_stats(x, 32, eps)
+            rmean, rrstd = gn._plain_group_stats(x, 32, eps)
+            grouped = x.reshape(shape[0], -1, 32, c // 32)
+            row("group_stats", shape, name, [mean, rstd], [rmean, rrstd], timed,
+                {"kernel": lambda: gn.group_stats(x, 32, eps),
+                 "plain": lambda: gn._plain_group_stats(x, 32, eps),
+                 "library": lambda: torch.var_mean(grouped, dim=(1, 3))},
+                n * elem + 8 * shape[0] * c, 3.0 * n, "float32", eps=eps)
+        for i, (shape, cout, epilogue) in enumerate(OPT_CHAINS):
+            timed = dtype == torch.bfloat16 or i == 0
+            b, h, w, cin = shape
+            x = randn(*shape).to(dtype)
+            gamma, beta = randn(cin, scale=0.5) + 1.0, randn(cin, scale=0.5)
+            wk = randn(cout, cin, 3, 3, scale=(9 * cin) ** -0.5).to(dtype)
+            bias = randn(cout, scale=0.1).to(dtype)
+            extra = {}
+            if epilogue == "t":
+                extra["time_add"] = randn(b, cout).to(dtype)
+            elif epilogue == "residual":
+                extra["residual_add"] = randn(b, h, w, cout).to(dtype)
+            args = (x, gamma, beta, wk, bias)
+            plain_args = (*args, extra.get("time_add"), extra.get("residual_add"), 32, 1e-5)
+            got = fc.gn_silu_conv3x3_fused(*args, **extra)
+            want = fc._plain_chain(*plain_args)
+            m, elem = b * h * w, x.element_size()
+            nbytes = (m * cin + 9 * cin * cout + m * cout) * elem + (
+                m * cout * elem if epilogue == "residual" else 0)
+
+            def default_chain():  # the bf16 chain of the "auto" route
+                return fc.gn_silu_conv3x3(*args, **extra)
+
+            row("gn_silu_conv3x3_fused", (*shape, cout), name, [got], [want], timed,
+                {"kernel": lambda: fc.gn_silu_conv3x3_fused(*args, **extra),
+                 "plain": lambda: fc._plain_chain(*plain_args),
+                 "library": default_chain},
+                nbytes, 2.0 * m * cout * 9 * cin, f32_ops, epilogue=epilogue)
+        for i, (b, tq, tk, h, sh) in enumerate(OPT_CROSS):
+            timed = dtype == torch.bfloat16 or i == 0
+            q, k, v = (randn(b, t, h, sh).to(dtype) for t in (tq, tk, tk))
+            scale = sh**-0.5
+            got = ca.cross_attention(q, k, v, scale)
+            want = ca._plain_cross_attention(q, k, v, scale)
+            qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+            row("cross_attention", (b, tq, tk, h, sh), name, [got], [want], timed,
+                {"kernel": lambda: ca.cross_attention(q, k, v, scale),
+                 "plain": lambda: ca._plain_cross_attention(q, k, v, scale),
+                 "library": lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale)},
+                (2 * q.numel() + 2 * k.numel()) * q.element_size(),
+                4.0 * b * h * tq * tk * sh, f32_ops)
+
+
 def phase_backward_kernels(results, randn):
     """The training path's flash backward: the forward's lse and the dq and
     dk/dv kernels, each against its plain version on the kernel's own
@@ -492,7 +659,6 @@ def phase_grad():
 
     from ldm_tf2_tpu_torch import factory
     from ldm_tf2_tpu_torch.configs.loader import validate
-    from ldm_tf2_tpu_torch.ops import flash_attention as fa
 
     config = json.loads(json.dumps(NORTH_STAR))
     config["unet"].update(num_blocks=1, dropout_rate=1e-9)
@@ -504,45 +670,65 @@ def phase_grad():
     t = torch.tensor([437.0])
     grads, seconds = {}, {}
     cpu_unet = factory.build_trainable_unet(config, "cpu", seed=42)
-    for device in ("cuda", "cpu"):
+    counters = _counters()
+    # the CPU on the default route; the card on it, then with the three
+    # opt-in switches on (their kernels' backward recomputes through the
+    # plain versions, which compute the default route's function up to
+    # rounding, so the same CPU gradients hold both)
+    for run in ("cpu", "cuda", "cuda opt-in"):
+        device = run.split()[0]
         if device == "cpu":
             unet = cpu_unet
         else:
             unet = factory.build_trainable_unet(config, device, seed=42)
             unet.load_state_dict(cpu_unet.state_dict())
-        start = time.perf_counter()
-        before = fa.flash_backward_dq.launches
-        out = unet(x.to(device), t.to(device), ctx.to(device), training=True,
-                   generator=torch.Generator(device).manual_seed(0))
-        loss = ((out - target.to(device)) ** 2).mean()
-        names, params = zip(*unet.named_parameters())
-        got = torch.autograd.grad(loss, params, allow_unused=True)
+        if run == "cuda opt-in":
+            _set_switches("pallas", "pallas", True)
+        try:
+            start = time.perf_counter()
+            before = {k: fn.launches for k, fn in counters.items()}
+            out = unet(x.to(device), t.to(device), ctx.to(device), training=True,
+                       generator=torch.Generator(device).manual_seed(0))
+            loss = ((out - target.to(device)) ** 2).mean()
+            names, params = zip(*unet.named_parameters())
+            got = torch.autograd.grad(loss, params, allow_unused=True)
+        finally:
+            _set_switches("auto", "auto", False)
         if device == "cuda":
             torch.cuda.synchronize()
-            check(fa.flash_backward_dq.launches - before > 0,
-                  "the card's backward ran no dq kernel")
-        seconds[device] = time.perf_counter() - start
-        check(all(g is not None for g in got), f"{device}: a parameter got no gradient")
-        grads[device] = {n: g.float().cpu() for n, g in zip(names, got)}
-        del unet, out, loss, got
+            ran = {k: fn.launches - before[k] for k, fn in counters.items()}
+            check(ran["flash_backward_dq"] > 0, "the card's backward ran no dq kernel")
+            if run == "cuda opt-in":
+                check(all(ran[k] > 0 for k in ("group_norm_fused", "cross_attention",
+                                                "gn_silu_conv3x3_fused")),
+                      f"the opt-in gradient run missed a kernel: {ran}")
+        seconds[run] = time.perf_counter() - start
+        check(all(g is not None for g in got), f"{run}: a parameter got no gradient")
+        grads[run] = {n: g.float().cpu() for n, g in zip(names, got)}
+        if device == "cuda":
+            del unet
+        del out, loss, got
     del cpu_unet
     torch.cuda.empty_cache()
-    groups: dict[str, list] = {}
-    for n, want in grads["cpu"].items():
-        groups.setdefault(_grad_group(n), []).append((grads["cuda"][n].flatten(),
-                                                      want.flatten()))
-    report = {}
-    for group, pairs in groups.items():
-        got = torch.cat([a for a, _ in pairs])
-        want = torch.cat([b for _, b in pairs])
-        report[group] = (float((got - want).norm() / want.norm()), len(pairs))
-    ok = all(rel < GRAD_TOL for rel, _ in report.values())
-    log(f"grad: north-star-width U-Net (1 block per level, {len(grads['cpu'])} "
-        f"tensors), batch 1, 32x32, card vs CPU float32 (card {seconds['cuda']:.2f} s, "
-        f"CPU {seconds['cpu']:.1f} s): " + "; ".join(
-            f"{g} rel_l2 {r:.2e} ({n} tensors)" for g, (r, n) in report.items())
-        + f" (bound {GRAD_TOL:g}) {'PASS' if ok else 'FAIL'}")
-    check(ok, f"U-Net gradients on the card disagree with the CPU's: {report}")
+    for run in ("cuda", "cuda opt-in"):
+        groups: dict[str, list] = {}
+        for n, want in grads["cpu"].items():
+            groups.setdefault(_grad_group(n), []).append((grads[run][n].flatten(),
+                                                          want.flatten()))
+        report = {}
+        for group, pairs in groups.items():
+            got = torch.cat([a for a, _ in pairs])
+            want = torch.cat([b for _, b in pairs])
+            report[group] = (float((got - want).norm() / want.norm()), len(pairs))
+        ok = all(rel < GRAD_TOL for rel, _ in report.values())
+        switches = " with the opt-in switches on" if run == "cuda opt-in" else ""
+        log(f"grad{switches}: north-star-width U-Net (1 block per level, "
+            f"{len(grads['cpu'])} tensors), batch 1, 32x32, card vs CPU float32 (card "
+            f"{seconds[run]:.2f} s, CPU {seconds['cpu']:.1f} s): " + "; ".join(
+                f"{g} rel_l2 {r:.2e} ({n} tensors)" for g, (r, n) in report.items())
+            + f" (bound {GRAD_TOL:g}) {'PASS' if ok else 'FAIL'}")
+        check(ok, f"U-Net gradients{switches} on the card disagree with the CPU's: "
+              f"{report}")
 
 
 def phase_unet():
@@ -608,8 +794,6 @@ def phase_main_path(card: str):
     from ldm_tf2_tpu_torch.configs.loader import validate
     from ldm_tf2_tpu_torch.data.tokenizer import cfg_token_ids, load_tokenizer
     from ldm_tf2_tpu_torch.diffusion.schedule import make_schedule
-    from ldm_tf2_tpu_torch.ops.flash_attention import flash_attention
-    from ldm_tf2_tpu_torch.ops.fused_ffn import fused_ffn
 
     config = validate(json.loads(json.dumps(NORTH_STAR)))
     sampling = config["ldm_sampling"]
@@ -637,15 +821,8 @@ def phase_main_path(card: str):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    flash_attention.launches = 0
-    fused_ffn.launches = 0
-    start = time.perf_counter()
-    images, _ = sample_txt2img(*models, schedule, ids, shape, **kwargs)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - start
-    launches = {"flash_attention": flash_attention.launches,
-                "fused_ffn": fused_ffn.launches}
-
+    seconds, launches, images, x0 = _counted_call(
+        models, schedule, ids, shape, kwargs)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     images = images.float().cpu().numpy()
     check(bool(np.isfinite(images).all()), "images are not finite")
@@ -657,10 +834,215 @@ def phase_main_path(card: str):
         f"{seconds:.3f} s total, {seconds / steps * 1e3:.2f} ms per DDIM step "
         f"(encode and decode included), {shape[0] / seconds:.3f} img/s, peak "
         f"memory {peak_gb:.2f} GB; launches {launches}")
-    want = {"flash_attention": 16 * steps + 1, "fused_ffn": 16 * steps}
+    want = {k: 0 for k in launches}  # the switches off: no other kernel runs
+    want.update({"flash_attention": 16 * steps + 1, "fused_ffn": 16 * steps})
     check(launches == want, f"launch counts {launches}, expected {want}")
-    phase_profile(models[1], shape)
-    return launches, models
+    launches = {k: launches[k] for k in ("flash_attention", "fused_ffn")}
+    profile = phase_profile(models[1], shape)
+    run = dict(models=models, config=config, ids=ids, shape=shape, kwargs=kwargs,
+               images=images, x0=x0.float().cpu(), seconds=seconds, profile=profile)
+    return launches, run
+
+
+def _counters():
+    from ldm_tf2_tpu_torch.ops import cross_attention as ca
+    from ldm_tf2_tpu_torch.ops import flash_attention as fa
+    from ldm_tf2_tpu_torch.ops import fused_conv as fc
+    from ldm_tf2_tpu_torch.ops import group_norm as gn
+    from ldm_tf2_tpu_torch.ops import quant_conv as qc
+    from ldm_tf2_tpu_torch.ops.fused_ffn import fused_ffn
+
+    return {"flash_attention": fa.flash_attention, "fused_ffn": fused_ffn,
+            "gn_silu_quant": qc.gn_silu_quant, "s8_conv3x3": qc.s8_conv3x3,
+            "flash_attention_pv_int8": fa.flash_attention_pv_int8,
+            "flash_backward_dq": fa.flash_backward_dq,
+            "flash_backward_dkv": fa.flash_backward_dkv,
+            "group_norm_fused": gn.group_norm_fused, "group_stats": gn.group_stats,
+            "gn_silu_conv3x3_fused": fc.gn_silu_conv3x3_fused,
+            "cross_attention": ca.cross_attention}
+
+
+def _counted_call(models, schedule, ids, shape, kwargs):
+    """One ``sample_txt2img`` call with every kernel's count set to 0 just
+    before it and read just after: (seconds, launches, images, x0)."""
+    import torch
+
+    from ldm_tf2_tpu_torch.cli.run_ldm_sampler import sample_txt2img
+
+    counters = _counters()
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    start = time.perf_counter()
+    images, x0 = sample_txt2img(*models, schedule, ids, shape, **kwargs)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    return seconds, {k: fn.launches for k, fn in counters.items()}, images, x0
+
+
+def _set_switches(groupnorm: str, conv: str, cross: bool) -> None:
+    from ldm_tf2_tpu_torch.ops.attention import set_packed_cross
+    from ldm_tf2_tpu_torch.ops.fused_conv import set_fused_conv_impl
+    from ldm_tf2_tpu_torch.ops.group_norm import set_groupnorm_impl
+
+    set_groupnorm_impl(groupnorm)
+    set_fused_conv_impl(conv)
+    set_packed_cross(cross)
+
+
+def _opt_in_launches(evals: int, groupnorm: str = "pallas") -> dict:
+    """What a sampling call of ``evals`` U-Net evals and one decode launches
+    with the three switches on (``groupnorm``: "pallas" or "stats")."""
+    count = {k: evals * OPT_EVAL[k] + OPT_DECODE[k] for k in OPT_EVAL}
+    gn_name = "group_norm_fused" if groupnorm == "pallas" else "group_stats"
+    return {"gn_silu_conv3x3_fused": count["gn_silu_conv3x3_fused"],
+            "cross_attention": count["cross_attention"], gn_name: count["group_norm"],
+            "flash_attention": 16 * evals + 1, "fused_ffn": 16 * evals}
+
+
+def phase_opt_in(card: str, run: dict):
+    """The main path with the JAX package's three opt-in switches on
+    (GroupNorm "pallas", fused conv "pallas", packed cross): 50 DDIM steps,
+    batch 2, through ``sample_txt2img``, in turns with the default route
+    (default, opt-in, default, opt-in); exact launch counts; latents and
+    images against the default route's; a profiled window of U-Net evals.
+    Then a 10-step run with GroupNorm "stats", against a 10-step default
+    run.  Returns the launches of both opt-in runs."""
+    import numpy as np
+
+    from ldm_tf2_tpu_torch.diffusion.schedule import make_schedule
+
+    from ldm_tf2_tpu_torch import factory
+
+    models, ids, shape, kwargs = run["models"], run["ids"], run["shape"], run["kwargs"]
+    schedule = factory.build_schedule(run["config"])
+    steps = schedule.num_ddim_steps
+    _set_switches("pallas", "pallas", True)
+    try:
+        # warm-up: a 2-step run outside the counted, timed ones
+        _counted_call(models, make_schedule(num_ddim_steps=2), ids, shape, kwargs)
+        seconds, launches, images, x0 = _counted_call(models, schedule, ids, shape, kwargs)
+        _set_switches("auto", "auto", False)
+        default_s = _counted_call(models, schedule, ids, shape, kwargs)[0]
+        _set_switches("pallas", "pallas", True)
+        seconds2 = _counted_call(models, schedule, ids, shape, kwargs)[0]
+        images = images.float().cpu().numpy()
+        x0 = x0.float().cpu()
+        check(bool(np.isfinite(images).all()), "opt-in images are not finite")
+        _, rel_x0 = errors(x0, run["x0"])
+        img_diff = images - run["images"]
+        rel_img = float(np.linalg.norm(img_diff) / np.linalg.norm(run["images"]))
+        want = _opt_in_launches(steps)
+        got = {k: v for k, v in launches.items() if v or k in want}
+        log(f"opt-in main path on {card}: {steps} steps, batch {shape[0]}, 256^2, "
+            f"GroupNorm pallas + fused conv pallas + packed cross: {seconds:.3f} s and "
+            f"{seconds2:.3f} s per call against the default route's "
+            f"{run['seconds']:.3f} s and {default_s:.3f} s (turns: default, opt-in, "
+            f"default, opt-in); x0 rel_l2 {rel_x0:.3e}, images rel_l2 {rel_img:.3e} "
+            f"against the default route (bound {OPT_ROUTE_TOL:g}); launches {got}")
+        check(got == want, f"opt-in launch counts {got}, expected {want}")
+        check(rel_x0 < OPT_ROUTE_TOL and rel_img < OPT_ROUTE_TOL,
+              f"opt-in route x0 {rel_x0:.3e} / images {rel_img:.3e} from the default")
+        phase_profile(models[1], shape, what="opt-in bf16")
+
+        # GroupNorm "stats": the stats kernel, the normalize in PyTorch
+        short = make_schedule(num_ddim_steps=10)
+        _set_switches("auto", "auto", False)
+        default_short, _, _, x0_default = _counted_call(models, short, ids, shape, kwargs)
+        _set_switches("stats", "pallas", True)
+        s_stats, stats_launches, images_s, x0_s = _counted_call(
+            models, short, ids, shape, kwargs)
+        check(bool(np.isfinite(images_s.float().cpu().numpy()).all()),
+              "stats-route images are not finite")
+        _, rel_s = errors(x0_s.float().cpu(), x0_default.float().cpu())
+        want_s = _opt_in_launches(10, "stats")
+        got_s = {k: v for k, v in stats_launches.items() if v or k in want_s}
+        log(f"opt-in main path, GroupNorm stats, 10 steps: {s_stats:.3f} s against the "
+            f"default route's {default_short:.3f} s; x0 rel_l2 {rel_s:.3e} against the "
+            f"default (bound {OPT_ROUTE_TOL:g}); launches {got_s}")
+        check(got_s == want_s, f"stats-route launch counts {got_s}, expected {want_s}")
+        check(rel_s < OPT_ROUTE_TOL, f"stats route x0 {rel_s:.3e} from the default")
+    finally:
+        _set_switches("auto", "auto", False)
+    return launches, stats_launches
+
+
+def phase_samplers(card: str, run: dict):
+    """The rest of the sampler menu with the switches on, through
+    ``sample_txt2img`` at the north star: PLMS and DPM-Solver++(2M) (karras
+    spacing) at 50 steps, DDPM on a 100-step timeline (the north star's has
+    1000: 1000 U-Net evals), the progressive DDIM loop's records, and one
+    ``serve()`` call with dpm_solver_pp_2m."""
+    import io
+    import tempfile
+
+    import numpy as np
+
+    from ldm_tf2_tpu_torch import factory
+    from ldm_tf2_tpu_torch.cli import serve_ldm
+    from ldm_tf2_tpu_torch.cli.run_ldm_sampler import sample_txt2img_progressive
+    from ldm_tf2_tpu_torch.configs.loader import validate
+    from ldm_tf2_tpu_torch.diffusion.schedule import make_schedule
+
+    models, ids, shape, kwargs = run["models"], run["ids"], run["shape"], run["kwargs"]
+    ldm = run["config"]["ldm"]
+    base = dict(num_steps=ldm["num_steps"], beta_start=ldm["beta_start"],
+                beta_end=ldm["beta_end"], num_ddim_steps=ldm["num_ddim_steps"])
+    runs = (("plms", make_schedule(**base), "uniform spacing"),
+            ("dpm_solver_pp_2m", make_schedule(**base, timestep_spacing="karras"),
+             "karras spacing"),
+            ("ddpm", make_schedule(**{**base, "num_steps": 100}),
+             "T = 100 of the north star's 1000, cut to keep the phase short"))
+    _set_switches("pallas", "pallas", True)
+    try:
+        for sampler, schedule, note in runs:
+            evals = schedule.num_steps if sampler == "ddpm" else schedule.num_ddim_steps
+            seconds, launches, images, x0 = _counted_call(
+                models, schedule, ids, shape, {**kwargs, "sampler": sampler})
+            images = images.float().cpu().numpy()
+            want = _opt_in_launches(evals)
+            got = {k: v for k, v in launches.items() if v or k in want}
+            finite = bool(np.isfinite(images).all()) and images.shape == (2, 256, 256, 3)
+            log(f"sampler {sampler} on {card} ({note}), batch {shape[0]}, switches on: "
+                f"{seconds:.3f} s per call ({evals} U-Net evals), images finite "
+                f"{finite}; launches {got}")
+            check(finite, f"{sampler}: images not finite or misshapen")
+            check(got == want, f"{sampler} launch counts {got}, expected {want}")
+
+        schedule = factory.build_schedule(run["config"])
+        start = time.perf_counter()
+        images, _, sample_prog, pred_x0_prog = sample_txt2img_progressive(
+            *models, schedule, ids, shape, **kwargs)
+        seconds = time.perf_counter() - start
+        want_shape = (2, 10, 256, 256, 3)
+        ok = (tuple(sample_prog.shape) == want_shape
+              and tuple(pred_x0_prog.shape) == want_shape
+              and all(bool(t.float().isfinite().all())
+                      for t in (images, sample_prog, pred_x0_prog)))
+        log(f"progressive DDIM, 50 steps, every 5th recorded: {seconds:.3f} s; records "
+            f"{tuple(sample_prog.shape)} and {tuple(pred_x0_prog.shape)}, finite "
+            f"{'PASS' if ok else 'FAIL'}")
+        check(ok, "progressive records misshapen or not finite")
+
+        config = json.loads(json.dumps(NORTH_STAR))
+        config["ldm_sampling"].update(
+            sampler="dpm_solver_pp_2m", vocab_dir=os.path.join(ROOT, "bert_model"))
+        config = validate(config)
+        out = io.StringIO()
+        with tempfile.TemporaryDirectory(dir=ROOT) as out_dir:
+            start = time.perf_counter()
+            serve_ldm.serve(config, io.StringIO(json.dumps(
+                {"prompt": "a lighthouse at dusk", "seed": 3, "out": "d"})), out,
+                output_dir=out_dir, device="cuda", models=models)
+            seconds = time.perf_counter() - start
+            resp = json.loads(out.getvalue().splitlines()[0])
+            ok = resp["ok"] and np.load(resp["out"]).shape == (2, 256, 256, 3)
+        log(f"serve with dpm_solver_pp_2m, switches on: warm-up and one request in "
+            f"{seconds:.3f} s, the request {resp.get('latency_s')} s "
+            f"{'PASS' if ok else 'FAIL'}")
+        check(ok, f"serve with dpm_solver_pp_2m: {resp}")
+    finally:
+        _set_switches("auto", "auto", False)
 
 
 def phase_serve(card: str, models):
@@ -677,9 +1059,6 @@ def phase_serve(card: str, models):
 
     from ldm_tf2_tpu_torch.cli import serve_ldm
     from ldm_tf2_tpu_torch.configs.loader import validate
-    from ldm_tf2_tpu_torch.ops import flash_attention as fa
-    from ldm_tf2_tpu_torch.ops import quant_conv as qc
-    from ldm_tf2_tpu_torch.ops.fused_ffn import fused_ffn
 
     config = json.loads(json.dumps(NORTH_STAR))
     config["ldm_sampling"].update(
@@ -697,7 +1076,8 @@ def phase_serve(card: str, models):
                 "flash_attention": steps * (ev["self_attentions"] - ev["pv_int8"]),
                 "fused_ffn": steps * ev["ffn"]}
     calls = 3  # warm-up, seed 1 (4 slots), seed 2 (1 slot, 3 padded)
-    want = {k: calls * v for k, v in per_call.items()}
+    want = {k: 0 for k in _counters()}  # the opt-in switches are off
+    want.update({k: calls * v for k, v in per_call.items()})
 
     requests = "\n".join([
         json.dumps({"prompt": "a virus monster is playing guitar", "n": 2,
@@ -708,9 +1088,7 @@ def phase_serve(card: str, models):
                     "out": "s3"}),
         "this is not json",
     ])
-    counters = {"flash_attention": fa.flash_attention, "fused_ffn": fused_ffn,
-                "gn_silu_quant": qc.gn_silu_quant, "s8_conv3x3": qc.s8_conv3x3,
-                "flash_attention_pv_int8": fa.flash_attention_pv_int8}
+    counters = _counters()
     out = io.StringIO()
     with tempfile.TemporaryDirectory(dir=ROOT) as out_dir:
         torch.cuda.synchronize()
@@ -752,6 +1130,12 @@ def _kernel_group(name: str) -> str:
         return "flash_attention kernel"
     if "pv_int8" in low or "v_scale" in low:
         return "flash_attention_pv_int8 kernels"
+    if "conv_mma" in low or "conv_fma" in low or "splitk_epilogue" in low:
+        return "gn_silu_conv3x3 kernels"
+    if "cross_mma" in low or "cross_fma" in low:
+        return "cross_attention kernel"
+    if "gn_partial" in low or "gn_finalize" in low or "gn_normalize" in low:
+        return "GroupNorm stats / normalize kernels"
     if "s8_conv" in low:
         return "s8_conv3x3 kernel"
     if any(k in low for k in ("gn_stats", "gn_amax", "gn_quant")):
@@ -777,9 +1161,6 @@ def phase_train(card: str):
     from ldm_tf2_tpu_torch import factory
     from ldm_tf2_tpu_torch.cli.run_ldm_trainer import train
     from ldm_tf2_tpu_torch.configs.loader import validate
-    from ldm_tf2_tpu_torch.ops import flash_attention as fa
-    from ldm_tf2_tpu_torch.ops import quant_conv as qc
-    from ldm_tf2_tpu_torch.ops.fused_ffn import fused_ffn
 
     batch, size = 8, 256
     config = json.loads(json.dumps(NORTH_STAR))
@@ -822,11 +1203,7 @@ def phase_train(card: str):
         return records, time.perf_counter() - t0
 
     warm, _ = run(2)
-    counters = {"flash_attention": fa.flash_attention,
-                "flash_backward_dq": fa.flash_backward_dq,
-                "flash_backward_dkv": fa.flash_backward_dkv, "fused_ffn": fused_ffn,
-                "flash_attention_pv_int8": fa.flash_attention_pv_int8,
-                "gn_silu_quant": qc.gn_silu_quant, "s8_conv3x3": qc.s8_conv3x3}
+    counters = _counters()
     steps = 5
     torch.cuda.reset_peak_memory_stats()
     for fn in counters.values():
@@ -895,7 +1272,7 @@ def _profile_report(prof, n: int, what: str, wall_ms: float,
         f"{name[:60]} {ms / n:.3f} ms x{c // n}" for name, (ms, c) in top))
 
 
-def phase_profile(unet, shape, evals: int = 3):
+def phase_profile(unet, shape, evals: int = 3, what: str | None = None):
     """Device time by kernel group over a few U-Net evals at the CFG batch
     of a latent ``shape``, and the device's idle share of the window."""
     import torch
@@ -922,7 +1299,7 @@ def phase_profile(unet, shape, evals: int = 3):
                 unet(x, t, ctx)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - start) * 1e3
-    modes = "int8 + int8-P.V" if unet.conv_quant else "bf16"
+    modes = what or ("int8 + int8-P.V" if unet.conv_quant else "bf16")
     _profile_report(prof, evals, f"{modes} U-Net eval at CFG batch {b2}", wall_ms, bare_ms)
 
 
@@ -946,12 +1323,18 @@ def main() -> int:
     results = phase_kernels()
     phase_unet()
     phase_grad()
-    launches, models = phase_main_path(card)
-    # the serving path's kernels report their launches in the serve run,
-    # the backward kernels theirs in the train run
-    launches.update({k: v for k, v in phase_serve(card, models).items()
+    launches, run = phase_main_path(card)
+    # the opt-in kernels report their launches in the opt-in main path (the
+    # stats kernel in its GroupNorm "stats" run), the serving path's in the
+    # serve run, the backward kernels theirs in the train run
+    opt_in, stats = phase_opt_in(card, run)
+    launches.update({k: opt_in[k] for k in ("group_norm_fused", "gn_silu_conv3x3_fused",
+                                            "cross_attention")})
+    launches["group_stats"] = stats["group_stats"]
+    phase_samplers(card, run)
+    launches.update({k: v for k, v in phase_serve(card, run["models"]).items()
                      if k not in launches})
-    del models
+    del run
     torch.cuda.empty_cache()
     launches.update({k: v for k, v in phase_train(card).items() if k not in launches})
 
@@ -961,9 +1344,15 @@ def main() -> int:
                 "s8_conv3x3": "ldm_tf2_tpu/ops/quant_conv.py:722",
                 "flash_attention_pv_int8": "ldm_tf2_tpu/ops/flash_attention.py:186",
                 "flash_backward_dq": "ldm_tf2_tpu/ops/flash_attention.py:347",
-                "flash_backward_dkv": "ldm_tf2_tpu/ops/flash_attention.py:392"}
+                "flash_backward_dkv": "ldm_tf2_tpu/ops/flash_attention.py:392",
+                "group_norm_fused": "ldm_tf2_tpu/ops/group_norm.py:115",
+                "group_stats": "ldm_tf2_tpu/ops/group_norm.py:192",
+                "gn_silu_conv3x3_fused": "ldm_tf2_tpu/ops/fused_conv.py:178",
+                "cross_attention": "ldm_tf2_tpu/ops/cross_attention.py:84"}
     source = {"flash_backward_dq": "flash_attention_bwd",
-              "flash_backward_dkv": "flash_attention_bwd"}
+              "flash_backward_dkv": "flash_attention_bwd",
+              "group_norm_fused": "group_norm", "group_stats": "group_norm",
+              "gn_silu_conv3x3_fused": "gn_silu_conv3x3"}
     kernels = []
     for name, rows in results.items():
         main_row = rows[0]  # bf16 at the path's first (level-0) shape

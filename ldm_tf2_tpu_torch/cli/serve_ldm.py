@@ -25,12 +25,14 @@ negative prompt and guidance scale per slot; a short call is padded with
 copies of its last slot, whose images are discarded.
 
 The weights come from a blob the JAX package exported
-(``checkpoints/blob.py``).  The serving modes ``tpu.quantize: int8`` and
-``tpu.quantize_attention: int8pv`` apply (``factory.apply_serving_modes``).
-Samplers other than DDIM, DeepCache, the VQ autoencoder and a device mesh
-raise ``NotImplementedError`` naming their ROADMAP item.  The JAX server's
-``--aot_cache`` has no counterpart: PyTorch runs eagerly and compiles no
-pipeline executable to cache.
+(``checkpoints/blob.py``).  ``ldm_sampling.sampler`` picks the loop from
+the sampler CLI's table (``ddim``, ``ddpm``, ``plms``,
+``dpm_solver_pp_2m``), checked as the JAX server checks it.  The serving
+modes ``tpu.quantize: int8`` and ``tpu.quantize_attention: int8pv`` apply
+(``factory.apply_serving_modes``).  DeepCache, the VQ autoencoder and a
+device mesh raise ``NotImplementedError`` naming their ROADMAP item.  The
+JAX server's ``--aot_cache`` has no counterpart: PyTorch runs eagerly and
+compiles no pipeline executable to cache.
 """
 
 from __future__ import annotations
@@ -46,7 +48,8 @@ import torch
 
 from ldm_tf2_tpu_torch import factory
 from ldm_tf2_tpu_torch.cli.run_ldm_sampler import (
-    UNSUPPORTED_PIPELINE, check_supported, sample_txt2img, tensor_to_image,
+    UNSUPPORTED_PIPELINE, check_supported, sample_txt2img, sampler_name,
+    tensor_to_image,
 )
 
 
@@ -65,10 +68,11 @@ def build_server(config: dict, params_blob_path: str = "", device="cuda",
         load_tokenizer, packed_cfg_token_ids,
     )
 
+    sampling = config["ldm_sampling"]
+    sampler = sampler_name(sampling)
     check_supported(config, UNSUPPORTED_PIPELINE)
     device = factory.resolve_device(device)
     factory.set_float32_precision()
-    sampling = config["ldm_sampling"]
     shape = tuple(sampling["latent_shape"])
     max_seq_len = config["cond_stage_model"]["max_seq_len"]
     guidance_rescale = float(sampling.get("guidance_rescale", 0.0))
@@ -93,7 +97,7 @@ def build_server(config: dict, params_blob_path: str = "", device="cuda",
         _note("W8A8 int8 U-Net convs (tpu.quantize: int8)")
     if tpu["quantize_attention"] == "int8pv":
         _note("int8 P.V flash attention (tpu.quantize_attention: int8pv)")
-    _note(f"params ready in {time.perf_counter() - start:.1f}s")
+    _note(f"params ready in {time.perf_counter() - start:.1f}s; sampler {sampler}")
     schedule = factory.build_schedule(config)
     tokenizer = load_tokenizer(sampling["vocab_dir"])
 
@@ -107,7 +111,8 @@ def build_server(config: dict, params_blob_path: str = "", device="cuda",
             device=device)
         images, _ = sample_txt2img(
             cond_model, unet, autoencoder, schedule, token_ids, shape,
-            guidance_scale=guidance, guidance_rescale=guidance_rescale,
+            sampler=sampler, guidance_scale=guidance,
+            guidance_rescale=guidance_rescale,
             scale_factor=config["ldm"]["scale_factor"], seed=int(seed),
             device=device,
         )

@@ -1,0 +1,410 @@
+// The ResBlock chain GroupNorm -> SiLU -> 3x3 SAME conv (stride 1) ->
+// + bias (+ time) (+ residual), for Hopper (sm_90a).
+//
+// Replaces the TPU kernel ldm_tf2_tpu/ops/fused_conv.py::_kernel (through
+// _pallas_call and _fused): one image's [HW, Cin] slab in VMEM, GN stats by
+// one-hot matmuls, normalize + SiLU once per image into a zero-padded row
+// slab, the conv as 9 shifted slab dots, the epilogue adds; Cout
+// block-gridded.
+//
+// What it computes, in the TPU kernel's formula:
+//   stats   float32 sums per (image, group); var = max(E[x^2] - mean^2, 0)
+//           (the chain CLAMPS the fast variance; the GroupNorm kernels of
+//           group_norm.cu do not); rstd = 1 / sqrt(var + eps)
+//   y       = silu((x - mean) * (rstd * gamma) + beta) in float32, cast to
+//           x's type; the SAME border is zeros of y, not of x
+//   acc     = sum over 9 taps and Cin of y * w in float32 (products of
+//           x-type values)
+//   out     = T(acc) + bias, then + time_add[b, co], then + residual, each
+//           add in x's type T (bf16 adds round at every step)
+//
+// Layout: x, y [B, H, W, Cin] (NHWC); gamma, beta [Cin] float32; w [Cout,
+// Cin, 3, 3] (the port's OIHW, read in place) and bias [Cout] in T;
+// time_add [B, Cout] and residual [B, H, W, Cout] in T; out [B, H, W, Cout]
+// in T.
+//
+// What bounds it on this card: at the U-Net's shapes the products (2 * M *
+// Cout * 9 * Cin operations, M = B*H*W, against about M * (Cin + 2 * Cout)
+// elements moved) are far above the card's operations-per-byte ratio, so
+// the conv runs on the bf16 tensor cores.
+//
+// Design, four launches (five with split-K), all in one call:
+//  1-2. gn_stats.cuh: per-(image, group) partial sums, then per-channel mean
+//       and rstd * gamma, with the clamp;
+//  3.   gn_stats.cuh's normalize: y = silu(...) in T, written once.  Like the
+//       TPU kernel's slab, each element is normalized once; y makes one
+//       round trip through device memory (2 * M * Cin elements), where
+//       normalizing in the conv's prologue instead recomputed it for every
+//       tap and every Cout tile that reads it (9 * Cout / 64 times) and made
+//       the conv 3-5x slower;
+//  4.   the conv, an implicit GEMM over M = B*H*W rows, N = Cout, K = 9 * Cin:
+//   * tensor-core path (bf16, Cin % 32 == 0, 16-byte aligned y and w): a
+//     64 x 64 output tile per block of 4 warps (each 32 x 32: 2 m16 x 4 n8
+//     tiles), mma.sync m16n8k16 with float32 accumulators.  Each k-step
+//     takes 32 input channels of one tap, channel block outermost.  The A
+//     tile (64 shifted pixels x 32 channels of y) comes in with cp.async,
+//     whose zero-fill supplies the SAME border, three stages deep.  The
+//     weights of a channel block are, per output channel, one contiguous
+//     576-byte span of the OIHW tensor (32 channels x 9 taps): they stream
+//     in with 16-byte loads, two per thread per k-step over the previous
+//     block's 9 steps, and are scattered into 9 per-tap tiles [co][ci]
+//     (double-buffered).  Rows of 80 bytes keep ldmatrix free of bank
+//     conflicts.  Where the output has too few 64 x 64 tiles to fill the
+//     card (the U-Net's 4x4 and 8x8 levels: 20-80 tiles), the channel
+//     blocks are split over `splits` blocks per tile, each writing float32
+//     partial sums; launch 5 adds them in a fixed order and applies the
+//     epilogue, so the result is deterministic.
+//   * FMA path (float32, and shapes the tensor-core path does not take): a
+//     64 x 64 tile per block of 256 threads (4 x 4 outputs each), 16 input
+//     channels of one tap per k-step, float32 FMAs.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "common.cuh"
+#include "gn_stats.cuh"
+
+namespace {
+
+using namespace ldm;
+
+// out = T(acc) + bias, then + time_add, then + residual, each add rounded
+// to T, as the TPU kernel's epilogue runs in the output type.
+template <typename T>
+__device__ __forceinline__ T epilogue(float acc, const T* __restrict__ bias,
+                                      const T* __restrict__ time_add,
+                                      const T* __restrict__ residual, int img, long m, int co,
+                                      int cout) {
+  float v = to_f32(from_f32<T>(acc));
+  v = to_f32(from_f32<T>(v + to_f32(bias[co])));
+  if (time_add) v = to_f32(from_f32<T>(v + to_f32(time_add[(long)img * cout + co])));
+  if (residual) v = to_f32(from_f32<T>(v + to_f32(residual[m * cout + co])));
+  return from_f32<T>(v);
+}
+
+// ------------------------------------------------------ tensor-core path
+
+constexpr int kThreads = 128;
+constexpr int BM = 64, BN = 64, BK = 32;
+constexpr int LDS = BK + 8;        // shared row stride in elements (80 bytes)
+constexpr int kSpan = BK * 9 / 8;  // 16-byte chunks of one co's weights per channel block
+static_assert(BN * kSpan == 18 * kThreads, "each thread moves 18 chunks, 2 per k-step");
+constexpr int kStagesA = 3;
+constexpr int A_STAGE = BM * LDS;
+constexpr int B_STAGE = 9 * BN * LDS;  // the 9 taps of one channel block
+constexpr size_t kMmaSmem = (kStagesA * A_STAGE + 2 * B_STAGE) * sizeof(bf16);
+
+// Grid (M tiles, N tiles, splits); block z reduces channel blocks
+// [z * per_split, min((z + 1) * per_split, Cin / 32)).  partial: null when
+// splits == 1 (the epilogue runs here), else [splits, M, Cout] float32.
+__global__ void __launch_bounds__(kThreads)
+conv_mma_kernel(const bf16* __restrict__ y, const bf16* __restrict__ w,
+                const bf16* __restrict__ bias, const bf16* __restrict__ time_add,
+                const bf16* __restrict__ residual, bf16* __restrict__ out,
+                float* __restrict__ partial, int h, int wd, int cin, int cout, int m_total,
+                int per_split) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* as = reinterpret_cast<bf16*>(smem_raw);  // [kStagesA][BM][LDS]
+  bf16* bs = as + kStagesA * A_STAGE;            // [2][9][BN][LDS]
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int wm = warp / 2, wn = warp % 2;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int hw = h * wd;
+  const int cb0 = blockIdx.z * per_split;
+  const int cb_end = min(cb0 + per_split, cin / BK);
+  const int k_steps = 9 * (cb_end - cb0);
+
+  // A: pixel row tid / 2, 16 channels from (tid % 2) * 16: two 16-byte
+  // cp.async, zero-filled where the shifted pixel leaves its image.
+  const int lrow = tid / 2, lhalf = (tid % 2) * 16;
+  const int am = m0 + lrow;
+  const bool a_row_ok = am < m_total;
+  const int a_img = a_row_ok ? am / hw : 0;
+  const int a_rem = a_row_ok ? am % hw : 0;
+  const int a_y = a_rem / wd, a_x = a_rem % wd;
+  auto load_a = [&](int stage, int ks) {
+    const int tap = ks % 9, ci0 = (cb0 + ks / 9) * BK + lhalf;
+    const int yy = a_y + tap / 3 - 1, xx = a_x + tap % 3 - 1;
+    const bool ok = a_row_ok && yy >= 0 && yy < h && xx >= 0 && xx < wd;
+    const bf16* src = y + (ok ? ((long)a_img * hw + (long)yy * wd + xx) * cin + ci0 : 0);
+    bf16* dst = as + stage * A_STAGE + lrow * LDS + lhalf;
+    cp_async16(dst, src, ok);
+    cp_async16(dst + 8, src + 8, ok);
+  };
+
+  // B: chunk i = tid + 128 * r (r < 18) is 16-byte chunk i % 36 of output
+  // channel n0 + i / 36's span; part p (0..8) of a block is chunks r = 2p,
+  // 2p + 1, fetched one k-step ahead and scattered into [tap][co][ci].
+  auto fetch_b = [&](uint4 (&wb)[2], int cb, int part) {
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int i = tid + kThreads * (2 * part + u);
+      const int co = n0 + i / kSpan;
+      wb[u] = co < cout ? __ldg(reinterpret_cast<const uint4*>(
+                              w + ((long)co * cin + (long)cb * BK) * 9) + i % kSpan)
+                        : make_uint4(0u, 0u, 0u, 0u);
+    }
+  };
+  auto store_b = [&](const uint4 (&wb)[2], int stage, int part) {
+    unsigned short* dst = reinterpret_cast<unsigned short*>(bs + stage * B_STAGE);
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int i = tid + kThreads * (2 * part + u);
+      const int row = i / kSpan, p0 = (i % kSpan) * 8;
+      const uint32_t words[4] = {wb[u].x, wb[u].y, wb[u].z, wb[u].w};
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int p = p0 + e;  // ci_local * 9 + tap
+        dst[((p % 9) * BN + row) * LDS + p / 9] =
+            (unsigned short)(e & 1 ? words[e / 2] >> 16 : words[e / 2] & 0xffffu);
+      }
+    }
+  };
+
+  float acc[2][4][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  if (k_steps > 0) {
+    {  // the first block's weights: all 18 loads in flight, then the scatter
+      uint4 first[9][2];
+#pragma unroll
+      for (int part = 0; part < 9; ++part) fetch_b(first[part], cb0, part);
+#pragma unroll
+      for (int part = 0; part < 9; ++part) store_b(first[part], 0, part);
+    }
+#pragma unroll
+    for (int s = 0; s < kStagesA - 1; ++s) {
+      if (s < k_steps) load_a(s, s);
+      cp_async_commit();
+    }
+  }
+  uint4 wb[2];
+  for (int ks = 0; ks < k_steps; ++ks) {
+    const int cb = ks / 9, tap = ks % 9;
+    const bool next_b = cb0 + cb + 1 < cb_end;
+    cp_async_wait<kStagesA - 2>();
+    __syncthreads();  // A stage ks and B block cb have landed; ks - 1 is done
+    const int next = ks + kStagesA - 1;
+    if (next < k_steps) load_a(next % kStagesA, next);
+    cp_async_commit();
+    if (next_b) fetch_b(wb, cb0 + cb + 1, tap);  // in flight over the products
+    const bf16* a_t = as + (ks % kStagesA) * A_STAGE;
+    const bf16* b_t = bs + (cb & 1) * B_STAGE + tap * BN * LDS;
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t af[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        ldsm_x4(af[i], a_t + (wm * 32 + i * 16 + lane % 16) * LDS + kk * 16 + (lane / 16) * 8);
+#pragma unroll
+      for (int jp = 0; jp < 2; ++jp) {
+        uint32_t bf[4];
+        ldsm_x4(bf, b_t + (wn * 32 + jp * 16 + lane % 8 + (lane / 16) * 8) * LDS + kk * 16 +
+                        ((lane / 8) % 2) * 8);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          mma_bf16(acc[i][2 * jp], af[i], bf[0], bf[1]);
+          mma_bf16(acc[i][2 * jp + 1], af[i], bf[2], bf[3]);
+        }
+      }
+    }
+    // block cb + 1's B stage was last read in block cb - 1, before a barrier
+    if (next_b) store_b(wb, (cb + 1) & 1, tap);
+  }
+  cp_async_wait<0>();
+
+  // Element e of tile (i, j): row g + 8 * (e / 2), column 2 * t4 + (e & 1).
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int m = m0 + wm * 32 + i * 16 + g + 8 * r;
+      if (m >= m_total) continue;
+      const int img = m / hw;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int co = n0 + wn * 32 + j * 8 + 2 * t4 + c;
+          if (co >= cout) continue;
+          const float v = acc[i][j][2 * r + c];
+          if (partial != nullptr)
+            partial[((long)blockIdx.z * m_total + m) * cout + co] = v;
+          else
+            out[(long)m * cout + co] = epilogue<bf16>(v, bias, time_add, residual, img, m, co, cout);
+        }
+      }
+    }
+  }
+}
+
+// Launch 5 of split-K: out = epilogue(sum of the splits' partials, in order).
+template <typename T>
+__global__ void __launch_bounds__(256)
+splitk_epilogue_kernel(const float* __restrict__ partial, const T* __restrict__ bias,
+                       const T* __restrict__ time_add, const T* __restrict__ residual,
+                       T* __restrict__ out, int hw, int cout, int m_total, int splits) {
+  const long total = (long)m_total * cout;
+  for (long i = (long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+       i += (long)gridDim.x * blockDim.x) {
+    float v = 0.f;
+    for (int z = 0; z < splits; ++z) v += partial[z * total + i];
+    const long m = i / cout;
+    out[i] = epilogue<T>(v, bias, time_add, residual, (int)(m / hw), m, (int)(i % cout), cout);
+  }
+}
+
+// ---------------------------------------------------------------- FMA path
+
+constexpr int kFmaThreads = 256;
+constexpr int FM = 64, FN = 64, FK = 16;
+
+template <typename T>
+__global__ void __launch_bounds__(kFmaThreads)
+conv_fma_kernel(const T* __restrict__ y, const T* __restrict__ w, const T* __restrict__ bias,
+                const T* __restrict__ time_add, const T* __restrict__ residual,
+                T* __restrict__ out, int h, int wd, int cin, int cout, int m_total) {
+  __shared__ float as[FK][FM];
+  __shared__ float bs[FK][FN];
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.x * FM, n0 = blockIdx.y * FN;
+  const int hw = h * wd;
+  const int lrow = tid / 4, lcol = (tid % 4) * 4;
+  const int am = m0 + lrow;
+  const bool a_row_ok = am < m_total;
+  const int a_img = a_row_ok ? am / hw : 0;
+  const int a_rem = a_row_ok ? am % hw : 0;
+  const int a_y = a_rem / wd, a_x = a_rem % wd;
+  const int bco = n0 + lrow;
+  const int ty = tid / 16, tx = tid % 16;
+  const int k_steps = 9 * ((cin + FK - 1) / FK);
+
+  float acc[4][4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+
+  for (int ks = 0; ks < k_steps; ++ks) {
+    const int tap = ks % 9, ci0 = (ks / 9) * FK;
+    const int yy = a_y + tap / 3 - 1, xx = a_x + tap % 3 - 1;
+    const bool ok = a_row_ok && yy >= 0 && yy < h && xx >= 0 && xx < wd;
+    const long pix = ((long)a_img * hw + (long)yy * wd + xx) * cin;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int ci = ci0 + lcol + j;
+      as[lcol + j][lrow] = ok && ci < cin ? to_f32(y[pix + ci]) : 0.f;
+      bs[lcol + j][lrow] =
+          bco < cout && ci < cin ? to_f32(w[((long)bco * cin + ci) * 9 + tap]) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < FK; ++k) {
+      float a[4], b[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) a[r] = as[k][ty * 4 + r];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) b[c] = bs[k][tx * 4 + c];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int m = m0 + ty * 4 + r;
+    if (m >= m_total) continue;
+    const int img = m / hw;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int co = n0 + tx * 4 + c;
+      if (co < cout)
+        out[(long)m * cout + co] =
+            epilogue<T>(acc[r][c], bias, time_add, residual, img, m, co, cout);
+    }
+  }
+}
+
+template <typename T>
+cudaError_t run(const void* x, const float* gamma, const float* beta, const void* w,
+                const void* bias, const void* time_add, const void* residual, void* out,
+                void* y, float* scratch, int b, int h, int wd, int cin, int cout, int groups,
+                int chunks, int splits, float eps, cudaStream_t st) {
+  const T* xt = static_cast<const T*>(x);
+  T* yt = static_cast<T*>(y);
+  float* mean = scratch;
+  float* factor = mean + (long)b * cin;
+  float* partial = factor + (long)b * cin;
+  cudaError_t err = gn_stats<T>(xt, gamma, partial, mean, factor, b, h * wd, cin, groups,
+                                chunks, eps, /*clamp=*/1, st);
+  if (err != cudaSuccess) return err;
+  err = gn_normalize<T>(xt, mean, factor, beta, yt, b, h * wd, cin, /*activate=*/1, st);
+  if (err != cudaSuccess) return err;
+  const int m_total = b * h * wd;
+  const T* wt = static_cast<const T*>(w);
+  const T* bt = static_cast<const T*>(bias);
+  const T* tt = static_cast<const T*>(time_add);
+  const T* rt = static_cast<const T*>(residual);
+  T* ot = static_cast<T*>(out);
+  if constexpr (sizeof(T) == 2) {
+    if (cin % BK == 0 && aligned16(y) && aligned16(w)) {
+      err = cudaFuncSetAttribute(conv_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)kMmaSmem);
+      if (err != cudaSuccess) return err;
+      const int blocks = cin / BK;
+      const int per_split = (blocks + splits - 1) / splits;
+      const int used = (blocks + per_split - 1) / per_split;
+      // split-K partials go after the stats scratch, 16-byte aligned
+      float* sk = used > 1 ? partial + (((long)b * groups * chunks * 2 + 3) / 4) * 4 : nullptr;
+      const dim3 grid((m_total + BM - 1) / BM, (cout + BN - 1) / BN, used);
+      conv_mma_kernel<<<grid, kThreads, kMmaSmem, st>>>(yt, wt, bt, tt, rt, ot, sk, h, wd, cin,
+                                                        cout, m_total, per_split);
+      err = cudaGetLastError();
+      if (err != cudaSuccess || used == 1) return err;
+      const long total = (long)m_total * cout;
+      const long nblk = (total + 255) / 256;
+      splitk_epilogue_kernel<T><<<(unsigned)(nblk < 132 * 16 ? nblk : 132 * 16), 256, 0, st>>>(
+          sk, bt, tt, rt, ot, h * wd, cout, m_total, used);
+      return cudaGetLastError();
+    }
+  }
+  const dim3 grid((m_total + FM - 1) / FM, (cout + FN - 1) / FN);
+  conv_fma_kernel<T><<<grid, kFmaThreads, 0, st>>>(yt, wt, bt, tt, rt, ot, h, wd, cin, cout,
+                                                   m_total);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Returns a cudaError_t value (0 on success).  is_bf16: 1 when x, w, bias,
+// time_add, residual, out and y are bfloat16, 0 for float32.  time_add and
+// residual may be null.  y: scratch of x's shape and type (the normalized
+// input).  scratch: 2 * B * Cin + B * groups * chunks * 2 floats, rounded
+// up to a multiple of 4, then splits * B*H*W * Cout floats when the
+// tensor-core path splits K (splits > 1: the caller's request, at most
+// Cin / 32).  The caller checks shapes (cin % groups == 0, chunks >= 1).
+extern "C" int ldm_gn_silu_conv3x3(const void* x, const void* gamma, const void* beta,
+                                   const void* w, const void* bias, const void* time_add,
+                                   const void* residual, void* out, void* y, void* scratch, int b,
+                                   int h, int wd, int cin, int cout, int groups, int chunks,
+                                   int splits, float eps, int is_bf16, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* g = static_cast<const float*>(gamma);
+  const float* be = static_cast<const float*>(beta);
+  float* s = static_cast<float*>(scratch);
+  cudaError_t err =
+      is_bf16 ? run<bf16>(x, g, be, w, bias, time_add, residual, out, y, s, b, h, wd, cin, cout,
+                          groups, chunks, splits, eps, st)
+              : run<float>(x, g, be, w, bias, time_add, residual, out, y, s, b, h, wd, cin, cout,
+                           groups, chunks, splits, eps, st);
+  return static_cast<int>(err);
+}

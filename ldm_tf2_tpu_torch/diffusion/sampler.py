@@ -1,10 +1,13 @@
-"""DDIM reverse-process sampling with classifier-free guidance.
+"""DDIM and DDPM reverse-process sampling with classifier-free guidance.
 
 Counterpart of ``ldm_tf2_tpu.diffusion.sampler`` (``apply_cfg``,
-``ddim_step``, ``ddim_update``, ``ddim_sample_loop``).  The JAX package's
-``lax.scan`` becomes a Python loop, and its PRNG key an explicit
-``torch.Generator``.  CFG runs one U-Net call on the doubled [2B] batch,
-unconditional half first; the split comes from the batch, not a fixed size.
+``ddim_step``, ``ddim_update``, ``ddim_sample_loop``,
+``ddim_sample_loop_progressive``, ``ddpm_step``, ``ddpm_sample_loop``).
+The JAX package's ``lax.scan`` becomes a Python loop, and its PRNG key an
+explicit ``torch.Generator``; every loop also takes the noise it would draw
+(``init_noise``, ``step_noises``), so a test can hand it the JAX package's
+draws.  CFG runs one U-Net call on the doubled [2B] batch, unconditional
+half first; the split comes from the batch, not a fixed size.
 """
 
 from __future__ import annotations
@@ -82,6 +85,14 @@ def ddim_step(eps_model: EpsModel, schedule: DiffusionSchedule, xt, cond,
                        clip_denoised, noise)
 
 
+def _initial(context, shape, generator, init_noise):
+    """The initial latent: ``init_noise``, else a draw from ``generator``."""
+    if init_noise is None:
+        return torch.randn(tuple(shape), generator=generator, device=context.device,
+                           dtype=context.dtype)
+    return init_noise.to(device=context.device, dtype=context.dtype)
+
+
 def ddim_sample_loop(eps_model: EpsModel, schedule: DiffusionSchedule,
                      context, shape, generator: torch.Generator | None = None,
                      guidance_scale: float = 5.0, clip_denoised: bool = False,
@@ -95,11 +106,7 @@ def ddim_sample_loop(eps_model: EpsModel, schedule: DiffusionSchedule,
     order (index S-1 .. 0); None draws from ``generator`` when eta > 0.
     Returns x0 [B, h, w, c]; with return_trajectory, (x0, [S, B, h, w, c]).
     """
-    if init_noise is None:
-        xt = torch.randn(tuple(shape), generator=generator,
-                         device=context.device, dtype=context.dtype)
-    else:
-        xt = init_noise.to(device=context.device, dtype=context.dtype)
+    xt = _initial(context, shape, generator, init_noise)
     traj = []
     num_steps = len(schedule.ddim_steps)
     for n, index in enumerate(range(num_steps - 1, -1, -1)):
@@ -111,4 +118,76 @@ def ddim_sample_loop(eps_model: EpsModel, schedule: DiffusionSchedule,
             traj.append(xt)
     if return_trajectory:
         return xt, torch.stack(traj)
+    return xt
+
+
+def ddim_sample_loop_progressive(eps_model: EpsModel, schedule: DiffusionSchedule,
+                                 context, shape,
+                                 generator: torch.Generator | None = None,
+                                 guidance_scale: float = 5.0, record_freq: int = 5,
+                                 clip_denoised: bool = False,
+                                 guidance_rescale: float = 0.0, init_noise=None,
+                                 step_noises=None):
+    """The DDIM loop that also records the sample and pred_x0 of every
+    ``record_freq``-th step: record r holds DDIM index r * record_freq, for
+    r < num_steps // record_freq (the JAX package's one-hot insert keeps
+    the last write of each slot, which is that index).
+
+    Returns (x0, sample_progress, pred_x0_progress), the progress tensors
+    [B, num_records, h, w, c] in latent space (the caller decodes)."""
+    num_steps = len(schedule.ddim_steps)
+    num_records = num_steps // record_freq
+    xt = _initial(context, shape, generator, init_noise)
+    samples = [None] * num_records
+    pred_x0s = [None] * num_records
+    for n, index in enumerate(range(num_steps - 1, -1, -1)):
+        noise = None if step_noises is None else step_noises[n].to(xt.device)
+        xt, pred_x0 = ddim_step(eps_model, schedule, xt, context, index, generator,
+                                guidance_scale, clip_denoised, guidance_rescale, noise)
+        if index % record_freq == 0 and index // record_freq < num_records:
+            samples[index // record_freq] = xt
+            pred_x0s[index // record_freq] = pred_x0
+    empty = torch.zeros((shape[0], 0, *shape[1:]), dtype=xt.dtype, device=xt.device)
+    stack = lambda xs: torch.stack(xs, dim=1) if xs else empty
+    return xt, stack(samples), stack(pred_x0s)
+
+
+def ddpm_step(eps_model: EpsModel, schedule: DiffusionSchedule, xt, cond, t: int,
+              generator: torch.Generator | None = None, guidance_scale: float = 1.0,
+              clip_denoised: bool = True, guidance_rescale: float = 0.0, noise=None):
+    """One ancestral (DDPM) reverse step at timestep ``t`` of the full
+    timeline, from the posterior tables.  ``noise``: the standard normal
+    draw (else drawn from ``generator``).  Returns (sample, pred_x0)."""
+    t_vec = torch.full((xt.shape[0] * 2,), float(t), dtype=torch.float32,
+                       device=xt.device)
+    eps = apply_cfg(eps_model(torch.cat([xt, xt], dim=0), t_vec, cond),
+                    guidance_scale, guidance_rescale).to(xt.dtype)
+    f32 = lambda tbl: np.float32(tbl[t])
+    pred_x0 = (float(f32(schedule.sqrt_recip_alphas_cumprod)) * xt
+               - float(f32(schedule.sqrt_recipm1_alphas_cumprod)) * eps)
+    if clip_denoised:
+        pred_x0 = torch.clamp(pred_x0, -1.0, 1.0)
+    mean = (float(f32(schedule.posterior_mean_coef1)) * pred_x0
+            + float(f32(schedule.posterior_mean_coef2)) * xt)
+    if t == 0:
+        return mean, pred_x0
+    if noise is None:
+        noise = torch.randn(xt.shape, generator=generator, device=xt.device,
+                            dtype=xt.dtype)
+    std = np.exp(np.float32(0.5) * f32(schedule.posterior_log_variance_clipped))
+    return mean + float(std) * noise.to(xt.dtype), pred_x0
+
+
+def ddpm_sample_loop(eps_model: EpsModel, schedule: DiffusionSchedule, context, shape,
+                     generator: torch.Generator | None = None,
+                     guidance_scale: float = 5.0, clip_denoised: bool = True,
+                     guidance_rescale: float = 0.0, init_noise=None, step_noises=None):
+    """Ancestral sampling over the whole ``schedule.num_steps`` timeline.
+    step_noises: [T, B, h, w, c] draws in loop order (t = T-1 .. 0); None
+    draws from ``generator``.  Returns x0 [B, h, w, c]."""
+    xt = _initial(context, shape, generator, init_noise)
+    for n, t in enumerate(range(schedule.num_steps - 1, -1, -1)):
+        noise = None if step_noises is None else step_noises[n].to(xt.device)
+        xt, _ = ddpm_step(eps_model, schedule, xt, context, t, generator,
+                          guidance_scale, clip_denoised, guidance_rescale, noise)
     return xt

@@ -9,6 +9,8 @@ The single-head mid-block attention goes through the flash kernel, in
 its int8-P.V form at 1024 or more tokens when ``attention_pv_int8`` is set
 (``set_serving_modes``).  The int8 conv chains never apply here: the
 ResBlocks pass no int8 weights, as the JAX package's autoencoder opts out.
+The chains and GroupNorms take the opt-in kernels under the switches of
+``ops.fused_conv`` and ``ops.group_norm``, as in the JAX package.
 ``AutoencoderVQ`` is not ported yet.
 """
 

@@ -14,9 +14,13 @@ after the QK product.
 
 Dispatch: every spatial self-attention goes through the flash kernel
 (``ops.flash_attention``), every FeedForward through the fused FFN kernel
-(``ops.fused_ffn``); the 77-token cross-attention is plain PyTorch.  Both
-kernels are differentiable.  DeepCache (``shallow_cache``/``return_cache``)
-is not ported yet.
+(``ops.fused_ffn``); the 77-token cross-attention is plain PyTorch, or the
+single-tile kernel (``ops.cross_attention``) under the JAX package's
+opt-in switch ``ops.attention.set_packed_cross``.  The ResBlock chains and
+the GroupNorms take the opt-in kernels of ``ops.fused_conv`` and
+``ops.group_norm`` under those modules' switches.  Every kernel is
+differentiable.  DeepCache (``shallow_cache``/``return_cache``) is not
+ported yet.
 
 Training mode (``forward(..., training=True, generator=g)``) applies the
 JAX package's dropout, each mask drawn from ``g`` in forward order: a
@@ -44,7 +48,8 @@ from torch import nn
 from ldm_tf2_tpu_torch.models.layers import (
     Conv, Dense, GroupNorm, LayerNorm, Norm, Projection, dropout,
 )
-from ldm_tf2_tpu_torch.ops.attention import dot_product_attention
+from ldm_tf2_tpu_torch.ops.attention import dot_product_attention, use_packed_cross
+from ldm_tf2_tpu_torch.ops.cross_attention import cross_attention
 from ldm_tf2_tpu_torch.ops.flash_attention import spatial_self_attention
 from ldm_tf2_tpu_torch.ops.fused_conv import conv3x3, gn_silu_conv3x3
 from ldm_tf2_tpu_torch.ops.fused_ffn import fused_ffn
@@ -144,7 +149,8 @@ class CrossAttention(nn.Module):
     """q from the query, k/v from the context (self-attention when the
     context is None).  Self-attention takes the flash kernel (its int8-P.V
     form at 1024 or more tokens when ``pv_int8`` is set); attention to the
-    short text context takes plain PyTorch.  The output is dropped at
+    short text context takes plain PyTorch, or the single-tile kernel when
+    ``use_packed_cross`` says so.  The output is dropped at
     ``dropout_rate`` in training mode."""
 
     def __init__(self, num_heads: int, size_per_head: int,
@@ -166,6 +172,8 @@ class CrossAttention(nn.Module):
         q, k, v = self.query(query), self.key(context), self.value(context)
         if is_self:
             out = spatial_self_attention(q, k, v, self.scale, self.pv_int8)
+        elif use_packed_cross(q.shape[1], k.shape[1], q.shape[-1]):
+            out = cross_attention(q, k, v, self.scale)
         else:
             out = dot_product_attention(q, k, v, self.scale)
         return dropout(self.output(out), self.dropout_rate, generator)

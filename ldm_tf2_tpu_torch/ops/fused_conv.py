@@ -1,23 +1,89 @@
 """The ResBlock chain GN -> SiLU -> 3x3 SAME conv -> +bias, +time, +residual.
 
-Counterpart of ``ldm_tf2_tpu.ops.fused_conv.gn_silu_conv3x3`` on its
-default path (``_xla_ref``): the JAX package leaves this convolution to XLA
-outside any Pallas kernel, so the port leaves it to ``F.conv2d``.  In the
-int8 serving mode the chains the JAX package's gate claims take the W8A8
-route of ``ops.quant_conv`` instead.
+Counterpart of ``ldm_tf2_tpu.ops.fused_conv.gn_silu_conv3x3``.  The switch
+``set_fused_conv_impl`` keeps the JAX names and values:
+
+* ``"auto"`` (the default) and ``"xla"``: the JAX package's ``_xla_ref``
+  with its conv emitter, here GroupNorm (``_mxu_group_norm``) and
+  ``F.conv2d`` (cuDNN on the card).
+* ``"pallas"``: ``gn_silu_conv3x3_fused``, the kernel
+  ``csrc/gn_silu_conv3x3.cu`` that replaces the TPU's whole-chain
+  ``_kernel``, wherever ``kernel_takes`` accepts the shape; anything else
+  stays on the "auto" route.
+
+``"dots"`` and ``"dots3"`` work around XLA's convolution emitter on the TPU
+and have no meaning here: they raise ``ValueError``.  In the int8 serving
+mode the chains the JAX package's gate claims take the W8A8 route of
+``ops.quant_conv`` first, whatever this switch says, as in the JAX package.
+
+The chain computes its own GroupNorm statistics, with the clamped fast
+variance (``_mxu_stats_group_norm`` in the JAX package, which
+``set_groupnorm_impl`` does not reach), on every route.  Dispatch
+semantics: the fused kernel and the "auto" route compute the same function
+up to rounding, so ``kernel_takes`` decides speed, not results.
 
 Activations are NHWC.  Convolution kernels are in PyTorch's OIHW order
 (the checkpoint bridge transposes the JAX package's HWIO kernels once, at
-load time).  An NHWC tensor permuted to NCHW is a channels-last NCHW view,
-so no activation is copied on either side of the convolution.
+load time); the fused kernel reads them in place.  An NHWC tensor permuted
+to NCHW is a channels-last NCHW view, so no activation is copied on either
+side of the cuDNN convolution.
 """
 
 from __future__ import annotations
 
+import ctypes
+
+import torch
 import torch.nn.functional as F
 
-from ldm_tf2_tpu_torch.ops.group_norm import group_norm
+from ldm_tf2_tpu_torch.ops import _build
+from ldm_tf2_tpu_torch.ops.group_norm import _mxu_group_norm, stats_chunks
 from ldm_tf2_tpu_torch.ops.quant_conv import gn_silu_conv3x3_int8, use_int8_conv
+
+_DTYPES = (torch.float32, torch.bfloat16)
+_IMPLS = ("auto", "xla", "pallas")
+_XLA_ONLY = ("dots", "dots3")
+_IMPL = "auto"
+
+
+def set_fused_conv_impl(impl: str) -> None:
+    """``"auto"`` | ``"xla"`` | ``"pallas"`` (see the module docstring)."""
+    global _IMPL
+    if impl in _XLA_ONLY:
+        raise ValueError(
+            f"fused_conv impl {impl!r} works around XLA's TPU conv emitter and "
+            f"has no counterpart here; use one of {_IMPLS}"
+        )
+    if impl not in _IMPLS:
+        raise ValueError(f"unknown fused_conv impl: {impl!r}")
+    _IMPL = impl
+
+
+def get_fused_conv_impl() -> str:
+    return _IMPL
+
+
+def kernel_takes(shape, cout: int, num_groups: int = 32) -> bool:
+    """Whether the fused chain kernel takes an input of ``shape`` [B, H, W,
+    Cin] and ``cout`` outputs: whole groups.  It streams any H, W (nothing
+    has to fit on chip); bf16 inputs with Cin % 32 == 0 run on the tensor
+    cores, the rest on FMAs."""
+    b, h, w, cin = shape
+    return min(b, h, w, cin, cout) > 0 and cin % num_groups == 0
+
+
+def conv_splits(m: int, cin: int, cout: int) -> int:
+    """How many blocks the tensor-core conv splits each 64 x 64 output tile's
+    K = 9 * Cin over (``csrc/gn_silu_conv3x3.cu``): 1 where the tiles alone
+    fill the card twice over, else enough to reach that, each split at
+    least one 32-channel block.  A function of the shape only, so the
+    summation order is fixed per shape."""
+    tiles = -(-m // 64) * -(-cout // 64)
+    blocks = cin // 32
+    if cin % 32 or tiles >= 264 or blocks < 2:
+        return 1
+    per_split = -(-blocks // min(blocks, -(-264 // tiles)))
+    return -(-blocks // per_split)
 
 
 def conv2d(x, w, b=None, stride: int = 1, padding: int = 0):
@@ -34,6 +100,119 @@ def conv3x3(y, w, b):
     return conv2d(y, w, b, padding=1)
 
 
+def _plain_chain(x, gamma, beta, w, b, time_add, residual_add, num_groups, eps):
+    """Row 7's plain version, in the TPU kernel's order: clamped-variance
+    GroupNorm and SiLU in float32, cast to x's dtype; the conv of x-dtype
+    values accumulated in float32; then, in x's dtype, ``acc + b``,
+    ``+ time_add``, ``+ residual_add``.  Also the backward's recompute (the
+    JAX package's ``_xla_ref`` with the 9-dots conv)."""
+    dt = x.dtype
+    y = _mxu_group_norm(x, gamma, beta, num_groups, eps, activate=True)
+    acc = F.conv2d(y.permute(0, 3, 1, 2).float(), w.to(dt).float(), padding=1)
+    out = acc.permute(0, 2, 3, 1).to(dt) + b.to(dt)
+    if time_add is not None:
+        out = out + time_add[:, None, None, :].to(dt)
+    if residual_add is not None:
+        out = out + residual_add.to(dt)
+    return out
+
+
+def _launch(x, gamma, beta, w, b, time_add, residual_add, num_groups, eps):
+    if x.device.type != "cuda":
+        raise ValueError(f"gn_silu_conv3x3_fused takes CPU or CUDA tensors, got {x.device}")
+    dt = x.dtype
+    bsz, h, wd, cin = x.shape
+    cout = w.shape[0]
+    f32 = dict(device=x.device, dtype=torch.float32)
+    gamma, beta = gamma.to(**f32).contiguous(), beta.to(**f32).contiguous()
+    x, w, b = x.contiguous(), w.to(dt).contiguous(), b.to(dt).contiguous()
+    extras = [None if t is None else t.to(dt).contiguous()
+              for t in (time_add, residual_add)]
+    chunks = stats_chunks(bsz, h * wd, num_groups)
+    splits = conv_splits(bsz * h * wd, cin, cout) if dt == torch.bfloat16 else 1
+    # per-channel mean and rstd * gamma, the stats' partial sums (rounded up
+    # to 16 bytes), then the split-K partial sums
+    stats = -(-bsz * num_groups * chunks * 2 // 4) * 4
+    scratch = torch.empty(2 * bsz * cin + stats
+                          + (splits * bsz * h * wd * cout if splits > 1 else 0), **f32)
+    y = torch.empty_like(x)  # the normalized input
+    out = torch.empty((bsz, h, wd, cout), dtype=dt, device=x.device)
+    lib = _build.load("gn_silu_conv3x3")
+    fn = lib.ldm_gn_silu_conv3x3
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w.data_ptr(), b.data_ptr(),
+             *(None if t is None else t.data_ptr() for t in extras), out.data_ptr(),
+             y.data_ptr(), scratch.data_ptr(), bsz, h, wd, cin, cout, num_groups, chunks,
+             splits, float(eps), int(dt == torch.bfloat16),
+             torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "gn_silu_conv3x3 kernel launch")
+    gn_silu_conv3x3_fused.launches += 1
+    return out
+
+
+def _chain(x, gamma, beta, w, b, time_add, residual_add, num_groups, eps):
+    if x.device.type == "cpu":
+        return _plain_chain(x, gamma, beta, w, b, time_add, residual_add, num_groups, eps)
+    return _launch(x, gamma, beta, w, b, time_add, residual_add, num_groups, eps)
+
+
+class _FusedChain(torch.autograd.Function):
+    """The kernel forward (plain on CPU tensors); the backward recomputes
+    through ``_plain_chain`` and differentiates it."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, w, b, time_add, residual_add, num_groups, eps):
+        ctx.save_for_backward(x, gamma, beta, w, b, time_add, residual_add)
+        ctx.args = (num_groups, eps)
+        return _chain(x, gamma, beta, w, b, time_add, residual_add, num_groups, eps)
+
+    @staticmethod
+    def backward(ctx, grad):
+        saved = ctx.saved_tensors
+        args = [None if t is None else t.detach().requires_grad_(True) for t in saved]
+        with torch.enable_grad():
+            out = _plain_chain(*args, *ctx.args)
+        live = [t for t in args if t is not None]
+        grads = iter(torch.autograd.grad(out, live, grad))
+        return (*(None if t is None else next(grads) for t in args), None, None)
+
+
+def gn_silu_conv3x3_fused(x, gamma, beta, w, b, *, time_add=None, residual_add=None,
+                          num_groups: int = 32, eps: float = 1e-5):
+    """The whole chain in one kernel call (see ``gn_silu_conv3x3``).
+
+    A CPU tensor takes the plain version; a CUDA tensor takes the kernel,
+    or raises.  Differentiable on both.  ``gn_silu_conv3x3_fused.launches``
+    counts kernel calls."""
+    if x.dim() != 4 or x.dtype not in _DTYPES:
+        raise TypeError(f"x must be [B, H, W, Cin] in one of {_DTYPES}")
+    bsz, h, wd, cin = x.shape
+    cout = w.shape[0]
+    want = {"gamma": (gamma, (cin,)), "beta": (beta, (cin,)), "w": (w, (cout, cin, 3, 3)),
+            "b": (b, (cout,))}
+    if time_add is not None:
+        want["time_add"] = (time_add, (bsz, cout))
+    if residual_add is not None:
+        want["residual_add"] = (residual_add, (bsz, h, wd, cout))
+    for name, (t, shape) in want.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, want {shape}")
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+    if not kernel_takes(tuple(x.shape), cout, num_groups):
+        raise ValueError(f"the fused chain kernel does not take {tuple(x.shape)} -> {cout} "
+                         f"with {num_groups} groups")
+    if _build.needs_grad(x, gamma, beta, w, b, time_add, residual_add):
+        return _FusedChain.apply(x, gamma, beta, w, b, time_add, residual_add,
+                                 num_groups, eps)
+    return _chain(x, gamma, beta, w, b, time_add, residual_add, num_groups, eps)
+
+
+gn_silu_conv3x3_fused.launches = 0
+
+
 def gn_silu_conv3x3(x, gamma, beta, w, b, *, time_add=None, residual_add=None,
                     num_groups: int = 32, eps: float = 1e-5,
                     int8_weights=None):
@@ -45,7 +224,7 @@ def gn_silu_conv3x3(x, gamma, beta, w, b, *, time_add=None, residual_add=None,
     mode is on for the caller (the U-Net's ResBlocks; the autoencoder's
     never pass them, as the JAX package's never opt in), else None.  The
     chain then takes the W8A8 route where the JAX package's shape gate
-    ``use_int8_conv`` claims it.
+    ``use_int8_conv`` claims it; otherwise the route the switch selects.
     """
     if int8_weights is not None and use_int8_conv(
         x.shape, w.shape[0], num_groups, has_add=residual_add is not None,
@@ -55,7 +234,12 @@ def gn_silu_conv3x3(x, gamma, beta, w, b, *, time_add=None, residual_add=None,
             x, gamma, beta, w8, ws, b, time_add=time_add,
             residual_add=residual_add, num_groups=num_groups, eps=eps,
         )
-    y = group_norm(x, gamma, beta, num_groups, eps, activate=True)
+    if _IMPL == "pallas" and kernel_takes(tuple(x.shape), w.shape[0], num_groups):
+        return gn_silu_conv3x3_fused(
+            x, gamma, beta, w, b, time_add=time_add, residual_add=residual_add,
+            num_groups=num_groups, eps=eps,
+        )
+    y = _mxu_group_norm(x, gamma, beta, num_groups, eps, activate=True)
     out = conv3x3(y, w, b)
     if time_add is not None:
         out = out + time_add[:, None, None, :].to(out.dtype)

@@ -256,3 +256,167 @@ def test_int8_kernels_refuse_grad_on_card():
     gamma = torch.ones(64, device="cuda", requires_grad=True)
     with pytest.raises(NotImplementedError, match="sampling-only"):
         tqc.gn_silu_quant(x, gamma, torch.zeros(64, device="cuda"))
+
+
+# ---------------------------- the opt-in kernels (GroupNorm, chain, cross) --
+
+def _switches(groupnorm, conv, cross):
+    from ldm_tf2_tpu_torch.ops.attention import set_packed_cross
+    from ldm_tf2_tpu_torch.ops.fused_conv import set_fused_conv_impl
+    from ldm_tf2_tpu_torch.ops.group_norm import set_groupnorm_impl
+
+    set_groupnorm_impl(groupnorm)
+    set_fused_conv_impl(conv)
+    set_packed_cross(cross)
+
+
+def _rel(got, want):
+    return float((got.float() - want.float()).norm() / want.float().norm())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,activate", [((4, 32, 32, 320), False),
+                                            ((4, 4, 4, 1280), True),
+                                            ((2, 256, 256, 128), True)])
+def test_group_norm_kernels_match_plain_on_card(dtype, shape, activate):
+    _need_cuda()
+    from ldm_tf2_tpu_torch.ops import group_norm as tgn
+
+    g = torch.Generator(device="cuda").manual_seed(20)
+    x = (torch.randn(shape, generator=g, device="cuda") * 2 + 0.5).to(dtype)
+    c = shape[-1]
+    gamma = torch.randn(c, generator=g, device="cuda") * 0.5 + 1.0
+    beta = torch.randn(c, generator=g, device="cuda") * 0.5
+    before = (tgn.group_norm_fused.launches, tgn.group_stats.launches)
+    y = tgn.group_norm_fused(x, gamma, beta, 32, 1e-6, activate)
+    mean, rstd = tgn.group_stats(x, 32, 1e-6)
+    torch.cuda.synchronize()
+    assert (tgn.group_norm_fused.launches, tgn.group_stats.launches) == \
+        (before[0] + 1, before[1] + 1)
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    assert _rel(y, tgn._plain_group_norm_fused(x, gamma, beta, 32, 1e-6, activate)) < tol
+    want_mean, want_rstd = tgn._plain_group_stats(x, 32, 1e-6)
+    assert _rel(mean, want_mean) < 1e-5 and _rel(rstd, want_rstd) < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,cout,epilogue", [((4, 32, 32, 320), 320, "t"),
+                                                 ((4, 4, 4, 2560), 1280, "t"),
+                                                 ((4, 8, 8, 1280), 1280, "residual"),
+                                                 ((2, 64, 64, 512), 256, None),
+                                                 ((2, 8, 8, 48), 64, "t")])
+def test_chain_kernel_matches_plain_on_card(dtype, shape, cout, epilogue):
+    """Cin = 48 takes the FMA path in bf16 too (48 % 32 != 0, 16 groups)."""
+    _need_cuda()
+    from ldm_tf2_tpu_torch.ops import fused_conv as tfc
+
+    g = torch.Generator(device="cuda").manual_seed(21)
+    b, h, w, cin = shape
+    groups = 16 if cin % 32 else 32
+    x = torch.randn(shape, generator=g, device="cuda").to(dtype)
+    gamma = torch.randn(cin, generator=g, device="cuda") * 0.5 + 1.0
+    beta = torch.randn(cin, generator=g, device="cuda") * 0.5
+    wk = (torch.randn(cout, cin, 3, 3, generator=g, device="cuda") * (9 * cin) ** -0.5
+          ).to(dtype)
+    bias = (torch.randn(cout, generator=g, device="cuda") * 0.1).to(dtype)
+    extra = {}
+    if epilogue == "t":
+        extra["time_add"] = torch.randn(b, cout, generator=g, device="cuda").to(dtype)
+    elif epilogue == "residual":
+        extra["residual_add"] = torch.randn(b, h, w, cout, generator=g,
+                                            device="cuda").to(dtype)
+    before = tfc.gn_silu_conv3x3_fused.launches
+    got = tfc.gn_silu_conv3x3_fused(x, gamma, beta, wk, bias, num_groups=groups, **extra)
+    want = tfc._plain_chain(x, gamma, beta, wk, bias, extra.get("time_add"),
+                            extra.get("residual_add"), groups, 1e-5)
+    torch.cuda.synchronize()
+    assert tfc.gn_silu_conv3x3_fused.launches == before + 1
+    assert bool(torch.isfinite(got.float()).all())
+    assert _rel(got, want) < (1e-4 if dtype == torch.float32 else 1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,kv,h,s", [(4, 1024, 77, 8, 40), (4, 64, 77, 8, 160),
+                                        (2, 100, 128, 2, 64), (1, 33, 5, 1, 24)])
+def test_cross_kernel_matches_plain_on_card(dtype, b, t, kv, h, s):
+    _need_cuda()
+    from ldm_tf2_tpu_torch.ops import cross_attention as tca
+
+    g = torch.Generator(device="cuda").manual_seed(22)
+    q, k, v = (torch.randn(b, n, h, s, generator=g, device="cuda").to(dtype)
+               for n in (t, kv, kv))
+    before = tca.cross_attention.launches
+    got = tca.cross_attention(q, k, v, s**-0.5)
+    want = tca._plain_cross_attention(q, k, v, s**-0.5)
+    torch.cuda.synchronize()
+    assert tca.cross_attention.launches == before + 1
+    assert _rel(got, want) < (1e-5 if dtype == torch.float32 else 1e-2)
+
+
+@pytest.mark.cuda
+def test_near_constant_group_on_card_clamps_only_in_the_chain():
+    """Two values whose float32 fast variance is exactly -1.0 in any
+    summation order (see tests/test_torch_fused_kernels.py): with eps = 4
+    the GroupNorm kernels give rstd = 3^-0.5, the chain 4^-0.5."""
+    _need_cuda()
+    from ldm_tf2_tpu_torch.ops import fused_conv as tfc
+    from ldm_tf2_tpu_torch.ops import group_norm as tgn
+
+    pair = torch.tensor([2.828951120376587, 2.828312635421753]) * 1024.0
+    x = pair[None, None, :, None].expand(1, 1, 2, 64).contiguous().cuda()
+    _, rstd = tgn.group_stats(x, 32, 4.0)
+    assert torch.allclose(rstd, torch.full_like(rstd, 3.0**-0.5), rtol=1e-6)
+    w = torch.zeros(64, 64, 3, 3, device="cuda")
+    w[:, :, 1, 1] = torch.eye(64, device="cuda")
+    ones, zeros = torch.ones(64, device="cuda"), torch.zeros(64, device="cuda")
+    got = tfc.gn_silu_conv3x3_fused(x, ones, zeros, w, zeros, eps=4.0)
+    d = float(pair[0] - pair[1]) / 2.0
+    want = d * 0.5 / (1.0 + torch.exp(torch.tensor(-d * 0.5)))
+    assert abs(float(got[0, 0, 0, 0]) - float(want)) < 1e-4
+
+
+@pytest.mark.cuda
+def test_unet_gradients_with_the_opt_in_kernels_on_card_equal_cpu():
+    """The tiny U-Net's parameter gradients with all three switches on:
+    the card runs the four kernels forward and recomputes through their
+    plain versions backward; the CPU runs the plain versions throughout.
+    Each tensor within 1e-4 rel-L2 of its own norm."""
+    _need_cuda()
+    from ldm_tf2_tpu_torch import factory
+    from ldm_tf2_tpu_torch.models import UNet
+    from ldm_tf2_tpu_torch.ops import cross_attention as tca
+    from ldm_tf2_tpu_torch.ops import fused_conv as tfc
+    from ldm_tf2_tpu_torch.ops import group_norm as tgn
+
+    factory.set_float32_precision()
+    g = torch.Generator().manual_seed(2)
+    x, ctx = torch.randn(2, 16, 16, 4, generator=g), torch.randn(2, 7, 32, generator=g)
+    t = torch.tensor([10.0, 500.0])
+    kwargs = dict(model_channels=64, num_blocks=1, channel_mult=(1, 2), num_heads=2,
+                  context_channels=32, dropout_rate=0.0)
+    weights = factory.init_params_(UNet(**kwargs), seed=4).state_dict()
+    grads = {}
+    counters = (tgn.group_norm_fused, tfc.gn_silu_conv3x3_fused, tca.cross_attention)
+    _switches("pallas", "pallas", True)
+    try:
+        for device in ("cpu", "cuda"):
+            with torch.device(device):
+                unet = UNet(**kwargs)
+            unet.load_state_dict(weights)
+            before = [fn.launches for fn in counters]
+            out = unet(x.to(device), t.to(device), ctx.to(device), training=True)
+            names, params = zip(*unet.named_parameters())
+            got = torch.autograd.grad((out**2).mean(), params, allow_unused=True)
+            grads[device] = dict(zip(names, got))
+            if device == "cuda":  # 16 chains, 5 GroupNorms, 4 cross-attentions
+                assert [fn.launches - b for fn, b in zip(counters, before)] == [5, 16, 4]
+    finally:
+        _switches("auto", "auto", False)
+    for name, want in grads["cpu"].items():
+        got = grads["cuda"][name]
+        assert got is not None, name
+        assert float(want.norm()) > 0, name
+        assert float((got.cpu() - want).norm() / want.norm()) < 1e-4, name

@@ -209,7 +209,7 @@ tpu: {{compute_dtype: float32}}
 
 
 def test_cli_refuses_unported_branches():
-    config = {"ldm_sampling": {"sampler": "plms"},
+    config = {"ldm_sampling": {"init_image_path": "init.npy"},
               "tpu": {"quantize": "none", "quantize_attention": "none",
                       "sequence_parallel": False, "tensor_parallel": False}}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
