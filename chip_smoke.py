@@ -7,7 +7,7 @@ Phases, each printed as it runs; any failure exits non-zero before the
 final line is printed:
 
 1. device: the card's name and power limit (nvidia-smi), CUDA present;
-2. build: the nine CUDA sources compiled from ldm_tf2_tpu_torch/csrc with
+2. build: the ten CUDA sources compiled from ldm_tf2_tpu_torch/csrc with
    nvcc, one process each, all started together;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes its path gives it, with its time, the plain version's time,
@@ -48,7 +48,19 @@ final line is printed:
    then 2 steps under the profiler.  Before it, the kernels phase checks
    the flash backward kernels at the training path's shapes, and a gradient
    phase holds a north-star-width U-Net's parameter gradients on the card
-   to the CPU's in float32, with the opt-in switches off and on.
+   to the CPU's in float32, with the opt-in switches off and on;
+8. AE train: the stage-1 trainer (``cli/run_autoencoder_trainer.train``)
+   on the repo config's VQ autoencoder at full width (channels 128,
+   multipliers [1, 2, 2, 4], attention at 32^2, codebook 16384 x 4), its
+   PatchGAN and a seeded LPIPS VGG16, batch 3, 256^2, bf16 compute, GAN
+   from step 1: 2 warm-up steps, 5 timed with the flash launch counts read
+   around them (``AE_STEP_ATTENTIONS``), 1 profiled GAN step; then 3 steps
+   of the KL autoencoder with its discriminator, through both phases.
+   Before it an AE gradient phase holds the phase-2 gradients of a
+   full-width VQ autoencoder (64^2, attention at 8^2, S = 512), its
+   discriminator's gradients and running statistics, card vs CPU in
+   float32.  The kernels phase also checks row 4, the W8A8 FFN that no path
+   dispatches (``FFN8_SHAPES``), and the whole int8 chain (row 10).
 
 The last lines are the kernels JSON, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``.
@@ -72,11 +84,15 @@ PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 PEAK_BYTES = 3.35e12
 SOURCES = ("flash_attention", "fused_ffn", "gn_silu_quant", "s8_conv3x3",
            "flash_attention_pv_int8", "flash_attention_bwd", "group_norm",
-           "gn_silu_conv3x3", "cross_attention")
+           "gn_silu_conv3x3", "cross_attention", "fused_ffn_int8")
+# One entry per TPU kernel of the JAX package (13 rows of PERF.md's table):
+# rows 9 (the streamed GN+SiLU+quantize) and 10 (the whole int8 chain) are
+# carried by the kernels of rows 8 and 11 and measured at their own shapes.
 KERNELS = ("flash_attention", "fused_ffn", "gn_silu_quant", "s8_conv3x3",
            "flash_attention_pv_int8", "flash_backward_dq", "flash_backward_dkv",
            "group_norm_fused", "group_stats", "gn_silu_conv3x3_fused",
-           "cross_attention")
+           "cross_attention", "fused_ffn_int8", "gn_silu_quant_stream",
+           "int8_chain")
 
 # (B, Tq, Tk, H, S): the main path's self-attentions (CFG batch 4), then
 # the serve path's bf16 ones (CFG batch 8; its level-0 ones take int8 P.V)
@@ -92,8 +108,12 @@ FFN_SHAPES = [(4096, 320), (1024, 640), (256, 1280), (64, 1280),
 # north-star U-Net that the int8 gate quantizes at the serve path's CFG
 # batch 8 (tests/test_torch_int8.py holds the gate to the JAX package's on
 # every chain), and what one U-Net eval there dispatches: 29 int8 chains,
-# 16 spatial self-attentions of which the 5 at level 0 (1024 tokens) take
+# 19 of them at the shapes where the JAX package runs its whole-chain
+# kernel (row 10; the other 10, at 8x8, run rows 8 and 11 there too), 16
+# spatial self-attentions of which the 5 at level 0 (1024 tokens) take
 # int8 P.V, 16 FFNs.  The autoencoder's decode adds one int8-P.V attention.
+# No map at 256^2 is beyond the TPU's one-pass GN+SiLU+quantize slab, so
+# row 9's count (the streamed kernel) is 0 on this path.
 SERVE_CHAINS = [
     ((8, 32, 32, 320), 320, "t"), ((8, 32, 32, 320), 320, "residual"),
     ((8, 16, 16, 320), 640, "t"), ((8, 16, 16, 640), 640, "residual"),
@@ -103,7 +123,8 @@ SERVE_CHAINS = [
     ((8, 16, 16, 1920), 640, "t"), ((8, 16, 16, 1280), 640, "t"),
     ((8, 16, 16, 960), 640, "t"), ((8, 32, 32, 640), 320, "t"),
 ]
-SERVE_EVAL = {"int8_chains": 29, "self_attentions": 16, "pv_int8": 5, "ffn": 16}
+SERVE_EVAL = {"int8_chains": 29, "whole_chains": 19, "self_attentions": 16,
+              "pv_int8": 5, "ffn": 16}
 
 # Tolerances against the plain version computed in float32 from the same
 # inputs.  float32: only summation order differs.  bfloat16: the kernel
@@ -127,6 +148,19 @@ BWD_SHAPES = [
 # di: float32 differs in summation order only; bf16 rounds each output once
 # (about 2^-9 relative)
 BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# Row 4, the W8A8 FFN that no path dispatches: (M, d) of the U-Net's FFNs at
+# CFG batch 8 ([8, 1024, 320], [8, 256, 640], [8, 64, 1280]), then an M that
+# is not a multiple of 128.  rel-L2 against the plain version on the same
+# inputs: the LayerNorm's summation order differs, which flips a code of y
+# or u where a value lies within an ulp of a rounding midpoint (0.1-1.6% of
+# rows at these shapes), and a flip moves its row by up to about 3e-2; bf16
+# also rounds the output's three operations.
+FFN8_SHAPES = [(8192, 320), (2048, 640), (512, 1280), (1000, 320)]
+FFN8_TOL = {"float32": 1e-3, "bfloat16": 5e-3}  # rel L2; max abs 0.1 both
+# Row 10, the int8 ResBlock chain (rows 8 + 11 back to back) against the
+# plain chain: a GN+SiLU+quantize code may flip (at most 1e-3 of them, row 8's
+# bound), moving its 3x3 neighbourhood's outputs by one code step
+CHAIN8_TOL = 5e-3  # rel L2
 # Gradient phase: a north-star-width U-Net (one block per level), card vs
 # CPU, float32 with TF32 off: summation order through ~40 layers forward and
 # back; rel-L2 of each parameter group's gradients
@@ -139,7 +173,43 @@ TRAIN_STEP = {"flash_attention": 17, "flash_backward_dq": 16,
               "flash_backward_dkv": 16, "fused_ffn": 16,
               "flash_attention_pv_int8": 0, "gn_silu_quant": 0, "s8_conv3x3": 0,
               "group_norm_fused": 0, "group_stats": 0, "gn_silu_conv3x3_fused": 0,
-              "cross_attention": 0}
+              "cross_attention": 0, "fused_ffn_int8": 0, "gn_silu_quant_stream": 0,
+              "int8_chain": 0}
+
+# Stage-1 autoencoder training: the repo config's sections
+# (ldm_tf2_tpu/configs/all_in_one_config.yaml), copied here so that the
+# script reads no file of the JAX package; the VQ model at full width
+# (channels 128, multipliers [1, 2, 2, 4], attention at 32^2, codebook
+# 16384 x 4), batch 3, 256^2.
+AE_CONFIG = {
+    "autoencoder_vq": dict(latent_channels=4, channels=128, num_blocks=2,
+                           attention_resolutions=[32], dropout_rate=0.0,
+                           multipliers=[1, 2, 2, 4], resample_with_conv=True,
+                           vocab_size=16384, beta=0.25),
+    "ae_vq_discriminator": dict(channels=64, num_layers=2),
+    "ae_kl_discriminator": dict(channels=64, num_layers=3),
+    "autoencoder_kl_trainer": dict(global_step_discriminator=50001, lpips_weight=1.0,
+                                   kl_weight=1e-6, discriminator_weight=0.5,
+                                   discriminator_factor=1.0,
+                                   discriminator_loss_type="hinge"),
+    "autoencoder_vq_trainer": dict(global_step_discriminator=1, codebook_weight=1.0,
+                                   lpips_weight=1.0, kl_weight=1.0,
+                                   discriminator_weight=0.6, discriminator_factor=1.0,
+                                   discriminator_loss_type="hinge"),
+    "autoencoder_optimizer": dict(learning_rate=4.5e-6, beta_1=0.5, beta_2=0.9,
+                                  epsilon=1e-8),
+    "discriminator_optimizer": dict(learning_rate=4.5e-6, beta_1=0.5, beta_2=0.9,
+                                    epsilon=1e-8),
+}
+# What one AE train step launches: every single-head self-attention at 32^2
+# (1024 tokens, S = 512) runs forward once (saving lse) and backward once.
+# VQ: the encoder's two level-3 blocks, its mid block, the decoder's mid
+# block and its three 32^2 blocks; KL: the two mid blocks.
+AE_STEP_ATTENTIONS = {"vq": 7, "kl": 2}
+# AE gradient phase, card vs CPU in float32 (TF32 off), per parameter group:
+# summation order through ~60 layers forward and back and the adaptive
+# weight's ratio of two gradient norms
+AE_GRAD_TOL = 1e-3
 
 # The opt-in main path (the JAX package's switches set_groupnorm_impl,
 # set_fused_conv_impl and set_packed_cross on): every distinct shape it
@@ -342,6 +412,7 @@ def phase_kernels():
                 f"{'PASS' if ok else 'FAIL'}; ms {ms:.4f} plain {plain:.4f} "
                 f"bound {bms:.4f} ({by})")
     phase_int8_kernels(results, randn)
+    phase_ffn_int8_kernel(results, randn)
     phase_backward_kernels(results, randn)
     phase_opt_in_kernels(results, randn)
     summary = ", ".join(
@@ -391,7 +462,9 @@ def phase_int8_kernels(results, randn):
             n = x.numel()
             # x read, codes written; ~14 float32 operations an element
             bms, by = bound_ms(n * (x.element_size() + 1), 14.0 * n, "float32")
-            results["gn_silu_quant"].append(dict(
+            # row 9: the map the TPU streams (beyond its VMEM slab)
+            key = "gn_silu_quant_stream" if shape == (8, 64, 64, 320) else "gn_silu_quant"
+            results[key].append(dict(
                 shape=list(shape), dtype=name, max_abs_err=float(codes_max), ok=ok,
                 ms=ms, plain_ms=plain, library_ms=None, bound_ms=bms, bound_by=by))
             log(f"gn_silu_quant {name} {list(shape)}: sa rel {sa_rel:.2e} (tol 1e-6), "
@@ -439,6 +512,8 @@ def phase_int8_kernels(results, randn):
             f"version {'PASS' if ok else 'FAIL'} (max abs {err:.1e}); ms {ms:.4f} "
             f"plain {plain:.4f} cudnn-f32 {lib:.4f} bf16 chain {chain:.4f} "
             f"bound {bms:.4f} ({by})")
+        if (shape, cout, epilogue) == chains[0]:
+            phase_int8_chain(results, randn, shape, cout, bias, extra, chain)
 
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[-1]
@@ -469,6 +544,92 @@ def phase_int8_kernels(results, randn):
                 f"{max_abs:.3e} (tol {tol_abs:g}) rel_l2 {rel:.3e} (tol {tol_rel:g}) "
                 f"{'PASS' if ok else 'FAIL'}; ms {ms:.4f} plain {plain:.4f} sdpa "
                 f"{lib:.4f} bound {bms:.4f} ({by})")
+
+
+def phase_int8_chain(results, randn, shape, cout, bias, extra, bf16_chain_ms):
+    """Row 10, the TPU's whole int8 ResBlock chain: ``gn_silu_conv3x3_int8``
+    (rows 8 and 11 back to back) against the plain chain, bf16."""
+    import torch
+
+    from ldm_tf2_tpu_torch.ops import quant_conv as qc
+
+    b, h, w, cin = shape
+    x = (randn(*shape) * 2 + 0.5).bfloat16()
+    gamma, beta = randn(cin, scale=0.5) + 1.0, randn(cin, scale=0.5)
+    w8, ws = qc.int8_conv_weights(randn(cout, cin, 3, 3, scale=cin**-0.5))
+    got = qc.gn_silu_conv3x3_int8(x, gamma, beta, w8, ws, bias, **extra)
+
+    def plain():
+        y8, sa = qc._plain_gn_silu_quant(x, gamma, beta, 32, 1e-5)
+        return qc._plain_s8_conv3x3(y8, sa, w8, ws, bias, extra.get("time_add"),
+                                    extra.get("residual_add"), x.dtype)
+
+    want = plain()
+    torch.cuda.synchronize()
+    max_abs, rel = errors(got, want)
+    ok = rel < CHAIN8_TOL and bool(torch.isfinite(got.float()).all())
+    ms = time_ms(lambda: qc.gn_silu_conv3x3_int8(x, gamma, beta, w8, ws, bias, **extra))
+    plain_ms = time_ms(plain, iters=3, warmup=1)
+    m = b * h * w
+    nbytes = 2 * m * cin + 9 * cin * cout + 2 * m * cout + 2 * b * cout
+    bms, by = bound_ms(nbytes, 2.0 * m * cout * 9 * cin, "int8")
+    results["int8_chain"].append(dict(
+        shape=[*shape, cout], dtype="bfloat16", max_abs_err=max_abs, rel_l2=rel, ok=ok,
+        ms=ms, plain_ms=plain_ms, library_ms=bf16_chain_ms, bound_ms=bms, bound_by=by))
+    log(f"int8 chain (gn_silu_quant + s8_conv3x3) {list(shape)} -> {cout}: rel_l2 "
+        f"{rel:.3e} (tol {CHAIN8_TOL:g}) max_abs {max_abs:.3e} {'PASS' if ok else 'FAIL'}; "
+        f"ms {ms:.4f} plain {plain_ms:.4f} bf16 chain {bf16_chain_ms:.4f} bound "
+        f"{bms:.4f} ({by})")
+
+
+def phase_ffn_int8_kernel(results, randn):
+    """Row 4, the W8A8 FFN, against its plain version on the card at the
+    U-Net's FFN shapes (CFG batch 8) and one M that is not a multiple of
+    128: bf16 at every shape, float32 at the first; timed (bf16) beside the
+    plain version, its bound and row 2's bf16 fused FFN at the same shape.
+    The weights are quantized once per shape, outside the timing."""
+    import torch
+
+    from ldm_tf2_tpu_torch.ops import fused_ffn as ff
+
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        for m, d in FFN8_SHAPES if dtype == torch.bfloat16 else FFN8_SHAPES[:1]:
+            f = 4 * d
+            x = randn(1, m, d).to(dtype)
+            lns, lnb = randn(d, scale=0.1) + 1.0, randn(d, scale=0.1)
+            w1v, w1g = (randn(d, f, scale=d**-0.5).to(dtype) for _ in range(2))
+            w2 = randn(f, d, scale=f**-0.5).to(dtype)
+            b1v, b1g, b2 = (randn(n, scale=0.1).to(dtype) for n in (f, f, d))
+            q = ff.quantize_ffn_weights(w1v, w1g, w2)
+            args = (x, lns, lnb, q, b1v, b1g, b2)
+            got = ff.fused_ffn_int8(*args)
+            want = ff._plain_ffn_int8(*args)
+            torch.cuda.synchronize()
+            max_abs, rel = errors(got, want)
+            row_err = (got.float() - want.float()).abs().amax(dim=-1)
+            flipped = float((row_err > 1e-3).float().mean())
+            ok = (rel <= FFN8_TOL[name] and max_abs <= 0.1
+                  and bool(torch.isfinite(got.float()).all()))
+            timed = dtype == torch.bfloat16
+            ms = time_ms(lambda: ff.fused_ffn_int8(*args)) if timed else None
+            plain = time_ms(lambda: ff._plain_ffn_int8(*args), iters=3, warmup=1) \
+                if timed else None
+            bf16 = time_ms(lambda: ff.fused_ffn(x, lns, lnb, w1v, b1v, w1g, b1g, w2, b2)) \
+                if timed else None
+            # x read, out written, 3 d x F int8 weights and their scales read
+            nbytes = 2 * m * d * x.element_size() + 3 * d * f + 4 * (2 * f + d)
+            bms, by = bound_ms(nbytes, 6.0 * m * d * f, "int8")
+            results["fused_ffn_int8"].append(dict(
+                shape=[m, d], dtype=name, max_abs_err=max_abs, rel_l2=rel,
+                rows_flipped=flipped, ok=ok, ms=ms, plain_ms=plain, library_ms=None,
+                bf16_ffn_ms=bf16, bound_ms=bms, bound_by=by))
+            times = "" if not timed else (
+                f"; ms {ms:.4f} plain {plain:.4f} row-2 bf16 FFN {bf16:.4f} "
+                f"bound {bms:.4f} ({by})")
+            log(f"fused_ffn_int8 {name} M {m} d {d}: rel_l2 {rel:.3e} (tol "
+                f"{FFN8_TOL[name]:g}) max_abs {max_abs:.3e} (tol 0.1), rows with a code "
+                f"flip {flipped:.2%} {'PASS' if ok else 'FAIL'}{times}")
 
 
 def phase_opt_in_kernels(results, randn):
@@ -844,16 +1005,48 @@ def phase_main_path(card: str):
     return launches, run
 
 
+class _Count:
+    """A launch count kept under another attribute of a wrapper, read and
+    set as ``.launches`` like the others."""
+
+    def __init__(self, owner, attr: str):
+        self.owner, self.attr = owner, attr
+
+    @property
+    def launches(self) -> int:
+        return getattr(self.owner, self.attr)
+
+    @launches.setter
+    def launches(self, value: int) -> None:
+        setattr(self.owner, self.attr, value)
+
+
+# Each counter's launches summed over every path run (``_read``)
+PATH_TOTALS: dict = {}
+
+
+def _read(counters) -> dict:
+    """The counts of one path run, its counters set to 0 just before it;
+    also added to ``PATH_TOTALS``."""
+    got = {k: fn.launches for k, fn in counters.items()}
+    for k, v in got.items():
+        PATH_TOTALS[k] = PATH_TOTALS.get(k, 0) + v
+    return got
+
+
 def _counters():
     from ldm_tf2_tpu_torch.ops import cross_attention as ca
     from ldm_tf2_tpu_torch.ops import flash_attention as fa
     from ldm_tf2_tpu_torch.ops import fused_conv as fc
     from ldm_tf2_tpu_torch.ops import group_norm as gn
     from ldm_tf2_tpu_torch.ops import quant_conv as qc
-    from ldm_tf2_tpu_torch.ops.fused_ffn import fused_ffn
+    from ldm_tf2_tpu_torch.ops.fused_ffn import fused_ffn, fused_ffn_int8
 
     return {"flash_attention": fa.flash_attention, "fused_ffn": fused_ffn,
+            "fused_ffn_int8": fused_ffn_int8,
             "gn_silu_quant": qc.gn_silu_quant, "s8_conv3x3": qc.s8_conv3x3,
+            "gn_silu_quant_stream": _Count(qc.gn_silu_quant, "stream_launches"),
+            "int8_chain": qc.gn_silu_conv3x3_int8,
             "flash_attention_pv_int8": fa.flash_attention_pv_int8,
             "flash_backward_dq": fa.flash_backward_dq,
             "flash_backward_dkv": fa.flash_backward_dkv,
@@ -877,7 +1070,7 @@ def _counted_call(models, schedule, ids, shape, kwargs):
     images, x0 = sample_txt2img(*models, schedule, ids, shape, **kwargs)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - start
-    return seconds, {k: fn.launches for k, fn in counters.items()}, images, x0
+    return seconds, _read(counters), images, x0
 
 
 def _set_switches(groupnorm: str, conv: str, cross: bool) -> None:
@@ -1072,6 +1265,7 @@ def phase_serve(card: str, models):
     ev = SERVE_EVAL
     per_call = {"gn_silu_quant": steps * ev["int8_chains"],
                 "s8_conv3x3": steps * ev["int8_chains"],
+                "int8_chain": steps * ev["whole_chains"],
                 "flash_attention_pv_int8": steps * ev["pv_int8"] + 1,
                 "flash_attention": steps * (ev["self_attentions"] - ev["pv_int8"]),
                 "fused_ffn": steps * ev["ffn"]}
@@ -1100,7 +1294,7 @@ def phase_serve(card: str, models):
                         device="cuda", models=models)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - start
-        launches = {k: fn.launches for k, fn in counters.items()}
+        launches = _read(counters)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         resps = [json.loads(line) for line in out.getvalue().splitlines()]
         check(len(resps) == 4, f"{len(resps)} responses, expected 4")
@@ -1209,7 +1403,7 @@ def phase_train(card: str):
     for fn in counters.values():
         fn.launches = 0
     records, seconds = run(steps)
-    launches = {k: fn.launches for k, fn in counters.items()}
+    launches = _read(counters)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         prof_records, prof_seconds = run(2)
@@ -1235,6 +1429,227 @@ def phase_train(card: str):
     _profile_report(prof, 2, f"train step at batch {batch}", prof_seconds * 1e3,
                     bare_ms=2 * s_per_step * 1e3)
     return launches
+
+
+def _ae_config(ae_type: str, compute: str = "bfloat16", image_size: int = 256,
+               batch: int = 3, num_iterations: int = 2, **ae_overrides) -> dict:
+    """The repo config's stage-1 sections at full width (``AE_CONFIG`` and
+    the north star's ``autoencoder_kl``), with GAN from step 1 for both
+    types, seeded in-memory data and no checkpoints."""
+    from ldm_tf2_tpu_torch.configs.loader import validate
+
+    config = json.loads(json.dumps({**NORTH_STAR, **AE_CONFIG}))
+    config[f"autoencoder_{ae_type}"].update(ae_overrides)
+    config[f"autoencoder_{ae_type}_trainer"]["global_step_discriminator"] = 1
+    config["autoencoder_training"] = dict(
+        root_path=None, params=dict(batch_size=batch, image_size=image_size,
+                                    keys=["image"]),
+        autoencoder_type=ae_type, ckpt_path=None, num_iterations=num_iterations)
+    config["tpu"] = dict(compute_dtype=compute, log_per_iterations=1)
+    return validate(config)
+
+
+def _ae_models(config, device, seed: int):
+    """Fresh (autoencoder, discriminator) float32 masters from ``seed`` and a
+    seeded LPIPS (its real weights are not in the repository)."""
+    from ldm_tf2_tpu_torch import factory
+
+    training = config["autoencoder_training"]
+    ae_type = training["autoencoder_type"]
+    ae = factory.build_autoencoder(config, ae_type, device, None,
+                                   resolution=training["params"]["image_size"])
+    return (factory.init_params_(ae, seed),
+            factory.init_params_(factory.build_discriminator(config, ae_type, device),
+                                 seed + 1),
+            factory.init_params_(factory.build_lpips(config, device), seed + 2))
+
+
+def _ae_group(name: str) -> str:
+    if name.startswith("d."):
+        return "discriminator"
+    if "attention" in name:
+        return "attention"
+    if "quantize" in name:
+        return "codebook"
+    if name.endswith("kernel") and "conv" in name:
+        return "encoder convs" if name.startswith("encoder") else "decoder convs"
+    return "norms, biases, dense"
+
+
+def phase_ae_grad():
+    """The AE trainer's phase-2 gradients (autoencoder, discriminator) and
+    the discriminator's running statistics, card against CPU in float32
+    (TF32 off), on a VQ autoencoder at full channel width at 64^2 with
+    attention at 8^2, where the channels are 512: the flash forward and
+    backward kernels run at S = 512, batch 2."""
+    import torch
+
+    from ldm_tf2_tpu_torch.training.ae_trainer import (
+        init_ae_train_state, make_adam, make_ae_train_steps,
+    )
+
+    config = _ae_config("vq", "float32", image_size=64, batch=2,
+                        attention_resolutions=[8])
+    trainer = config["autoencoder_vq_trainer"]
+    gen = torch.Generator().manual_seed(61)
+    images = torch.rand(2, 64, 64, 3, generator=gen) * 2 - 1
+    results, seconds = {}, {}
+    counters = _counters()
+    # the weights and running statistics as built, before the CPU's step
+    # moves the statistics in place
+    weights = [{k: v.clone() for k, v in m.state_dict().items()}
+               for m in _ae_models(config, "cpu", 62)]
+    for device in ("cpu", "cuda"):
+        models = _ae_models(config, device, 62)
+        for model, state in zip(models, weights):
+            model.load_state_dict(state)
+        ae, disc, lpips = models
+        ae.requires_grad_(True)
+        disc.requires_grad_(True)
+        lpips.requires_grad_(False)
+        opt = make_adam(**config["autoencoder_optimizer"])
+        _, step2 = make_ae_train_steps(
+            ae, disc, lpips, opt, opt, lpips_weight=trainer["lpips_weight"],
+            regularization_weight=trainer["codebook_weight"],
+            discriminator_weight=trainer["discriminator_weight"],
+            discriminator_factor=trainer["discriminator_factor"], seed=63)
+        state = init_ae_train_state(ae, disc, opt, opt)
+        before = {k: fn.launches for k, fn in counters.items()}
+        start = time.perf_counter()
+        grads, d_grads, metrics = step2.grads(state, images.to(device))
+        if device == "cuda":
+            torch.cuda.synchronize()
+            ran = {k: counters[k].launches - before[k] for k in
+                   ("flash_attention", "flash_backward_dq", "flash_backward_dkv")}
+        seconds[device] = time.perf_counter() - start
+        named = {n: g for (n, _), g in zip(ae.named_parameters(), grads)}
+        named.update({f"d.{n}": g for (n, _), g in zip(disc.named_parameters(), d_grads)})
+        stats = {f"d.{n}": b for n, b in disc.named_buffers()}
+        with torch.no_grad():
+            _, _, idx = ae.encode(images.to(device))
+        results[device] = ({n: g.float().cpu() for n, g in named.items()},
+                           {n: b.float().cpu() for n, b in stats.items()},
+                           {k: float(v) for k, v in metrics.items()}, idx.cpu())
+    del models
+    torch.cuda.empty_cache()
+    (g_cpu, s_cpu, m_cpu, i_cpu), (g_gpu, s_gpu, m_gpu, i_gpu) = results["cpu"], results["cuda"]
+    groups: dict[str, list] = {}
+    for n, want in g_cpu.items():
+        groups.setdefault(_ae_group(n), []).append((g_gpu[n].flatten(), want.flatten()))
+    report = {}
+    for group, pairs in groups.items():
+        got = torch.cat([a for a, _ in pairs])
+        want = torch.cat([b for _, b in pairs])
+        report[group] = (float((got - want).norm() / want.norm()), len(pairs))
+    stats_rel = max(float((s_gpu[n] - w).norm() / w.norm().clamp_min(1e-30))
+                    for n, w in s_cpu.items())
+    # relative to the value, or to 1e-3 where a loss (g_loss) lies near 0
+    metric_rel = {k: abs(m_gpu[k] - v) / max(abs(v), 1e-3) for k, v in m_cpu.items()}
+    same_codes = bool(torch.equal(i_cpu, i_gpu))
+    ok = (all(rel < AE_GRAD_TOL for rel, _ in report.values()) and stats_rel < AE_GRAD_TOL
+          and all(r < AE_GRAD_TOL for r in metric_rel.values()) and same_codes
+          and all(v > 0 for v in ran.values()))
+    log(f"AE grad: VQ autoencoder at full width (64^2, attention at 8^2, S = 512), "
+        f"batch 2, phase-2 loss, card vs CPU float32 (card {seconds['cuda']:.2f} s, CPU "
+        f"{seconds['cpu']:.1f} s): " + "; ".join(
+            f"{g} rel_l2 {r:.2e} ({n} tensors)" for g, (r, n) in report.items())
+        + f"; running stats rel_l2 {stats_rel:.2e}; metrics rel "
+        + ", ".join(f"{k} {v:.1e}" for k, v in metric_rel.items())
+        + f"; codes equal {same_codes}; card launches {ran} (bound {AE_GRAD_TOL:g}) "
+        + ("PASS" if ok else "FAIL"))
+    check(ok, f"AE gradients on the card disagree with the CPU's: {report}, stats "
+          f"{stats_rel:.2e}, metrics {metric_rel}, codes equal {same_codes}, {ran}")
+
+
+def phase_ae_train(card: str):
+    """The stage-1 trainer through ``run_autoencoder_trainer.train``: the VQ
+    autoencoder at the repo config's full width, batch 3, 256^2, bf16
+    compute over float32 masters, GAN from step 1, in-memory batches: 2
+    warm-up steps, 5 timed steps with the launch counts read around them,
+    1 profiled GAN step; then 3 steps of the KL autoencoder with its
+    discriminator, through both phases.  Each ``train`` call starts from a
+    fresh optimizer state at step 0 (phase 1) and goes on training the same
+    models."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ldm_tf2_tpu_torch.cli.run_autoencoder_trainer import train
+
+    batch, size = 3, 256
+    rng = np.random.default_rng(71)
+    counters = _counters()
+    flash = ("flash_attention", "flash_backward_dq", "flash_backward_dkv")
+    out = {}
+    for ae_type, seed in (("vq", 72), ("kl", 75)):
+        config = _ae_config(ae_type)
+        start = time.perf_counter()
+        models = _ae_models(config, "cuda", seed)
+        torch.cuda.synchronize()
+        n_params = [sum(p.numel() for p in m.parameters()) / 1e6 for m in models]
+        log(f"AE train {ae_type}: built autoencoder {n_params[0]:.1f} M, discriminator "
+            f"{n_params[1]:.1f} M, LPIPS {n_params[2]:.1f} M params in "
+            f"{time.perf_counter() - start:.1f} s")
+
+        def run(steps, gan_from=1):
+            config["autoencoder_training"]["num_iterations"] = steps
+            config[f"autoencoder_{ae_type}_trainer"]["global_step_discriminator"] = gan_from
+            data = [rng.uniform(-1, 1, (batch, size, size, 3)).astype(np.float32)
+                    for _ in range(steps)]
+            torch.cuda.synchronize()
+            for fn in counters.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            _, records = train(config, device="cuda", seed=seed, batches=data,
+                               models=models)
+            torch.cuda.synchronize()
+            launches = _read(counters)
+            return records, time.perf_counter() - t0, launches
+
+        if ae_type == "kl":  # a few steps through both phases
+            records, seconds, launches = run(3)
+            steps = 3
+        else:
+            warm, _, _ = run(2)
+            torch.cuda.reset_peak_memory_stats()
+            steps = 5
+            records, seconds, launches = run(steps)
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        per_step = {k: launches[k] / steps for k in flash}
+        want = AE_STEP_ATTENTIONS[ae_type]
+        others = {k: v for k, v in launches.items() if k not in flash and v}
+        finite = all(np.isfinite(v) for r in records for k, v in r.items()
+                     if k not in ("step", "time"))
+        gan = [r for r in records if "adaptive_weight" in r]
+        ok = (finite and all(v == want for v in per_step.values()) and not others
+              and len(gan) == steps - 1)
+        step_s = [b["time"] - a["time"] for a, b in zip(records[1:], records[2:])]
+        s_per_step = statistics.median(step_s)
+        losses = "; ".join(
+            f"step {r['step']} ae {r['ae_loss']:.4f} nll {r['nll_loss']:.4f} reg "
+            f"{r['reg_loss']:.4g}" + (f" g {r['g_loss']:.4f} d {r['d_loss']:.4f} weight "
+                                      f"{r['adaptive_weight']:.4g}"
+                                      if "adaptive_weight" in r else "")
+            for r in records)
+        memory = f"peak memory {peak_gb:.2f} GB; " if ae_type == "vq" else ""
+        log(f"AE train {ae_type} on {card}: batch {batch}, {size}^2, bf16 compute, "
+            f"{steps} steps in {seconds:.3f} s (optimizer state and phase-1 step "
+            f"included); steps 3-{steps}: {s_per_step:.4f} s/step median "
+            f"({', '.join(f'{x:.4f}' for x in step_s)}), {batch / s_per_step:.3f} img/s; "
+            f"{memory}flash launches per step {per_step} (want {want} each), other "
+            f"kernels {others}; {losses}; finite {finite} {'PASS' if ok else 'FAIL'}")
+        check(ok, f"AE train {ae_type}: launches per step {per_step} (want {want}), "
+              f"others {others}, finite {finite}, GAN steps {len(gan)}")
+        out[ae_type] = dict(s_per_step=s_per_step, launches=per_step)
+        if ae_type == "vq":
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                prof_records, prof_seconds, _ = run(1, gan_from=0)
+            check("adaptive_weight" in prof_records[0], "the profiled step was not a GAN step")
+            _profile_report(prof, 1, f"VQ AE GAN train step at batch {batch}",
+                            prof_seconds * 1e3, bare_ms=s_per_step * 1e3)
+        del models
+        torch.cuda.empty_cache()
+    return out
 
 
 def _profile_report(prof, n: int, what: str, wall_ms: float,
@@ -1321,22 +1736,36 @@ def main() -> int:
     log("build: " + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()))
 
     results = phase_kernels()
+    from ldm_tf2_tpu_torch.ops.fused_ffn import fused_ffn_int8
+
+    ffn8_checked = fused_ffn_int8.launches  # the kernels phase's own launches
     phase_unet()
     phase_grad()
     launches, run = phase_main_path(card)
     # the opt-in kernels report their launches in the opt-in main path (the
     # stats kernel in its GroupNorm "stats" run), the serving path's in the
-    # serve run, the backward kernels theirs in the train run
+    # serve run, the backward kernels theirs in the LDM train run (5 steps)
     opt_in, stats = phase_opt_in(card, run)
     launches.update({k: opt_in[k] for k in ("group_norm_fused", "gn_silu_conv3x3_fused",
                                             "cross_attention")})
     launches["group_stats"] = stats["group_stats"]
     phase_samplers(card, run)
-    launches.update({k: v for k, v in phase_serve(card, run["models"]).items()
-                     if k not in launches})
+    serve = phase_serve(card, run["models"])
+    launches.update({k: serve[k] for k in ("gn_silu_quant", "s8_conv3x3",
+                                           "flash_attention_pv_int8")})
     del run
     torch.cuda.empty_cache()
-    launches.update({k: v for k, v in phase_train(card).items() if k not in launches})
+    train_launches = phase_train(card)
+    launches.update({k: train_launches[k] for k in ("flash_backward_dq",
+                                                    "flash_backward_dkv")})
+    phase_ae_grad()
+    phase_ae_train(card)
+    # row 4 is dispatched on no path, as in the JAX package: its count is
+    # the sum over every path run; rows 9 and 10 count the serve run's
+    # launches of rows 8 and 11 at the shapes where the TPU ran them
+    launches.update(fused_ffn_int8=PATH_TOTALS["fused_ffn_int8"],
+                    gn_silu_quant_stream=serve["gn_silu_quant_stream"],
+                    int8_chain=serve["int8_chain"])
 
     replaces = {"flash_attention": "ldm_tf2_tpu/ops/flash_attention.py:147",
                 "fused_ffn": "ldm_tf2_tpu/ops/fused_ffn.py:132",
@@ -1348,11 +1777,16 @@ def main() -> int:
                 "group_norm_fused": "ldm_tf2_tpu/ops/group_norm.py:115",
                 "group_stats": "ldm_tf2_tpu/ops/group_norm.py:192",
                 "gn_silu_conv3x3_fused": "ldm_tf2_tpu/ops/fused_conv.py:178",
-                "cross_attention": "ldm_tf2_tpu/ops/cross_attention.py:84"}
+                "cross_attention": "ldm_tf2_tpu/ops/cross_attention.py:84",
+                "fused_ffn_int8": "ldm_tf2_tpu/ops/fused_ffn.py:176",
+                "gn_silu_quant_stream": "ldm_tf2_tpu/ops/quant_conv.py:209",
+                "int8_chain": "ldm_tf2_tpu/ops/quant_conv.py:411"}
     source = {"flash_backward_dq": "flash_attention_bwd",
               "flash_backward_dkv": "flash_attention_bwd",
               "group_norm_fused": "group_norm", "group_stats": "group_norm",
-              "gn_silu_conv3x3_fused": "gn_silu_conv3x3"}
+              "gn_silu_conv3x3_fused": "gn_silu_conv3x3",
+              "gn_silu_quant_stream": "gn_silu_quant",
+              "int8_chain": "s8_conv3x3"}
     kernels = []
     for name, rows in results.items():
         main_row = rows[0]  # bf16 at the path's first (level-0) shape
@@ -1365,6 +1799,9 @@ def main() -> int:
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"],
         })
+        if name == "fused_ffn_int8":  # on no path; row 2 as the yardstick
+            kernels[-1].update(kernels_phase_launches=ffn8_checked,
+                               bf16_ffn_ms=main_row["bf16_ffn_ms"])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,13 +4,17 @@
   tensors) -> a ``state_dict``.  Keys are the tree path joined with dots,
   which is the port's module path by construction (``models/layers.py``).
   4-D leaves are convolution kernels: HWIO is transposed to PyTorch's OIHW.
+  A variables dict of ``params`` and ``batch_stats`` (the discriminator's
+  BatchNorm) merges both: the running statistics land in the buffers of
+  the same path (``bn_1.mean``, ``bn_1.var``).
 * ``load_params``: loads such a tree into a module; a missing or an extra
   leaf, or a shape mismatch, raises.
 * ``read_blob``: a numpy-only reader of the single-blob artifact that
   ``ldm_tf2_tpu.checkpoints.blob.export_blob`` writes (``<path>.bin`` plus
   a ``<path>.json`` manifest; artifact names ``cond_stage_model``, ``unet``
-  and ``autoencoder``).  bfloat16 sections have no numpy dtype: they are
-  read as uint16 and viewed as ``torch.bfloat16``.
+  and ``autoencoder``, and ``lpips`` for the perceptual loss's weights).
+  bfloat16 sections have no numpy dtype: they are read as uint16 and
+  viewed as ``torch.bfloat16``.
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ import json
 import numpy as np
 import torch
 
-ARTIFACTS = ("cond_stage_model", "unet", "autoencoder")
+ARTIFACTS = ("cond_stage_model", "unet", "autoencoder", "lpips")
 
 
 def _flatten(tree, prefix=()):
@@ -39,11 +43,14 @@ def _to_tensor(leaf) -> torch.Tensor:
 
 def params_from_jax(tree) -> dict[str, torch.Tensor]:
     """Flax param tree -> state_dict (a top-level ``params`` collection is
-    unwrapped)."""
-    if isinstance(tree, dict) and set(tree) == {"params"}:
-        tree = tree["params"]
+    unwrapped; ``params`` with ``batch_stats`` are merged)."""
+    if isinstance(tree, dict) and set(tree) in ({"params"}, {"params", "batch_stats"}):
+        leaves = list(_flatten(tree["params"]))
+        leaves += list(_flatten(tree.get("batch_stats", {})))
+    else:
+        leaves = list(_flatten(tree))
     state = {}
-    for path, leaf in _flatten(tree):
+    for path, leaf in leaves:
         t = _to_tensor(leaf)
         if t.dim() == 4:
             t = t.permute(3, 2, 0, 1)  # HWIO -> OIHW

@@ -12,9 +12,11 @@ The weights come from the single-blob artifact the JAX package exported
 the JAX CLI's table and checks: ``ddim`` (default), ``ddpm``, ``plms`` or
 ``dpm_solver_pp_2m``.  ``ldm_sampling.sample_save_progress`` (DDIM only)
 also writes ``sample_prog.npy`` and ``pred_x0_prog.npy`` ([B, records, H,
-W, 3] uint8, every 5th step decoded).  DeepCache, img2img and inpainting,
-the VQ autoencoder and a device mesh raise ``NotImplementedError`` naming
-their ROADMAP item.  The serving modes ``tpu.quantize: int8`` and
+W, 3] uint8, every 5th step decoded).  ``ldm_sampling.autoencoder_type:
+vq`` decodes with the VQ autoencoder, quantizing the latents first
+(``force_quantize``), as the JAX CLI does.  DeepCache, img2img and
+inpainting and a device mesh raise ``NotImplementedError`` naming their
+ROADMAP item.  The serving modes ``tpu.quantize: int8`` and
 ``tpu.quantize_attention: int8pv`` apply here as in the JAX CLI, which
 honours both (``factory.apply_serving_modes``).  The pipeline itself is
 ``sample_txt2img`` (``sample_txt2img_progressive`` with the progress
@@ -35,6 +37,7 @@ from ldm_tf2_tpu_torch.diffusion.sampler import (
 from ldm_tf2_tpu_torch.diffusion.solvers import (
     dpm_solver_pp_2m_sample_loop, plms_sample_loop,
 )
+from ldm_tf2_tpu_torch.models import AutoencoderVQ
 
 # ldm_sampling.sampler -> loop, the JAX CLIs' table
 SAMPLE_LOOPS = {
@@ -66,13 +69,22 @@ def sampler_name(sampling: dict) -> str:
     return name
 
 
+def decode_latents(autoencoder, z):
+    """Images from latents (already divided by the scale factor): the VQ
+    autoencoder quantizes them first, as the JAX CLIs decode with
+    ``force_quantize=True``."""
+    if isinstance(autoencoder, AutoencoderVQ):
+        return autoencoder.decode(z, force_quantize=True)
+    return autoencoder.decode(z)
+
+
 def sample_txt2img(cond_model, unet, autoencoder, schedule, token_ids, shape,
                    *, sampler: str = "ddim", guidance_scale: float = 5.0,
                    guidance_rescale: float = 0.0, scale_factor: float = 0.18215,
                    seed: int = 0, init_noise=None, step_noises=None,
                    return_trajectory: bool = False, device="cuda"):
     """Text encode -> CFG sampling loop (``sampler``, a key of
-    ``SAMPLE_LOOPS``) -> KL decode.
+    ``SAMPLE_LOOPS``) -> decode (``decode_latents``).
 
     token_ids: [2B, L] (unconditional rows first); shape: latent [B, h, w, c].
     The models must already be on ``device``.  ``step_noises`` (DDIM and
@@ -96,7 +108,7 @@ def sample_txt2img(cond_model, unet, autoencoder, schedule, token_ids, shape,
             init_noise=init_noise, **hooks,
         )
         x0, traj = out if return_trajectory else (out, None)
-        images = autoencoder.decode(x0 / scale_factor)
+        images = decode_latents(autoencoder, x0 / scale_factor)
     if return_trajectory:
         return images, x0, traj
     return images, x0
@@ -122,7 +134,8 @@ def sample_txt2img_progressive(cond_model, unet, autoencoder, schedule, token_id
         )
         records = sample_prog.shape[1]
         flat = torch.cat([x0[:, None], sample_prog, pred_x0_prog], dim=1)
-        images = autoencoder.decode(flat.reshape(-1, *shape[1:]) / scale_factor)
+        images = decode_latents(autoencoder,
+                                flat.reshape(-1, *shape[1:]) / scale_factor)
         images = images.reshape(shape[0], 1 + 2 * records, *images.shape[1:])
     return (images[:, 0], x0, images[:, 1:1 + records],
             images[:, 1 + records:])
@@ -135,12 +148,10 @@ def _multi_device(config: dict) -> bool:
 
 
 # Branches of the JAX CLIs not ported yet, as (test of (ldm_sampling,
-# config), what).  The first three apply to the server too.
+# config), what).  The first two apply to the server too.
 UNSUPPORTED_PIPELINE = (
     (lambda s, c: s.get("cache_interval", 1) > 1,
      "DeepCache cache_interval > 1 (ROADMAP queue A item 8)"),
-    (lambda s, c: s.get("autoencoder_type", "kl") != "kl",
-     "the VQ autoencoder (ROADMAP queue A item 9)"),
     (lambda s, c: _multi_device(c),
      "a device mesh, sequence or tensor parallelism (ROADMAP queue A item 13)"),
 )
@@ -187,8 +198,10 @@ def main(argv=None) -> None:
     cond_model = load_params(factory.build_cond_model(config, device),
                              blob["cond_stage_model"])
     unet = load_params(factory.build_unet(config, device), blob["unet"])
-    autoencoder = load_params(factory.build_autoencoder(config, "kl", device),
-                              blob["autoencoder"])
+    autoencoder = load_params(
+        factory.build_autoencoder(config, sampling.get("autoencoder_type", "kl"),
+                                  device, resolution=factory.sampling_resolution(config)),
+        blob["autoencoder"])
     factory.apply_serving_modes(config, unet, autoencoder)
     schedule = factory.build_schedule(config)
 

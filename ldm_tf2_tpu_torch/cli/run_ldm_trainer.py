@@ -6,8 +6,10 @@
         [--seed 0] [--device cuda]
 
 A fresh U-Net (float32 masters, ``tpu.compute_dtype`` compute) is trained
-against the pretrained text encoder and KL autoencoder from the weight
-blob, both frozen in ``tpu.frozen_weights_dtype`` (the text encoder
+against the pretrained text encoder and autoencoder from the weight blob
+(KL or VQ, ``ldm_training.autoencoder_type``; the VQ model's latents are
+its encoder's, before quantization, as in the JAX CLI), both frozen in
+``tpu.frozen_weights_dtype`` (the text encoder
 trains, in float32, when ``ldm_training.train_cond_model`` is true).
 Batches come from the ``*.tfrecord`` files under
 ``ldm_training.root_path``.  The state (step, U-Net and trained
@@ -18,8 +20,8 @@ restored at start; a null ``ckpt_path`` saves nothing.  Loss and images/s
 are logged every ``tpu.log_per_iterations`` steps.
 
 Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-item: ``tpu.remat``, ``tpu.deterministic_data`` (the indexed loader), the
-VQ autoencoder and a device mesh.  ``train(config, ..., batches=...,
+item: ``tpu.remat``, ``tpu.deterministic_data`` (the indexed loader) and
+a device mesh.  ``train(config, ..., batches=...,
 models=...)`` takes in-memory batches and built models instead of the
 files and the blob.
 """
@@ -39,8 +41,6 @@ _UNSUPPORTED = (
      "explicit generators (ROADMAP queue A item 15)"),
     (lambda c: c["tpu"]["deterministic_data"],
      "tpu.deterministic_data, the indexed loader (ROADMAP queue A item 12)"),
-    (lambda c: c["ldm_training"].get("autoencoder_type", "kl") != "kl",
-     "the VQ autoencoder (ROADMAP queue A item 9)"),
     (_multi_device,
      "a device mesh or multi-process data parallelism (ROADMAP queue A item 13)"),
 )
@@ -61,8 +61,11 @@ def _load_models(config, params_blob_path, device, seed):
         factory.build_cond_model(
             config, device, None if train_cond else "frozen_weights_dtype"),
         blob["cond_stage_model"])
+    training = config["ldm_training"]
     autoencoder = load_params(
-        factory.build_autoencoder(config, "kl", device, "frozen_weights_dtype"),
+        factory.build_autoencoder(config, training.get("autoencoder_type", "kl"),
+                                  device, "frozen_weights_dtype",
+                                  resolution=training["params"]["image_size"]),
         blob["autoencoder"])
     return cond_model, factory.build_trainable_unet(config, device, seed), autoencoder
 

@@ -29,8 +29,10 @@ The weights come from a blob the JAX package exported
 the sampler CLI's table (``ddim``, ``ddpm``, ``plms``,
 ``dpm_solver_pp_2m``), checked as the JAX server checks it.  The serving
 modes ``tpu.quantize: int8`` and ``tpu.quantize_attention: int8pv`` apply
-(``factory.apply_serving_modes``).  DeepCache, the VQ autoencoder and a
-device mesh raise ``NotImplementedError`` naming their ROADMAP item.  The
+(``factory.apply_serving_modes``).  ``ldm_sampling.autoencoder_type: vq``
+decodes through the VQ autoencoder with ``force_quantize``, as the JAX
+server does.  DeepCache and a device mesh raise ``NotImplementedError``
+naming their ROADMAP item.  The
 JAX server's ``--aot_cache`` has no counterpart: PyTorch runs eagerly and
 compiles no pipeline executable to cache.
 """
@@ -87,8 +89,9 @@ def build_server(config: dict, params_blob_path: str = "", device="cuda",
             load_params(factory.build_cond_model(config, device),
                         blob["cond_stage_model"]),
             load_params(factory.build_unet(config, device), blob["unet"]),
-            load_params(factory.build_autoencoder(config, "kl", device),
-                        blob["autoencoder"]),
+            load_params(factory.build_autoencoder(
+                config, sampling.get("autoencoder_type", "kl"), device,
+                resolution=factory.sampling_resolution(config)), blob["autoencoder"]),
         )
     cond_model, unet, autoencoder = models
     factory.apply_serving_modes(config, unet, autoencoder)

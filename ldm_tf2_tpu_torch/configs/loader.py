@@ -8,7 +8,11 @@ port's activation and weight dtypes, and ``quantize`` (none | int8) and
 reads ``ldm_training``, ``latent_diffusion_optimizer`` and the ``tpu:``
 keys ``frozen_weights_dtype``, ``remat``, ``encode_chunks``,
 ``persist_per_iterations``, ``log_per_iterations`` and
-``deterministic_data``; they are checked when present.  ``yaml`` is
+``deterministic_data``; they are checked when present.  The autoencoder
+trainer reads ``autoencoder_training``, its type's
+``autoencoder_{kl,vq}_trainer`` section, ``autoencoder_optimizer`` and
+``discriminator_optimizer``, checked when ``autoencoder_training`` is
+there.  ``yaml`` is
 imported only when a file is loaded, so a config built as a dict needs no
 yaml package.
 """
@@ -127,7 +131,69 @@ def validate(config: dict) -> dict:
     config["tpu"] = tpu
     if "ldm_training" in config:
         _validate_training(config)
+    if "autoencoder_training" in config:
+        _validate_ae_training(config)
     return config
+
+
+# make_adam's keywords (the JAX package's autoencoder_optimizer and
+# discriminator_optimizer)
+ADAM_KEYS = ("learning_rate", "beta_1", "beta_2", "epsilon")
+_AE_TRAINER_NUMBERS = ("lpips_weight", "discriminator_weight",
+                       "discriminator_factor")
+
+
+def _validate_ae_training(config: dict) -> None:
+    training = config["autoencoder_training"]
+    ae_type = training.get("autoencoder_type")
+    if ae_type not in ("kl", "vq"):
+        raise ValueError(
+            f"autoencoder_training.autoencoder_type must be 'kl' or 'vq', got {ae_type!r}"
+        )
+    for section in (f"autoencoder_{ae_type}", f"ae_{ae_type}_discriminator",
+                    f"autoencoder_{ae_type}_trainer"):
+        if section not in config:
+            raise ValueError(f"autoencoder_type {ae_type!r} needs the {section} section")
+    params = training.get("params") or {}
+    for key in ("batch_size", "image_size"):
+        if not _is_int(params.get(key)) or params[key] < 1:
+            raise ValueError(
+                f"autoencoder_training.params.{key} must be an int >= 1, got "
+                f"{params.get(key)!r}"
+            )
+    iters = training.get("num_iterations")
+    if not _is_int(iters) or iters < 1:
+        raise ValueError(
+            f"autoencoder_training.num_iterations must be an int >= 1, got {iters!r}"
+        )
+    trainer = config[f"autoencoder_{ae_type}_trainer"]
+    step = trainer.get("global_step_discriminator")
+    if not _is_int(step) or step < 0:
+        raise ValueError(
+            f"autoencoder_{ae_type}_trainer.global_step_discriminator must be an "
+            f"int >= 0, got {step!r}"
+        )
+    reg = "kl_weight" if ae_type == "kl" else "codebook_weight"
+    for key in (*_AE_TRAINER_NUMBERS, reg):
+        if not _is_number(trainer.get(key)):
+            raise ValueError(
+                f"autoencoder_{ae_type}_trainer.{key} must be a number, got "
+                f"{trainer.get(key)!r}"
+            )
+    loss = trainer.get("discriminator_loss_type", "hinge")
+    if loss not in ("hinge", "vanilla"):
+        raise ValueError(
+            f"autoencoder_{ae_type}_trainer.discriminator_loss_type must be "
+            f"hinge|vanilla, got {loss!r}"
+        )
+    for section in ("autoencoder_optimizer", "discriminator_optimizer"):
+        opt = config.get(section) or {}
+        unknown = set(opt) - set(ADAM_KEYS)
+        if unknown:
+            raise ValueError(f"unknown {section} keys {sorted(unknown)}")
+        bad = [k for k, v in opt.items() if not _is_number(v)]
+        if bad:
+            raise ValueError(f"{section} keys {bad} must be numbers")
 
 
 def _validate_training(config: dict) -> None:

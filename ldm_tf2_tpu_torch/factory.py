@@ -11,7 +11,9 @@ import torch
 
 from ldm_tf2_tpu_torch.configs.loader import compute_dtype, weights_dtype
 from ldm_tf2_tpu_torch.diffusion.schedule import DiffusionSchedule, make_schedule
-from ldm_tf2_tpu_torch.models import AutoencoderKL, TransformerModel, UNet
+from ldm_tf2_tpu_torch.models import (
+    LPIPS, AutoencoderKL, AutoencoderVQ, Discriminator, TransformerModel, UNet,
+)
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -64,14 +66,45 @@ def build_trainable_unet(config: dict, device="cpu", seed: int = 0) -> UNet:
 
 
 def build_autoencoder(config: dict, ae_type: str = "kl", device="cpu",
-                      dtype_key="weights_dtype"):
-    if ae_type != "kl":
-        raise NotImplementedError(
-            f"autoencoder type {ae_type!r}: only 'kl' is ported "
-            "(AutoencoderVQ is ROADMAP queue A item 9)"
-        )
-    return _build(AutoencoderKL, dict(config["autoencoder_kl"]), config, device,
-                  dtype_key)
+                      dtype_key="weights_dtype", resolution: int | None = None):
+    """The ``autoencoder_kl`` or ``autoencoder_vq`` section's model, its
+    weights stored in ``tpu.<dtype_key>`` (None: float32, the AE trainer's
+    masters).  ``resolution``: the image size the VQ model's attention
+    blocks are built for (256 when not given, the repo config's)."""
+    if ae_type == "kl":
+        return _build(AutoencoderKL, dict(config["autoencoder_kl"]), config,
+                      device, dtype_key)
+    if ae_type == "vq":
+        kwargs = dict(config["autoencoder_vq"])
+        if resolution is not None:
+            kwargs["resolution"] = resolution
+        return _build(AutoencoderVQ, kwargs, config, device, dtype_key)
+    raise ValueError(f"autoencoder type must be 'kl' or 'vq', got {ae_type!r}")
+
+
+def sampling_resolution(config: dict) -> int:
+    """The image size of the sampling paths: the latent size of
+    ``ldm_sampling.latent_shape`` times the autoencoder's downsampling."""
+    sampling = config["ldm_sampling"]
+    section = ("autoencoder_vq" if sampling.get("autoencoder_type", "kl") == "vq"
+               else "autoencoder_kl")
+    return sampling["latent_shape"][1] * 2 ** (len(config[section]["multipliers"]) - 1)
+
+
+def build_discriminator(config: dict, ae_type: str, device="cpu") -> Discriminator:
+    """The ``ae_kl_discriminator`` or ``ae_vq_discriminator`` section's
+    PatchGAN: float32 parameters that require grad, computing in
+    ``tpu.compute_dtype``; fill them with ``init_params_`` or the bridge."""
+    key = "ae_kl_discriminator" if ae_type == "kl" else "ae_vq_discriminator"
+    with torch.device(device):
+        model = Discriminator(**config[key], dtype=compute_dtype(config))
+    return model.float()
+
+
+def build_lpips(config: dict, device="cpu") -> LPIPS:
+    """LPIPS without grad (frozen), its weights stored in
+    ``tpu.frozen_weights_dtype``, computing in ``tpu.compute_dtype``."""
+    return _build(LPIPS, {}, config, device, "frozen_weights_dtype")
 
 
 def build_schedule(config: dict) -> DiffusionSchedule:
@@ -103,7 +136,8 @@ def apply_serving_modes(config: dict, unet: UNet, autoencoder) -> None:
 @torch.no_grad()
 def init_params_(module: torch.nn.Module, seed: int):
     """flax's default initializers, by leaf name: norm ``scale`` ones,
-    ``bias`` zeros, every ``kernel`` lecun-normal (a normal truncated at
+    ``bias`` zeros, the VQ codebook glorot-uniform, every other ``kernel``
+    lecun-normal (a normal truncated at
     two standard deviations, std sqrt(1 / fan_in) / 0.8796), fan_in being
     all input dims (Dense [in, out]: in; conv OIHW: I*H*W; projection
     split [D, H, S]: D; merge [H, S, D]: H*S).  Draws come from a generator
@@ -116,6 +150,10 @@ def init_params_(module: torch.nn.Module, seed: int):
             p.fill_(1.0)
         elif leaf == "bias":
             p.zero_()
+        elif name.endswith("quantize.kernel"):  # the codebook: glorot uniform
+            limit = (6.0 / (p.shape[0] + p.shape[1])) ** 0.5
+            noise = torch.rand(p.shape, generator=gen, device=p.device)
+            p.copy_(noise.mul_(2 * limit).sub_(limit))
         else:
             if p.dim() == 4:
                 fan_in = p[0].numel()

@@ -35,5 +35,12 @@ class DiagonalGaussian:
             )
         return self.mean + self.std * noise.to(self.mean.dtype)
 
+    def kl(self):
+        """KL(q || N(0, I)) summed over [1, 2, 3]: [B], in the mean's
+        dtype."""
+        var = torch.exp(self.logvar)
+        return 0.5 * torch.sum(self.mean**2 + var - 1.0 - self.logvar,
+                               dim=(1, 2, 3))
+
     def mode(self):
         return self.mean

@@ -51,10 +51,11 @@ class Dense(nn.Module):
 class Conv(nn.Module):
     """kxk convolution over NHWC activations with an OIHW kernel."""
 
-    def __init__(self, in_features: int, features: int, kernel_size: int = 3):
+    def __init__(self, in_features: int, features: int, kernel_size: int = 3,
+                 bias: bool = True):
         super().__init__()
         self.kernel = _param(features, in_features, kernel_size, kernel_size)
-        self.bias = _param(features)
+        self.bias = _param(features) if bias else None
 
     def forward(self, x, stride: int = 1, padding: int = 1):
         return conv2d(x, self.kernel, self.bias, stride=stride, padding=padding)

@@ -107,15 +107,30 @@ def use_int8_conv(shape, cout: int | None = None, num_groups: int = 32,
 
 # --------------------------------------------------------------- weights --
 
-def quantize_weight(w):
-    """Per-output-channel symmetric s8 quantization of an OIHW kernel, from
-    the weights as stored, cast to float32: ``ws = max(max|w|, 1e-12) / 127``,
-    ``w8 = clip(round(w / ws), -127, 127)``.  Returns (w8 OIHW int8, ws
-    [Cout] float32)."""
+def quantize_cols(w):
+    """Per-column symmetric s8 quantization of a 2-D kernel [in, out] from
+    its values as stored, cast to float32: ``s = max(max|w| over rows,
+    1e-12) / 127``, ``w8 = clip(round(w / s), -127, 127)``.  Returns (w8
+    [in, out] int8, s [out] float32)."""
     wf = w.float()
-    ws = torch.clamp(wf.abs().amax(dim=(1, 2, 3)), min=1e-12) / 127.0
-    w8 = torch.clamp(torch.round(wf / ws[:, None, None, None]), -127, 127)
-    return w8.to(torch.int8), ws
+    s = torch.clamp(wf.abs().amax(dim=0), min=1e-12) / 127.0
+    return torch.clamp(torch.round(wf / s), -127, 127).to(torch.int8), s
+
+
+def quantize_weight(w):
+    """``quantize_cols`` of an OIHW kernel, one column per output channel.
+    Returns (w8 OIHW int8, ws [Cout] float32)."""
+    w8, ws = quantize_cols(w.reshape(w.shape[0], -1).T)
+    return w8.T.reshape(w.shape), ws
+
+
+def quantize_activations(v, dims):
+    """Symmetric s8 codes of ``v`` with one scale per slice over ``dims``:
+    ``scale = max(max|v|, 1e-8) * (1/127)`` and ``codes = clip(round(v *
+    (1 / scale)), -127, 127)``, a multiply by the reciprocal, rounding half
+    to even.  Returns (codes as integral floats, scale with ``dims`` kept)."""
+    scale = torch.clamp(v.abs().amax(dim=dims, keepdim=True), min=1e-8) * (1.0 / 127.0)
+    return torch.clamp(torch.round(v * (1.0 / scale)), -127.0, 127.0), scale
 
 
 def int8_conv_weights(w):
@@ -143,11 +158,8 @@ def _plain_gn_silu_quant(x, gamma, beta, num_groups, eps):
     scale = rstd[:, None, :, None] * gamma.float().reshape(num_groups, cg)
     y = (xf - mean[:, None, :, None]) * scale
     y = y + beta.float().reshape(num_groups, cg)
-    y = y * torch.sigmoid(y)
-    sa = torch.clamp(y.abs().amax(dim=(1, 2, 3)), min=1e-8) * (1.0 / 127.0)
-    y8 = torch.clamp(torch.round(y * (1.0 / sa)[:, None, None, None]),
-                     -127.0, 127.0)
-    return y8.to(torch.int8).reshape(b, h, w, c), sa
+    y8, sa = quantize_activations(y * torch.sigmoid(y), (1, 2, 3))
+    return y8.to(torch.int8).reshape(b, h, w, c), sa.reshape(b)
 
 
 def _launch_gn_silu_quant(x, gamma, beta, num_groups, eps):
@@ -175,6 +187,8 @@ def _launch_gn_silu_quant(x, gamma, beta, num_groups, eps):
     )
     _build.check(err, "gn_silu_quant kernel launch")
     gn_silu_quant.launches += 1
+    if _vmem_bytes(h * w, c) > _VMEM_BUDGET:  # where the TPU streams (row 9)
+        gn_silu_quant.stream_launches += 1
     return y8, sa
 
 
@@ -184,7 +198,10 @@ def gn_silu_quant(x, gamma, beta, num_groups: int = 32, eps: float = 1e-5):
     ``y8 * sa[b] ~= silu(group_norm(x))``.
 
     A CPU tensor takes the plain version; a CUDA tensor takes the kernel,
-    or raises.  ``gn_silu_quant.launches`` counts kernel launches."""
+    or raises.  ``gn_silu_quant.launches`` counts kernel launches, and
+    ``gn_silu_quant.stream_launches`` those of them at a shape whose slab
+    does not fit the TPU kernel's VMEM, where the JAX package runs its
+    streamed kernel instead; one CUDA kernel takes both."""
     if x.dim() != 4:
         raise ValueError(f"x must be [B, H, W, C], got {tuple(x.shape)}")
     if x.dtype not in _DTYPES:
@@ -201,6 +218,7 @@ def gn_silu_quant(x, gamma, beta, num_groups: int = 32, eps: float = 1e-5):
 
 
 gn_silu_quant.launches = 0
+gn_silu_quant.stream_launches = 0
 
 
 # ------------------------------------------------------------ s8 3x3 conv --
@@ -300,7 +318,18 @@ def gn_silu_conv3x3_int8(x, gamma, beta, w8, ws, b, *, time_add=None,
                          eps: float = 1e-5):
     """The int8 twin of ``ops.fused_conv.gn_silu_conv3x3``: ``gn_silu_quant``
     then ``s8_conv3x3`` (two launches on the card), output in x's dtype.
-    w8, ws: ``int8_conv_weights`` of the conv kernel."""
+    w8, ws: ``int8_conv_weights`` of the conv kernel.
+    ``gn_silu_conv3x3_int8.launches`` counts the pairs launched on the card
+    at a shape where the JAX package runs its whole-chain kernel
+    (``use_fused_int8_chain``)."""
     y8, sa = gn_silu_quant(x, gamma, beta, num_groups, eps)
-    return s8_conv3x3(y8, sa, w8, ws, b, time_add=time_add,
-                      residual_add=residual_add, out_dtype=x.dtype)
+    out = s8_conv3x3(y8, sa, w8, ws, b, time_add=time_add,
+                     residual_add=residual_add, out_dtype=x.dtype)
+    _, h, w, cin = x.shape
+    if x.device.type == "cuda" and use_fused_int8_chain(
+            h * w, w, cin, w8.shape[0], residual_add is not None):
+        gn_silu_conv3x3_int8.launches += 1
+    return out
+
+
+gn_silu_conv3x3_int8.launches = 0

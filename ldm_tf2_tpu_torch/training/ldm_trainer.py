@@ -2,7 +2,8 @@
 autoencoder latents (counterpart of ``ldm_tf2_tpu.training.ldm_trainer``).
 
 One train step: encode the images with the frozen autoencoder (no grad)
-and sample its posterior, drop the caption to the null condition per
+and sample its posterior (the VQ autoencoder: take its encoder's latents
+before quantization, as the JAX package does), drop the caption to the null condition per
 example, encode the text (frozen, no grad, unless ``train_cond_model``),
 noise the latents at per-example timesteps, predict the noise with the
 U-Net in training mode (dropout), take the per-example spatial mean of the
@@ -40,6 +41,7 @@ import numpy as np
 import torch
 
 from ldm_tf2_tpu_torch.diffusion.losses import q_sample
+from ldm_tf2_tpu_torch.models import AutoencoderVQ
 
 # Tensors per multi-tensor op in the optimizer: bounds its temporaries to a
 # slice of the parameters.
@@ -201,10 +203,11 @@ def init_ldm_train_state(unet, cond_model, optimizer: AdamW,
     return LDMTrainState(step=0, opt_state=optimizer.init(params), ema=ema)
 
 
-def step_generators(seed: int, step: int, device) -> list[torch.Generator]:
-    """Five generators (timesteps, posterior noise, condition drop, noise,
-    dropout) seeded from ``(seed, step)`` alone."""
-    states = np.random.SeedSequence([seed, step]).generate_state(5)
+def step_generators(seed: int, step: int, device, count: int = 5) -> list[torch.Generator]:
+    """``count`` generators seeded from ``(seed, step)`` alone; a train step
+    of this module takes five (timesteps, posterior noise, condition drop,
+    noise, dropout)."""
+    states = np.random.SeedSequence([seed, step]).generate_state(count)
     return [torch.Generator(device=device).manual_seed(int(s)) for s in states]
 
 
@@ -230,6 +233,7 @@ def make_ldm_train_step(unet, cond_model, autoencoder, schedule,
     null_ids = (None if null_token_ids is None
                 else torch.as_tensor(null_token_ids, device=device))
     trained_cond = cond_model if train_cond_model else None
+    vq = isinstance(autoencoder, AutoencoderVQ)
 
     @torch.no_grad()
     def encode(images, generator, noise):
@@ -242,7 +246,11 @@ def make_ldm_train_step(unet, cond_model, autoencoder, schedule,
         n = b // encode_chunks
         parts = []
         for i in range(encode_chunks):
-            posterior = autoencoder.encode(images[i * n:(i + 1) * n])
+            chunk = images[i * n:(i + 1) * n]
+            if vq:
+                parts.append(autoencoder.encode(chunk, only_encode=True))
+                continue
+            posterior = autoencoder.encode(chunk)
             parts.append(posterior.sample(
                 generator, None if noise is None else noise[i * n:(i + 1) * n]))
         return scale_factor * torch.cat(parts)

@@ -44,10 +44,15 @@ images, _ = sample_txt2img(*models, factory.build_schedule(config),
                            torch.as_tensor(ids), (1, 8, 8, 4), device="cpu")
 assert tensor_to_image(images.numpy()).shape == (1, 16, 16, 3)
 import ldm_tf2_tpu_torch.checkpoints.manager
+import ldm_tf2_tpu_torch.cli.run_autoencoder_trainer
 import ldm_tf2_tpu_torch.cli.run_ldm_trainer
 import ldm_tf2_tpu_torch.cli.serve_ldm
 import ldm_tf2_tpu_torch.data.dataset
 import ldm_tf2_tpu_torch.diffusion.losses
+import ldm_tf2_tpu_torch.models.discriminator
+import ldm_tf2_tpu_torch.models.lpips
+import ldm_tf2_tpu_torch.models.quantize
+import ldm_tf2_tpu_torch.training.ae_trainer
 import ldm_tf2_tpu_torch.training.ldm_trainer
 import ldm_tf2_tpu_torch.utils.logging
 bad = sorted(m for m in sys.modules

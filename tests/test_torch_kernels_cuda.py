@@ -37,6 +37,30 @@ def _need_cuda():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape,cout,whole", [((2, 32, 32, 320), 320, True),
+                                              ((2, 8, 8, 640), 640, False)])
+def test_int8_chain_counts_the_tpu_whole_chain_shapes(shape, cout, whole):
+    """``gn_silu_conv3x3_int8`` is the two kernels back to back, and counts
+    a chain only where the JAX package runs its whole-chain kernel."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(4)
+    c = shape[-1]
+    x = torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+    gamma, beta = torch.ones(c, device="cuda"), torch.zeros(c, device="cuda")
+    w8, ws = tqc.int8_conv_weights(torch.randn(cout, c, 3, 3, generator=g, device="cuda"))
+    bias = torch.randn(cout, generator=g, device="cuda")
+    t = torch.randn(shape[0], cout, generator=g, device="cuda").to(torch.bfloat16)
+    assert tqc.use_fused_int8_chain(shape[1] * shape[2], shape[2], c, cout, False) == whole
+    before = tqc.gn_silu_conv3x3_int8.launches, tqc.s8_conv3x3.launches
+    got = tqc.gn_silu_conv3x3_int8(x, gamma, beta, w8, ws, bias, time_add=t)
+    assert (tqc.gn_silu_conv3x3_int8.launches, tqc.s8_conv3x3.launches) == (
+        before[0] + whole, before[1] + 1)
+    y8, sa = tqc.gn_silu_quant(x, gamma, beta)
+    assert torch.equal(got, tqc.s8_conv3x3(y8, sa, w8, ws, bias, time_add=t,
+                                           out_dtype=x.dtype))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,t,kv,h,s", [(2, 1024, 1024, 8, 40),
                                          (2, 256, 256, 8, 80),
@@ -93,9 +117,11 @@ def test_gn_silu_quant_kernel_matches_plain_on_card(dtype, shape):
     x = (torch.randn(shape, generator=g, device="cuda") * 2 + 0.5).to(dtype)
     gamma = torch.randn(c, generator=g, device="cuda") * 0.5 + 1.0
     beta = torch.randn(c, generator=g, device="cuda") * 0.5
-    before = tqc.gn_silu_quant.launches
+    before = tqc.gn_silu_quant.launches, tqc.gn_silu_quant.stream_launches
     y8, sa = tqc.gn_silu_quant(x, gamma, beta)
-    assert tqc.gn_silu_quant.launches == before + 1
+    streamed = shape == (2, 64, 64, 320)  # the map beyond the TPU's one-pass slab
+    assert (tqc.gn_silu_quant.launches, tqc.gn_silu_quant.stream_launches) == (
+        before[0] + 1, before[1] + streamed)
     r8, rsa = tqc._plain_gn_silu_quant(x, gamma, beta, 32, 1e-5)
     # float32 sums in another order: the scale to an ulp or two, the codes
     # to one step where a value lies within that of a rounding midpoint
@@ -420,3 +446,84 @@ def test_unet_gradients_with_the_opt_in_kernels_on_card_equal_cpu():
         assert got is not None, name
         assert float(want.norm()) > 0, name
         assert float((got.cpu() - want).norm() / want.norm()) < 1e-4, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,d", [(2048, 320), (1000, 640), (256, 1280), (64, 64)])
+def test_int8_ffn_kernel_matches_plain_on_card(dtype, m, d):
+    """Row 4 against ``_plain_ffn_int8`` on the same inputs: the
+    LayerNorm's summation order differs, which flips a code in a few rows
+    (moving each by up to about 3e-2); bf16 also rounds the output."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(3)
+    lns, lnb, w1v, b1v, w1g, b1g, w2, b2 = _ffn_args(g, d, dtype)
+    x = torch.randn(1, m, d, generator=g, device="cuda").to(dtype)
+    q = tff.quantize_ffn_weights(w1v, w1g, w2)
+    before = tff.fused_ffn_int8.launches
+    got = tff.fused_ffn_int8(x, lns, lnb, q, b1v, b1g, b2).float()
+    assert tff.fused_ffn_int8.launches == before + 1
+    ref = tff._plain_ffn_int8(x, lns, lnb, q, b1v, b1g, b2).float()
+    rel = float((got - ref).norm() / ref.norm())
+    assert rel < (1e-3 if dtype == torch.float32 else 5e-3)
+    assert float((got - ref).abs().max()) < 0.1
+
+
+@pytest.mark.cuda
+def test_ae_train_step_on_card_equals_cpu():
+    """One phase-2 AE train step (VQ, attention on, S = 128) in float32: each
+    gradient tensor of both models and each of the discriminator's running
+    statistics, card against CPU, within 1e-4 rel-L2 of its own norm
+    (summation order).  A tensor whose CPU value is zero up to rounding
+    (below 1e-8 of its group's norm: the attention's key bias, whose
+    gradient softmax cancels exactly, at 2e-10 to 1.5e-9; the smallest real
+    one here, the codebook's, is at 4.7e-6) must be zero up to rounding on
+    the card too, below 1e-7 of the group's norm.  64 channels
+    keep two per GroupNorm group: with one, every conv bias before a
+    GroupNorm has a gradient of exactly 0, which both devices return as
+    cancellation noise."""
+    _need_cuda()
+    from ldm_tf2_tpu_torch import factory
+    from ldm_tf2_tpu_torch.models import LPIPS, AutoencoderVQ, Discriminator
+    from ldm_tf2_tpu_torch.training import ae_trainer as tat
+
+    factory.set_float32_precision()
+    kwargs = dict(channels=64, num_blocks=1, multipliers=(1, 2), attention_resolutions=(8,),
+                  vocab_size=64, resolution=16)
+    weights = [factory.init_params_(m, seed).state_dict() for seed, m in
+               enumerate((AutoencoderVQ(**kwargs), Discriminator(16, 2), LPIPS()))]
+    x = torch.rand(2, 16, 16, 3, generator=torch.Generator().manual_seed(1)) * 2 - 1
+    out = {}
+    for device in ("cpu", "cuda"):
+        with torch.device(device):
+            models = (AutoencoderVQ(**kwargs), Discriminator(16, 2), LPIPS())
+        for m, w in zip(models, weights):
+            m.load_state_dict(w)
+        ae, disc, lpips = models
+        lpips.requires_grad_(False)
+        opt = tat.make_adam(1e-4)
+        _, step2 = tat.make_ae_train_steps(ae, disc, lpips, opt, opt,
+                                           discriminator_weight=0.6)
+        before = tfa.flash_backward_dq.launches
+        grads, d_grads, metrics = step2.grads(tat.init_ae_train_state(ae, disc, opt, opt),
+                                              x.to(device))
+        if device == "cuda":  # 5 attentions, each differentiated once
+            assert tfa.flash_backward_dq.launches - before == 5
+        out[device] = ([g.cpu() for g in grads], [g.cpu() for g in d_grads],
+                       [b.cpu() for b in disc.buffers()], metrics)
+        names = ([n for n, _ in ae.named_parameters()],
+                 [n for n, _ in disc.named_parameters()], [n for n, _ in disc.named_buffers()])
+    for part, group in enumerate(("autoencoder grads", "discriminator grads",
+                                  "running statistics")):
+        total = float(torch.cat([t.flatten() for t in out["cpu"][part]]).norm())
+        ratios = []  # error over its bound, per tensor
+        for n, got, want in zip(names[part], out["cuda"][part], out["cpu"][part]):
+            if float(want.norm()) < 1e-8 * total:
+                ratios.append((float(got.norm()) / (1e-7 * total), n))
+            else:
+                ratios.append((float((got - want).norm()) / (1e-4 * float(want.norm())), n))
+        ratios.sort(reverse=True)
+        assert ratios[0][0] < 1.0, (group, ratios[:4])
+    for k, want in out["cpu"][3].items():  # relative, or to 1e-3 for a loss near 0
+        bound = 1e-4 * max(abs(float(want)), 1e-3)
+        assert abs(float(out["cuda"][3][k]) - float(want)) <= bound, k

@@ -285,7 +285,6 @@ def test_server_answers_with_a_non_ddim_sampler(tmp_path, monkeypatch):
     ({"sampler": "dpm_solver_pp_2m", "cache_interval": 2}, {}, "DeepCache .* item 8"),
     ({"init_image_path": "init.npy"}, {}, "img2img .* item 8"),
     ({"mask_path": "mask.npy"}, {}, "inpainting .* item 8"),
-    ({"autoencoder_type": "vq"}, {}, "VQ .* item 9"),
     ({}, {"tensor_parallel": True}, "item 13"),
 ])
 def test_remaining_branches_still_name_their_items(sampling, tpu, what):

@@ -166,7 +166,6 @@ def test_per_slot_guidance_matches_jax():
 def test_server_refuses_unported_branches():
     for sampling, tpu, what in (({"sampler": "plms", "cache_interval": 3}, {}, "item 8"),
                                 ({"cache_interval": 2}, {}, "DeepCache"),
-                                ({"autoencoder_type": "vq"}, {}, "VQ"),
                                 ({}, {"mesh": {"data": -1, "model": 2}}, "mesh")):
         config = _config(**tpu)
         config["ldm_sampling"].update(sampling)
