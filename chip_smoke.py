@@ -18,10 +18,13 @@ final line is printed:
    -> conv chain that int8 replaces; the opt-in kernels: F.group_norm,
    torch.var_mean, the default bf16 chain and SDPA), the opt-in kernels
    at every shape of the opt-in main path (``OPT_GN``, ``OPT_CHAINS``,
-   ``OPT_CROSS``) in both dtypes;
+   ``OPT_CROSS``) in both dtypes; each flash launch's path (wgmma,
+   mma.sync or FMA, from the wrappers' ``launches_by_path``): every bf16
+   launch at the models' head dims (40, 80, 160, 512) takes wgmma;
 4. unet: one full-width U-Net eval (CFG batch 4, 32x32 latent, seeded
    weights) on the card against the same weights on the CPU in float32,
-   plain and in the int8 serving modes;
+   plain, under ``tpu.attention_impl: xla`` (no flash launch) and in the
+   int8 serving modes;
 5. main path: 50-step CFG DDIM txt2img at the north-star config (batch 2,
    256^2, seeded full-width weights, bf16), through ``sample_txt2img``,
    with the kernels' launch counts read around that one run; then a
@@ -62,8 +65,9 @@ final line is printed:
    float32.  The kernels phase also checks row 4, the W8A8 FFN that no path
    dispatches (``FFN8_SHAPES``), and the whole int8 chain (row 10).
 
-The last lines are the kernels JSON, the nvidia-smi line and
-``{"ok": true, "device": {...}}``.
+The main path, serve, LDM train and AE train phases also check that no
+bf16 flash launch of theirs took the FMA path.  The last lines are the
+kernels JSON, the nvidia-smi line and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -100,7 +104,13 @@ ATTN_SHAPES = [
     (4, 1024, 1024, 8, 40), (4, 256, 256, 8, 80), (4, 64, 64, 8, 160),
     (4, 16, 16, 8, 160), (2, 1024, 1024, 1, 512), (4, 1000, 1000, 8, 40),
     (8, 256, 256, 8, 80), (8, 64, 64, 8, 160), (8, 16, 16, 8, 160),
+    (3, 1024, 1024, 1, 512), (8, 1024, 1024, 1, 512), (2, 1024, 1000, 1, 512),
 ]
+# the autoencoder's S = 512 above: the sampling decode (batch 2), the VQ AE
+# train step (batch 3), the LDM train step's encode (batch 8), a ragged kv.
+# Every bf16 launch at the models' head dims takes the wgmma path (read
+# from the wrappers' launches_by_path); float32 the FMA path.
+WGMMA_HEAD_DIMS = (40, 80, 160, 512)
 # (M, d): the main path's FFNs (CFG batch 4), then the serve path's (batch 8)
 FFN_SHAPES = [(4096, 320), (1024, 640), (256, 1280), (64, 1280),
               (8192, 320), (2048, 640), (512, 1280), (128, 1280)]
@@ -143,6 +153,7 @@ BWD_SHAPES = [
     (8, 1024, 1024, 8, 40, False), (8, 256, 256, 8, 80, False),
     (8, 64, 64, 8, 160, False), (8, 16, 16, 8, 160, False),
     (4, 1000, 1000, 8, 40, True), (2, 1024, 1024, 1, 512, False),
+    (3, 1024, 1024, 1, 512, False), (8, 1024, 1024, 1, 512, False),
 ]
 # rel-L2 of dq, dk, dv against the plain version on the kernel's own lse and
 # di: float32 differs in summation order only; bf16 rounds each output once
@@ -267,7 +278,8 @@ OPT_ROUTE_TOL = 1e-1
 # turns that into more flips.  The card must still agree with the CPU at
 # least twice as closely as the int8 modes move the output (rel-L2 2.7e-3
 # on these weights), so that the check sees a missing or wrong int8 route.
-UNET_TOL = {"float32": 1e-3, "bfloat16": 1e-1, "int8 float32": 1.3e-3}  # rel L2
+UNET_TOL = {"float32": 1e-3, "float32 xla": 1e-3, "bfloat16": 1e-1,
+            "int8 float32": 1.3e-3}  # rel L2
 
 NORTH_STAR = {
     "cond_stage_model": dict(vocab_size=30522, encoder_stack_size=32,
@@ -331,11 +343,60 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def time_b2b_ms(fn, n: int = 50, warmup: int = 3) -> float:
+    """Mean time of ``n`` back-to-back calls of ``fn()`` between two CUDA
+    events: the kernel's throughput, or its host time where that is longer,
+    without the launch latency that a single timed call pays."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
 def errors(got, ref):
     diff = (got.float() - ref.float())
     max_abs = float(diff.abs().max())
     rel_l2 = float(diff.norm() / ref.float().norm().clamp_min(1e-30))
     return max_abs, rel_l2
+
+
+def _flash_paths():
+    """The flash wrappers' launches by path ("wgmma", "mma.sync", "fma")."""
+    from ldm_tf2_tpu_torch.ops import flash_attention as fa
+
+    return {"flash_attention": fa.flash_attention,
+            "flash_backward_dq": fa.flash_backward_dq,
+            "flash_backward_dkv": fa.flash_backward_dkv}
+
+
+def paths_of(fn) -> dict:
+    """The launches by path of ``fn()`` (one or more flash wrappers)."""
+    wrappers = _flash_paths()
+    before = {k: dict(w.launches_by_path) for k, w in wrappers.items()}
+    fn()
+    out = {}
+    for k, w in wrappers.items():
+        ran = {p: n - before[k][p] for p, n in w.launches_by_path.items()}
+        if any(ran.values()):
+            out[k] = ran
+    return out
+
+
+def want_path(dtype_name: str, s: int) -> str:
+    """The path a launch must take: wgmma for bf16 at the models' head dims,
+    the FMA path for float32."""
+    if dtype_name == "float32":
+        return "fma"
+    return "wgmma" if s in WGMMA_HEAD_DIMS else "mma.sync"
 
 
 def bound_ms(nbytes: float, ops: float, dtype_name: str):
@@ -363,27 +424,39 @@ def phase_kernels():
         for b, tq, tk, h, s in ATTN_SHAPES:
             q, k, v = (randn(b, t, h, s).to(dtype) for t in (tq, tk, tk))
             scale = s**-0.5
-            got = flash_attention(q, k, v, scale)
+            out = []
+            paths = paths_of(lambda: out.append(flash_attention(q, k, v, scale)))
+            got = out[0]
             ref = dot_product_attention(q.float(), k.float(), v.float(), scale)
             torch.cuda.synchronize()
             max_abs, rel = errors(got, ref)
             tol_abs, tol_rel = ATTN_TOL[name]
-            ok = max_abs < tol_abs and rel < tol_rel
+            path = want_path(name, s)
+            ok = (max_abs < tol_abs and rel < tol_rel
+                  and paths == {"flash_attention": {**dict.fromkeys(paths["flash_attention"], 0),
+                                                    path: 1}})
             ms = time_ms(lambda: flash_attention(q, k, v, scale))
             plain = time_ms(lambda: dot_product_attention(q, k, v, scale))
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             lib = time_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, scale=scale))
+            ms_b2b = time_b2b_ms(lambda: flash_attention(q, k, v, scale))
+            lib_b2b = time_b2b_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, scale=scale))
             nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
             bms, by = bound_ms(nbytes, 4.0 * b * h * tq * tk * s, name)
             row = dict(shape=[b, tq, tk, h, s], dtype=name, max_abs_err=max_abs,
                        rel_l2=rel, ok=ok, ms=ms, plain_ms=plain, library_ms=lib,
-                       bound_ms=bms, bound_by=by)
+                       bound_ms=bms, bound_by=by, paths=paths["flash_attention"],
+                       ms_b2b=ms_b2b, library_ms_b2b=lib_b2b)
             results["flash_attention"].append(row)
             log(f"flash_attention {name} q[{b},{tq},{h},{s}] kv {tk}: max_abs "
                 f"{max_abs:.3e} (tol {tol_abs:g}) rel_l2 {rel:.3e} (tol "
-                f"{tol_rel:g}) {'PASS' if ok else 'FAIL'}; ms {ms:.4f} plain "
-                f"{plain:.4f} sdpa {lib:.4f} bound {bms:.4f} ({by})")
+                f"{tol_rel:g}) path {paths['flash_attention']} (want {path}) "
+                f"{'PASS' if ok else 'FAIL'}; ms {ms:.4f} plain "
+                f"{plain:.4f} sdpa {lib:.4f} bound {bms:.4f} ({by}); ratio to sdpa "
+                f"{ms / lib:.3f}, to bound {ms / bms:.1f}; back to back {ms_b2b:.4f}, sdpa "
+                f"{lib_b2b:.4f}")
         for m, d in FFN_SHAPES:
             f = 4 * d
             x = randn(1, m, d).to(dtype)
@@ -753,8 +826,12 @@ def phase_backward_kernels(results, randn):
             scale = s**-0.5
             out, lse = fa._launch(q, k, v, scale, with_lse=True)
             di = fa._di(out, do)
-            dq = fa.flash_backward_dq(q, k, v, do, lse, di, scale)
-            dk, dv = fa.flash_backward_dkv(q, k, v, do, lse, di, scale)
+            grads = []
+            paths = paths_of(lambda: grads.extend(
+                (fa.flash_backward_dq(q, k, v, do, lse, di, scale),
+                 *fa.flash_backward_dkv(q, k, v, do, lse, di, scale))))
+            dq, dk, dv = grads
+            path = want_path(name, s)
             args = (q.float(), k.float(), v.float(), do.float(), lse, di, scale)
             ref_lse = fa._plain_forward(q.float(), k.float(), v.float(), scale)[1]
             ref = {"dq": fa._plain_dq(*args), "dkv": fa._plain_dkv(*args)}
@@ -773,6 +850,8 @@ def phase_backward_kernels(results, randn):
             dot = do.transpose(1, 2)
             lib = time_ms(lambda: torch.autograd.grad(sdpa, (qt, kt, vt), dot,
                                                       retain_graph=True))
+            lib_b2b = time_b2b_ms(lambda: torch.autograd.grad(sdpa, (qt, kt, vt), dot,
+                                                              retain_graph=True))
             flops = 2.0 * b * h * tq * tk * s
             elem = q.element_size()
             # dq reads q, dO, k, v, lse, di and writes dq; dk/dv reads q, dO,
@@ -782,19 +861,29 @@ def phase_backward_kernels(results, randn):
             for part, n_ops in (("dq", 3), ("dkv", 4)):
                 max_abs = max(e[0] for e in errs[part])
                 rel = max(e[1] for e in errs[part])
-                ok = finite and rel < BWD_TOL[name] and lse_err < 1e-4
+                took = paths[f"flash_backward_{part}"]
+                ok = (finite and rel < BWD_TOL[name] and lse_err < 1e-4
+                      and took == {**dict.fromkeys(took, 0), path: 1})
                 ms = time_ms(kernel[part])
+                ms_b2b = time_b2b_ms(kernel[part])
                 plain_ms = time_ms(plain[part], iters=5)
                 bms, by = bound_ms(io[part], n_ops * flops, name)
                 results[f"flash_backward_{part}"].append(dict(
                     shape=[b, tq, tk, h, s], extreme=extreme, dtype=name,
                     max_abs_err=max_abs, rel_l2=rel, ok=ok, ms=ms, plain_ms=plain_ms,
-                    library_ms=lib, bound_ms=bms, bound_by=by))
+                    library_ms=lib, bound_ms=bms, bound_by=by, paths=took, ms_b2b=ms_b2b,
+                    library_ms_b2b=lib_b2b))
                 log(f"flash_backward_{part} {name} q[{b},{tq},{h},{s}] kv {tk}"
                     f"{' extreme' if extreme else ''}: rel_l2 {rel:.3e} (tol "
                     f"{BWD_TOL[name]:g}) max_abs {max_abs:.3e} lse {lse_err:.1e} "
-                    f"finite {finite} {'PASS' if ok else 'FAIL'}; ms {ms:.4f} plain "
+                    f"finite {finite} path {took} (want {path}) "
+                    f"{'PASS' if ok else 'FAIL'}; ms {ms:.4f} plain "
                     f"{plain_ms:.4f} sdpa-backward {lib:.4f} bound {bms:.4f} ({by})")
+            rows = [results[f"flash_backward_{p}"][-1] for p in ("dq", "dkv")]
+            both, both_b2b = (sum(r[k] for r in rows) for k in ("ms", "ms_b2b"))
+            log(f"flash_backward {name} q[{b},{tq},{h},{s}] kv {tk}: dq + dk/dv "
+                f"{both:.4f} ms, sdpa-backward {lib:.4f} ms, ratio {both / lib:.3f}; back to "
+                f"back {both_b2b:.4f} against {lib_b2b:.4f}, ratio {both_b2b / lib_b2b:.3f}")
 
 
 def _grad_group(name: str) -> str:
@@ -916,6 +1005,23 @@ def phase_unet():
         cpu8_s = time.perf_counter() - start
         del cpu
         out = {"float32": unet(x.cuda(), t.cuda(), ctx.cuda())}
+        # tpu.attention_impl "xla": every self-attention in plain PyTorch,
+        # no flash launch (the int8-P.V mode is off under "xla" too)
+        from ldm_tf2_tpu_torch.ops import attention as attn
+        from ldm_tf2_tpu_torch.ops import flash_attention as fa
+
+        counts = (fa.flash_attention.launches, fa.flash_attention_pv_int8.launches)
+        attn.set_attention_impl("xla")
+        try:
+            out["float32 xla"] = unet(x.cuda(), t.cuda(), ctx.cuda())
+            unet.set_serving_modes(attention_pv_int8=True)
+            out["float32 xla"] = torch.stack([out["float32 xla"],
+                                              unet(x.cuda(), t.cuda(), ctx.cuda())])
+            unet.set_serving_modes()
+        finally:
+            attn.set_attention_impl("auto")
+        xla_flash = (fa.flash_attention.launches - counts[0],
+                     fa.flash_attention_pv_int8.launches - counts[1])
         unet.set_serving_modes(conv_quant=True, attention_pv_int8=True)
         out8 = unet(x.cuda(), t.cuda(), ctx.cuda()).float().cpu()
         unet.set_serving_modes()
@@ -925,9 +1031,16 @@ def phase_unet():
         torch.cuda.synchronize()
     del unet
     torch.cuda.empty_cache()
+    log(f"unet full width, attention_impl xla (plain, then with int8-P.V on, which "
+        f"xla turns off): flash launches {xla_flash[0]}, int8-P.V launches {xla_flash[1]} "
+        f"(want 0, 0) {'PASS' if xla_flash == (0, 0) else 'FAIL'}")
+    check(xla_flash == (0, 0), f"attention_impl xla launched flash kernels: {xla_flash}")
     for name, y in out.items():
         y = y.float().cpu()
         check(bool(torch.isfinite(y).all()), f"U-Net {name} output not finite")
+        if name == "float32 xla":  # the two evals under xla are one function
+            check(errors(y[1], y[0])[1] < 1e-6, "xla: the int8-P.V mode changed the output")
+            y = y[0]
         _, rel = errors(y, ref)
         ok = rel < UNET_TOL[name]
         log(f"unet full width, card {name} vs CPU float32 (plain path, "
@@ -998,6 +1111,7 @@ def phase_main_path(card: str):
     want = {k: 0 for k in launches}  # the switches off: no other kernel runs
     want.update({"flash_attention": 16 * steps + 1, "fused_ffn": 16 * steps})
     check(launches == want, f"launch counts {launches}, expected {want}")
+    check_no_fma("main path")
     launches = {k: launches[k] for k in ("flash_attention", "fused_ffn")}
     profile = phase_profile(models[1], shape)
     run = dict(models=models, config=config, ids=ids, shape=shape, kwargs=kwargs,
@@ -1025,13 +1139,36 @@ class _Count:
 PATH_TOTALS: dict = {}
 
 
+# The flash wrappers' launches by path in the last path run (``_read``)
+LAST_PATHS: dict = {}
+
+
+def _reset(counters) -> None:
+    """Every count to 0 just before a path run, the flash wrappers' counts
+    by path too."""
+    for fn in counters.values():
+        fn.launches = 0
+    for fn in _flash_paths().values():
+        fn.launches_by_path = dict.fromkeys(fn.launches_by_path, 0)
+
+
 def _read(counters) -> dict:
-    """The counts of one path run, its counters set to 0 just before it;
-    also added to ``PATH_TOTALS``."""
+    """The counts of one path run, its counters set to 0 just before it
+    (``_reset``); also added to ``PATH_TOTALS``.  The flash launches by
+    path go to ``LAST_PATHS``."""
     got = {k: fn.launches for k, fn in counters.items()}
     for k, v in got.items():
         PATH_TOTALS[k] = PATH_TOTALS.get(k, 0) + v
+    LAST_PATHS.clear()
+    LAST_PATHS.update({k: dict(fn.launches_by_path) for k, fn in _flash_paths().items()})
     return got
+
+
+def check_no_fma(what: str) -> None:
+    """A bf16 path run: no flash launch of the last run took the FMA path."""
+    fma = {k: p["fma"] for k, p in LAST_PATHS.items() if p["fma"]}
+    log(f"{what}: flash launches by path {LAST_PATHS}")
+    check(not fma, f"{what}: bf16 flash launches took the FMA path: {fma}")
 
 
 def _counters():
@@ -1064,8 +1201,7 @@ def _counted_call(models, schedule, ids, shape, kwargs):
 
     counters = _counters()
     torch.cuda.synchronize()
-    for fn in counters.values():
-        fn.launches = 0
+    _reset(counters)
     start = time.perf_counter()
     images, x0 = sample_txt2img(*models, schedule, ids, shape, **kwargs)
     torch.cuda.synchronize()
@@ -1287,8 +1423,7 @@ def phase_serve(card: str, models):
     with tempfile.TemporaryDirectory(dir=ROOT) as out_dir:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        for fn in counters.values():
-            fn.launches = 0
+        _reset(counters)
         start = time.perf_counter()
         serve_ldm.serve(config, io.StringIO(requests), out, output_dir=out_dir,
                         device="cuda", models=models)
@@ -1312,6 +1447,7 @@ def phase_serve(card: str, models):
         f"{5 / wave_s:.3f} requested img/s ({8 / wave_s:.3f} slot img/s), peak "
         f"memory {peak_gb:.2f} GB; launches over {calls} calls {launches}")
     check(launches == want, f"serve launch counts {launches}, expected {want}")
+    check_no_fma("serve")
     phase_profile(models[1], (4, 32, 32, 4))  # the U-Net in its int8 modes
     return launches
 
@@ -1400,10 +1536,10 @@ def phase_train(card: str):
     counters = _counters()
     steps = 5
     torch.cuda.reset_peak_memory_stats()
-    for fn in counters.values():
-        fn.launches = 0
+    _reset(counters)
     records, seconds = run(steps)
     launches = _read(counters)
+    check_no_fma(f"train, {steps} steps")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         prof_records, prof_seconds = run(2)
@@ -1597,8 +1733,7 @@ def phase_ae_train(card: str):
             data = [rng.uniform(-1, 1, (batch, size, size, 3)).astype(np.float32)
                     for _ in range(steps)]
             torch.cuda.synchronize()
-            for fn in counters.values():
-                fn.launches = 0
+            _reset(counters)
             t0 = time.perf_counter()
             _, records = train(config, device="cuda", seed=seed, batches=data,
                                models=models)
@@ -1615,6 +1750,7 @@ def phase_ae_train(card: str):
             steps = 5
             records, seconds, launches = run(steps)
             peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        check_no_fma(f"AE train {ae_type}, {steps} steps")
         per_step = {k: launches[k] / steps for k in flash}
         want = AE_STEP_ATTENTIONS[ae_type]
         others = {k: v for k, v in launches.items() if k not in flash and v}
@@ -1742,6 +1878,7 @@ def main() -> int:
     phase_unet()
     phase_grad()
     launches, run = phase_main_path(card)
+    by_path = {"flash_attention": dict(LAST_PATHS["flash_attention"])}
     # the opt-in kernels report their launches in the opt-in main path (the
     # stats kernel in its GroupNorm "stats" run), the serving path's in the
     # serve run, the backward kernels theirs in the LDM train run (5 steps)
@@ -1756,6 +1893,7 @@ def main() -> int:
     del run
     torch.cuda.empty_cache()
     train_launches = phase_train(card)
+    by_path.update({k: dict(LAST_PATHS[k]) for k in ("flash_backward_dq", "flash_backward_dkv")})
     launches.update({k: train_launches[k] for k in ("flash_backward_dq",
                                                     "flash_backward_dkv")})
     phase_ae_grad()
@@ -1799,6 +1937,8 @@ def main() -> int:
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"],
         })
+        if name in by_path:  # the launches above by path (wgmma, mma.sync, fma)
+            kernels[-1]["launches_by_path"] = by_path[name]
         if name == "fused_ffn_int8":  # on no path; row 2 as the yardstick
             kernels[-1].update(kernels_phase_launches=ffn8_checked,
                                bf16_ffn_ms=main_row["bf16_ffn_ms"])

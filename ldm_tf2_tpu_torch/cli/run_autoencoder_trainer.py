@@ -71,6 +71,7 @@ def train(config: dict, lpips_blob=None, device="cuda", *, seed: int = 0,
     check_supported(config)
     device = factory.resolve_device(device)
     factory.set_float32_precision()
+    factory.apply_tpu_settings(config)
     training, tpu = config["autoencoder_training"], config["tpu"]
     ae_type = training["autoencoder_type"]
     trainer = config[f"autoencoder_{ae_type}_trainer"]

@@ -151,13 +151,13 @@ def _multi_device(config: dict) -> bool:
 # config), what).  The first two apply to the server too.
 UNSUPPORTED_PIPELINE = (
     (lambda s, c: s.get("cache_interval", 1) > 1,
-     "DeepCache cache_interval > 1 (ROADMAP queue A item 8)"),
+     "DeepCache cache_interval > 1 (ROADMAP queue A item A1)"),
     (lambda s, c: _multi_device(c),
-     "a device mesh, sequence or tensor parallelism (ROADMAP queue A item 13)"),
+     "a device mesh, sequence or tensor parallelism (ROADMAP queue A item A6)"),
 )
 _UNSUPPORTED = UNSUPPORTED_PIPELINE + (
     (lambda s, c: s.get("init_image_path") or s.get("mask_path"),
-     "img2img / inpainting (ROADMAP queue A item 8)"),
+     "img2img / inpainting (ROADMAP queue A item A1)"),
 )
 
 
@@ -192,6 +192,7 @@ def main(argv=None) -> None:
     check_supported(config)
     device = factory.resolve_device(args.device)
     factory.set_float32_precision()
+    factory.apply_tpu_settings(config)
 
     print("[INFO] Building models and loading the params blob...")
     blob = read_blob(args.params_blob)

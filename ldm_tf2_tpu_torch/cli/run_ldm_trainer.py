@@ -38,11 +38,11 @@ from ldm_tf2_tpu_torch.cli.run_ldm_sampler import _multi_device
 _UNSUPPORTED = (
     (lambda c: c["tpu"]["remat"] not in (False, None),
      "tpu.remat: recomputing the forward must replay the dropout draws of "
-     "explicit generators (ROADMAP queue A item 15)"),
+     "explicit generators (ROADMAP queue A item A4)"),
     (lambda c: c["tpu"]["deterministic_data"],
-     "tpu.deterministic_data, the indexed loader (ROADMAP queue A item 12)"),
+     "tpu.deterministic_data, the indexed loader (ROADMAP queue A item A5)"),
     (_multi_device,
-     "a device mesh or multi-process data parallelism (ROADMAP queue A item 13)"),
+     "a device mesh or multi-process data parallelism (ROADMAP queue A item A6)"),
 )
 
 
@@ -90,6 +90,7 @@ def train(config: dict, params_blob_path: str | None = None, device="cuda", *,
     check_supported(config)
     device = factory.resolve_device(device)
     factory.set_float32_precision()
+    factory.apply_tpu_settings(config)
     training, tpu = config["ldm_training"], config["tpu"]
     train_cond = training["train_cond_model"]
     if models is None:

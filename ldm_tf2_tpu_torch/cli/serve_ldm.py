@@ -75,6 +75,7 @@ def build_server(config: dict, params_blob_path: str = "", device="cuda",
     check_supported(config, UNSUPPORTED_PIPELINE)
     device = factory.resolve_device(device)
     factory.set_float32_precision()
+    factory.apply_tpu_settings(config)
     shape = tuple(sampling["latent_shape"])
     max_seq_len = config["cond_stage_model"]["max_seq_len"]
     guidance_rescale = float(sampling.get("guidance_rescale", 0.0))

@@ -33,6 +33,7 @@ _TPU_DEFAULTS: dict[str, Any] = {
     "frozen_weights_dtype": None,
     "quantize": "none",
     "quantize_attention": "none",
+    "attention_impl": "auto",
     "sequence_parallel": False,
     "tensor_parallel": False,
     "remat": False,
@@ -121,6 +122,11 @@ def validate(config: dict) -> dict:
         raise ValueError(
             "tpu.quantize_attention must be 'none' or 'int8pv', got "
             f"{tpu['quantize_attention']!r}"
+        )
+    if tpu["attention_impl"] not in ("auto", "xla", "flash"):
+        raise ValueError(
+            f"tpu.attention_impl must be auto|xla|flash, got "
+            f"{tpu['attention_impl']!r}"
         )
     if tpu["tensor_parallel"] and tpu["quantize"] != "none":
         raise ValueError(

@@ -2,48 +2,85 @@
 
 Counterpart of ``ldm_tf2_tpu.data.tokenizer`` without the ``transformers``
 dependency: it reproduces ``BertTokenizerFast`` on an uncased ``vocab.txt``
-(clean text, CJK spacing, lower-casing, accent stripping, whitespace and
+(clean text, CJK spacing, accent stripping, lower-casing, whitespace and
 punctuation split, greedy longest-match WordPiece with ``##``
 continuations, ``[CLS] ... [SEP]``, truncation and padding to a fixed
 length).
+
+Each character is classified from ``bert_chars.json``, a table of what
+``BertTokenizerFast``'s own normalizer and pre-tokenizer do with every code
+point (``make_bert_chars.py`` regenerates it), never from the host's
+``unicodedata``: so the ids do not depend on the Python version, and the
+character rules are the tokenizer's (its whitespace and CJK ranges, its
+Unicode tables, its per-character lower-casing).  The normalizer maps
+each character on its own; the one thing that is not per character,
+canonical reordering of combining marks that are not stripped, is not
+reproduced.
 """
 
 from __future__ import annotations
 
+import bisect
+import json
 import os
-import unicodedata
 
 import numpy as np
 
 MAX_CHARS_PER_WORD = 100
+_TABLE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "bert_chars.json")
 
 
-def _is_whitespace(ch: str) -> bool:
-    if ch in (" ", "\t", "\n", "\r"):
-        return True
-    return unicodedata.category(ch) == "Zs"
+class _Chars:
+    """``bert_chars.json`` as lookups: ``normalize(ch)`` is the string the
+    normalizer makes of ``ch``; ``split_kind(ch)`` is "whitespace",
+    "punctuation" or None, as the pre-tokenizer splits on it."""
+
+    def __init__(self, path: str = _TABLE):
+        with open(path, encoding="utf-8") as f:
+            table = json.load(f)
+        norm = table["normalize"]
+        self._map = {int(k, 16): v for k, v in norm["map"].items()}
+        self._norm = self._index({k: norm[k] for k in ("remove", "space", "cjk")})
+        self._split = self._index(table["split"])
+
+    @staticmethod
+    def _index(kinds):
+        rows = sorted((lo, hi, kind) for kind, ranges in kinds.items() for lo, hi in ranges)
+        return [r[0] for r in rows], rows
+
+    @staticmethod
+    def _kind(index, cp: int):
+        starts, rows = index
+        i = bisect.bisect_right(starts, cp) - 1
+        if i >= 0 and cp <= rows[i][1]:
+            return rows[i][2]
+        return None
+
+    def normalize(self, ch: str) -> str:
+        cp = ord(ch)
+        mapped = self._map.get(cp)
+        if mapped is not None:
+            return mapped
+        kind = self._kind(self._norm, cp)
+        if kind == "remove":
+            return ""
+        if kind == "space":
+            return " "
+        if kind == "cjk":
+            return f" {ch} "
+        return ch
+
+    def split_kind(self, ch: str):
+        return self._kind(self._split, ord(ch))
 
 
-def _is_control(ch: str) -> bool:
-    if ch in ("\t", "\n", "\r"):
-        return False
-    return unicodedata.category(ch) in ("Cc", "Cf", "Cn", "Co", "Cs")
+_CHARS: list[_Chars] = []
 
 
-def _is_punctuation(ch: str) -> bool:
-    cp = ord(ch)
-    if 33 <= cp <= 47 or 58 <= cp <= 64 or 91 <= cp <= 96 or 123 <= cp <= 126:
-        return True
-    return unicodedata.category(ch).startswith("P")
-
-
-def _is_cjk(cp: int) -> bool:
-    return (
-        0x4E00 <= cp <= 0x9FFF or 0x3400 <= cp <= 0x4DBF
-        or 0x20000 <= cp <= 0x2A6DF or 0x2A700 <= cp <= 0x2B73F
-        or 0x2B740 <= cp <= 0x2B81F or 0x2B820 <= cp <= 0x2CEAF
-        or 0xF900 <= cp <= 0xFAFF or 0x2F800 <= cp <= 0x2FA1F
-    )
+def _chars() -> _Chars:
+    if not _CHARS:
+        _CHARS.append(_Chars())
+    return _CHARS[0]
 
 
 class BertTokenizer:
@@ -59,35 +96,22 @@ class BertTokenizer:
         self.unk_id = self.vocab["[UNK]"]
 
     def _normalize(self, text: str) -> str:
-        out = []
-        for ch in text:
-            cp = ord(ch)
-            if cp == 0 or cp == 0xFFFD or _is_control(ch):
-                continue
-            if _is_whitespace(ch):
-                out.append(" ")
-            elif _is_cjk(cp):
-                out.append(f" {ch} ")
-            else:
-                out.append(ch)
-        text = unicodedata.normalize("NFD", "".join(out))
-        text = "".join(c for c in text if unicodedata.category(c) != "Mn")
-        return text.lower()
+        chars = _chars()
+        return "".join(chars.normalize(ch) for ch in text)
 
     def _split(self, text: str) -> list[str]:
+        chars = _chars()
         words, cur = [], []
         for ch in text:
-            if _is_whitespace(ch):
-                if cur:
-                    words.append("".join(cur))
-                    cur = []
-            elif _is_punctuation(ch):
-                if cur:
-                    words.append("".join(cur))
-                    cur = []
-                words.append(ch)
-            else:
+            kind = chars.split_kind(ch)
+            if kind is None:
                 cur.append(ch)
+                continue
+            if cur:
+                words.append("".join(cur))
+                cur = []
+            if kind == "punctuation":
+                words.append(ch)
         if cur:
             words.append("".join(cur))
         return words

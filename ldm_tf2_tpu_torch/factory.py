@@ -120,6 +120,15 @@ def build_schedule(config: dict) -> DiffusionSchedule:
     )
 
 
+def apply_tpu_settings(config: dict) -> None:
+    """The process-wide settings of the config's ``tpu:`` section, as the
+    JAX package's ``apply_tpu_settings``: ``tpu.attention_impl`` (see
+    ``ops.attention.set_attention_impl``).  Called by every entry point."""
+    from ldm_tf2_tpu_torch.ops.attention import set_attention_impl
+
+    set_attention_impl(config["tpu"]["attention_impl"])
+
+
 def apply_serving_modes(config: dict, unet: UNet, autoencoder) -> None:
     """Switch the built, loaded models into the serving modes the config
     asks for: ``tpu.quantize: int8`` (W8A8 U-Net ResBlock chains) and

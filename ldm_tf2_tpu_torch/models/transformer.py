@@ -19,7 +19,7 @@ from torch import nn
 from ldm_tf2_tpu_torch.models.layers import (
     Dense, Embed, LayerNorm, Projection, dropout,
 )
-from ldm_tf2_tpu_torch.ops.attention import dot_product_attention
+from ldm_tf2_tpu_torch.ops.attention import attention
 
 LAYER_NORM_EPS = 1e-5
 
@@ -38,7 +38,7 @@ class Attention(nn.Module):
                                  use_bias=True, mode="merge")
 
     def forward(self, query, context):
-        out = dot_product_attention(
+        out = attention(
             self.query(query), self.key(context), self.value(context),
             self.scale,
         )

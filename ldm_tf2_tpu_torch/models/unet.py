@@ -48,7 +48,7 @@ from torch import nn
 from ldm_tf2_tpu_torch.models.layers import (
     Conv, Dense, GroupNorm, LayerNorm, Norm, Projection, dropout,
 )
-from ldm_tf2_tpu_torch.ops.attention import dot_product_attention, use_packed_cross
+from ldm_tf2_tpu_torch.ops.attention import attention, use_packed_cross
 from ldm_tf2_tpu_torch.ops.cross_attention import cross_attention
 from ldm_tf2_tpu_torch.ops.flash_attention import spatial_self_attention
 from ldm_tf2_tpu_torch.ops.fused_conv import conv3x3, gn_silu_conv3x3
@@ -175,7 +175,7 @@ class CrossAttention(nn.Module):
         elif use_packed_cross(q.shape[1], k.shape[1], q.shape[-1]):
             out = cross_attention(q, k, v, self.scale)
         else:
-            out = dot_product_attention(q, k, v, self.scale)
+            out = attention(q, k, v, self.scale)
         return dropout(self.output(out), self.dropout_rate, generator)
 
 

@@ -14,6 +14,16 @@ chosen by the calling module, not by a length threshold here.
 U-Net's cross-attentions then take the single-tile kernel
 (``ops.cross_attention``) where ``use_packed_cross`` says so.  It is off by
 default, as in the JAX package.
+
+``set_attention_impl`` keeps the JAX package's ``tpu.attention_impl``
+("auto", "xla", "flash"; ``factory.apply_tpu_settings`` applies the config
+key).  "xla" sends every spatial self-attention of the U-Net and the
+autoencoder to ``dot_product_attention`` on either device, and then the
+int8-P.V mode and the packed cross switch have no effect, as in the JAX
+package; "flash" takes the kernel for every spatial self-attention, of any
+length, as the JAX package's ``_use_flash`` does; "auto" is the port's
+default route (``ops.flash_attention.spatial_self_attention``).  The
+calling module makes the choice, not the kernel wrapper.
 """
 
 from __future__ import annotations
@@ -21,6 +31,19 @@ from __future__ import annotations
 import torch
 
 _PACKED_CROSS_ENABLED = False
+_ATTENTION_IMPL = "auto"
+
+
+def set_attention_impl(impl: str) -> None:
+    """Select the attention implementation: "xla", "flash", or "auto"."""
+    global _ATTENTION_IMPL
+    if impl not in ("xla", "flash", "auto"):
+        raise ValueError(f"unknown attention impl: {impl!r}")
+    _ATTENTION_IMPL = impl
+
+
+def get_attention_impl() -> str:
+    return _ATTENTION_IMPL
 
 
 def set_packed_cross(flag: bool) -> None:
@@ -30,13 +53,28 @@ def set_packed_cross(flag: bool) -> None:
 
 
 def use_packed_cross(q_len: int, kv_len: int, size_per_head: int) -> bool:
-    """True when the switch is on and the kernel takes the shape
-    (``ops.cross_attention.kernel_takes``).  The JAX package's extra
+    """True when the switch is on, ``attention_impl`` is not "xla" and the
+    kernel takes the shape (``ops.cross_attention.kernel_takes``).  The JAX package's extra
     conditions are TPU measurements (a 256-query minimum) or TPU-only
     (the backend, sequence parallelism), and are not copied."""
     from ldm_tf2_tpu_torch.ops.cross_attention import kernel_takes
 
-    return _PACKED_CROSS_ENABLED and kernel_takes(q_len, kv_len, size_per_head)
+    return (_PACKED_CROSS_ENABLED and _ATTENTION_IMPL != "xla"
+            and kernel_takes(q_len, kv_len, size_per_head))
+
+
+def attention(q, k, v, scale: float):
+    """The JAX package's ``dot_product_attention`` dispatch for the
+    attentions that are not spatial self-attention (the text encoder's, the
+    U-Net's cross-attention): the flash kernel under ``attention_impl``
+    "flash", where the JAX package's ``_use_flash`` is always true, else
+    ``dot_product_attention`` (under "auto" the JAX package takes its kernel
+    only at 1024 or more tokens, which these never have)."""
+    if _ATTENTION_IMPL == "flash":
+        from ldm_tf2_tpu_torch.ops.flash_attention import flash_attention
+
+        return flash_attention(q, k, v, scale)
+    return dot_product_attention(q, k, v, scale)
 
 
 def dot_product_attention(q, k, v, scale: float):

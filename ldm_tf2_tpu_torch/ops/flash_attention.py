@@ -33,10 +33,107 @@ import torch
 import torch.nn.functional as F
 
 from ldm_tf2_tpu_torch.ops import _build
+from ldm_tf2_tpu_torch.ops import attention as _attention
 from ldm_tf2_tpu_torch.ops.attention import dot_product_attention
 
 MAX_HEAD_DIM = 512
 _DTYPES = (torch.float32, torch.bfloat16)
+
+# The wgmma path (bf16 at the models' head dims: the U-Net's 40, 80, 160 and
+# the autoencoder's 512), per kernel and head dim: (resident rows per CTA,
+# streamed tile rows, output columns per CTA, stages, CTAs per SM).
+# Resident rows are queries in the forward and dq kernels, keys in dk/dv;
+# the streamed tile the other side; 64 rows per consumer warpgroup.  Output
+# columns below the head dim split it across CTAs, each recomputing the
+# score products (S = 512: a 64 x 512 float32 accumulator is 256 registers
+# a thread, and 64-row tiles give only 32-48 CTAs at the autoencoder's
+# [2|3, 1024, 1, 512]).  CTAs per SM is the kernel's occupancy target
+# (``__launch_bounds__``), which caps its registers.  The CUDA sources hold
+# one instantiation per entry and refuse a geometry they do not hold.
+WGMMA_TILES = {
+    "fwd": {40: (128, 64, 40, 2, 2), 80: (128, 128, 80, 2, 1),
+            160: (64, 64, 160, 2, 1), 512: (64, 64, 128, 2, 1)},
+    "dq": {40: (128, 64, 40, 2, 1), 80: (128, 64, 80, 2, 1),
+           160: (64, 64, 160, 2, 1), 512: (64, 32, 128, 1, 1)},
+    "dkv": {40: (128, 64, 40, 2, 1), 80: (128, 64, 80, 2, 1),
+            160: (64, 32, 160, 2, 1), 512: (64, 32, 128, 1, 1)},
+}
+SMEM_LIMIT = 232_448  # dynamic shared memory a block may use on Hopper
+SMEM_PER_SM = 233_472  # an SM's shared memory, 1 KB of it reserved per block
+PATHS = ("wgmma", "mma.sync", "fma")  # the C entries' path codes 2, 1, 0
+
+
+def wgmma_geometry(kind: str, s: int, b: int = 1, tq: int = 1, tk: int = 1,
+                   h: int = 1):
+    """The wgmma path's launch geometry of ``kind`` ("fwd", "dq", "dkv") at
+    head dim ``s``, or None where the path has no instantiation.
+
+    Operand tiles are 64-column chunks of 128-byte rows (``csrc/hopper.cuh``):
+    ``chunks`` cover the 16-column k-steps of the score products.  Shared
+    memory: 1024 bytes to align the base, the resident tiles (Q; or q and
+    dO; or k and v), ``stages`` streamed tiles (K and this CTA's V slice; or
+    k and v; or q and dO), 64 bytes of barriers.  ``grid``: (row tiles,
+    b * h, column slices)."""
+    tiles = WGMMA_TILES.get(kind, {}).get(s)
+    if tiles is None:
+        return None
+    rows, tile, cols, stages, ctas = tiles
+    ksteps = -(-s // 16)
+    chunks = -(-ksteps * 16 // 64)
+    if kind == "fwd":
+        resident = chunks * rows * 128
+        streamed = (chunks + -(-cols // 64)) * tile * 128
+    else:
+        resident = 2 * chunks * rows * 128
+        streamed = 2 * chunks * tile * 128
+    smem = 1024 + resident + stages * streamed + 64
+    t_rows = tk if kind == "dkv" else tq
+    return dict(rows=rows, tile=tile, cols=cols, stages=stages, ctas_per_sm=ctas,
+                ksteps=ksteps, chunks=chunks, splits=-(-s // cols), smem_bytes=smem,
+                threads=rows // 64 * 128 + 32,
+                grid=(-(-t_rows // rows), b * h, -(-s // cols)))
+
+
+_GEOMETRY_ARGS: dict = {}
+
+
+def _geometry_arg(kind, q):
+    """The C entries' geometry argument: the wgmma path's geometry for bf16
+    at an instantiated head dim, else None (the C entry then takes the
+    mma.sync or FMA path).  The grid is the C side's; the rest depends on
+    the head dim only, so the argument is made once per (kind, s)."""
+    if q.dtype != torch.bfloat16:
+        return None
+    key = (kind, q.shape[-1])
+    if key not in _GEOMETRY_ARGS:
+        geo = wgmma_geometry(*key)
+        _GEOMETRY_ARGS[key] = None if geo is None else (ctypes.c_int * 6)(
+            geo["rows"], geo["tile"], geo["cols"], geo["stages"], geo["smem_bytes"],
+            geo["ctas_per_sm"])
+    return _GEOMETRY_ARGS[key]
+
+
+_ENTRIES: dict = {}
+
+
+def _entry(lib: str, symbol: str, n_ptrs: int):
+    """A C entry of the flash libraries with its argument types set once:
+    ``n_ptrs`` pointers, (b, tq, tk, h, s), scale, is_bf16, geometry,
+    path, stream."""
+    fn = _ENTRIES.get(symbol)
+    if fn is None:
+        fn = getattr(_build.load(lib), symbol)
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 5 + [
+            ctypes.c_float, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+            ctypes.POINTER(ctypes.c_int), ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
+        _ENTRIES[symbol] = fn
+    return fn
+
+
+def _count_path(fn, code: int) -> None:
+    fn.launches_by_path[PATHS[2 - code]] += 1
 
 
 def _plain(q, k, v, scale):
@@ -54,28 +151,33 @@ def _plain_forward(q, k, v, scale):
 
 
 def _check(q, k, v):
+    # one pass over the cheap attributes first: the wrappers run once per
+    # attention, and their host time is paid before the kernel starts
+    qs, ks, vs = q.shape, k.shape, v.shape
+    dtype = q.dtype
+    if (len(qs) == len(ks) == 4 and ks == vs and ks[0] == qs[0] and ks[2:] == qs[2:]
+            and ks[1] >= 1 and dtype in _DTYPES and k.dtype == dtype == v.dtype
+            and q.get_device() == k.get_device() == v.get_device()):
+        return
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dim() != 4:
             raise ValueError(f"{name} must be [B, T, H, S], got {tuple(t.shape)}")
-        if t.dtype != q.dtype or t.dtype not in _DTYPES:
-            raise TypeError(
-                f"q, k, v must share one dtype of {_DTYPES}, got "
-                f"{q.dtype}, {k.dtype}, {v.dtype}"
-            )
-        if t.device != q.device:
-            raise ValueError("q, k, v must be on one device")
-    b, _, h, s = q.shape
-    if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != (h, s):
-        raise ValueError(
-            f"shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, "
-            f"v {tuple(v.shape)}"
+    if dtype not in _DTYPES or k.dtype != dtype or v.dtype != dtype:
+        raise TypeError(
+            f"q, k, v must share one dtype of {_DTYPES}, got "
+            f"{q.dtype}, {k.dtype}, {v.dtype}"
         )
-    if k.shape[1] < 1:
-        raise ValueError("attention needs at least one key")
+    if not q.get_device() == k.get_device() == v.get_device():
+        raise ValueError("q, k, v must be on one device")
+    if ks != vs or ks[0] != qs[0] or ks[2:] != qs[2:]:
+        raise ValueError(
+            f"shape mismatch: q {tuple(qs)}, k {tuple(ks)}, v {tuple(vs)}"
+        )
+    raise ValueError("attention needs at least one key")
 
 
 def _check_launch(q, k, v, what):
-    if q.device.type != "cuda":
+    if not q.is_cuda:
         raise ValueError(f"{what} takes CPU or CUDA tensors, got {q.device}")
     if q.shape[-1] > MAX_HEAD_DIM:
         raise ValueError(
@@ -89,24 +191,22 @@ def _check_launch(q, k, v, what):
 def _launch(q, k, v, scale, with_lse=False):
     _check_launch(q, k, v, "flash_attention")
     b, tq, h, s = q.shape
-    lib = _build.load("flash_attention")
-    fn = lib.ldm_flash_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
+    fn = _entry("flash_attention", "ldm_flash_attention_fwd", 5)
     out = torch.empty_like(q)
     lse = (torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
            if with_lse else None)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    stream = torch._C._cuda_getCurrentRawStream(q.get_device())
+    path = ctypes.c_int(-1)
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(),
         b, tq, k.shape[1], h, s, float(scale),
-        int(q.dtype == torch.bfloat16), stream,
+        int(q.dtype == torch.bfloat16), _geometry_arg("fwd", q),
+        ctypes.byref(path), stream,
     )
     _build.check(err, "flash_attention kernel launch")
     flash_attention.launches += 1
+    _count_path(flash_attention, path.value)
     return (out, lse) if with_lse else out
 
 
@@ -137,16 +237,19 @@ def flash_attention(q, k, v, scale: float):
 
     A CPU tensor takes the plain version; a CUDA tensor takes the kernel,
     or raises.  Differentiable on both (see the module docstring).
-    ``flash_attention.launches`` counts forward-kernel launches."""
+    ``flash_attention.launches`` counts forward-kernel launches, and
+    ``flash_attention.launches_by_path`` the same launches by the path the
+    kernel took ("wgmma", "mma.sync" or "fma")."""
     _check(q, k, v)
     if _build.needs_grad(q, k, v):
         return _FlashAttention.apply(q, k, v, scale)
-    if q.device.type == "cpu":
+    if q.is_cpu:
         return _plain(q, k, v, scale)
     return _launch(q, k, v, scale)
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_path = dict.fromkeys(PATHS, 0)
 
 
 # ------------------------------------------------------------- backward --
@@ -198,37 +301,39 @@ def _launch_backward(name, q, k, v, dout, lse, di, scale, outs):
         if not t.is_contiguous():
             raise ValueError(f"{what} must be contiguous")
     b, tq, h, s = q.shape
-    fn = getattr(_build.load("flash_attention_bwd"),
-                 f"ldm_flash_attention_bwd_{name}")
-    fn.argtypes = [ctypes.c_void_p] * (6 + len(outs)) + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    fn = _entry("flash_attention_bwd", f"ldm_flash_attention_bwd_{name}",
+                6 + len(outs))
+    stream = torch._C._cuda_getCurrentRawStream(q.get_device())
+    path = ctypes.c_int(-1)
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), di.data_ptr(), *(o.data_ptr() for o in outs),
         b, tq, k.shape[1], h, s, float(scale),
-        int(q.dtype == torch.bfloat16), stream,
+        int(q.dtype == torch.bfloat16), _geometry_arg(name, q),
+        ctypes.byref(path), stream,
     )
     _build.check(err, f"flash_backward_{name} kernel launch")
+    return path.value
 
 
 def flash_backward_dq(q, k, v, dout, lse, di, scale: float):
     """dq of flash attention from the forward's ``lse`` and ``di``.
 
     A CPU tensor takes the plain version; a CUDA tensor takes the dq kernel,
-    or raises.  ``flash_backward_dq.launches`` counts kernel launches."""
+    or raises.  ``flash_backward_dq.launches`` counts kernel launches,
+    ``.launches_by_path`` the same by path."""
     _check_backward(q, k, v, dout, lse, di)
     if q.device.type == "cpu":
         return _plain_dq(q, k, v, dout, lse, di, scale)
     dq = torch.empty_like(q)
-    _launch_backward("dq", q, k, v, dout, lse, di, scale, (dq,))
+    path = _launch_backward("dq", q, k, v, dout, lse, di, scale, (dq,))
     flash_backward_dq.launches += 1
+    _count_path(flash_backward_dq, path)
     return dq
 
 
 flash_backward_dq.launches = 0
+flash_backward_dq.launches_by_path = dict.fromkeys(PATHS, 0)
 
 
 def flash_backward_dkv(q, k, v, dout, lse, di, scale: float):
@@ -236,17 +341,19 @@ def flash_backward_dkv(q, k, v, dout, lse, di, scale: float):
 
     A CPU tensor takes the plain version; a CUDA tensor takes the dk/dv
     kernel, or raises.  ``flash_backward_dkv.launches`` counts kernel
-    launches."""
+    launches, ``.launches_by_path`` the same by path."""
     _check_backward(q, k, v, dout, lse, di)
     if q.device.type == "cpu":
         return _plain_dkv(q, k, v, dout, lse, di, scale)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch_backward("dkv", q, k, v, dout, lse, di, scale, (dk, dv))
+    path = _launch_backward("dkv", q, k, v, dout, lse, di, scale, (dk, dv))
     flash_backward_dkv.launches += 1
+    _count_path(flash_backward_dkv, path)
     return dk, dv
 
 
 flash_backward_dkv.launches = 0
+flash_backward_dkv.launches_by_path = dict.fromkeys(PATHS, 0)
 
 
 def flash_attention_backward(q, k, v, out, lse, dout, scale: float):
@@ -373,9 +480,16 @@ PV_INT8_MIN_TOKENS = 1024
 
 
 def spatial_self_attention(q, k, v, scale: float, pv_int8: bool = False):
-    """The models' spatial self-attention: ``flash_attention_pv_int8`` when
-    the int8-P.V serving mode is on and q and kv have at least
-    ``PV_INT8_MIN_TOKENS`` tokens, else ``flash_attention``."""
-    if pv_int8 and min(q.shape[1], k.shape[1]) >= PV_INT8_MIN_TOKENS:
+    """The models' spatial self-attention, by ``attention_impl``
+    (``ops.attention.set_attention_impl``): "xla" takes
+    ``dot_product_attention``; otherwise ``flash_attention_pv_int8`` when
+    the int8-P.V serving mode is on and the JAX package would run its flash
+    kernel (q and kv of at least ``PV_INT8_MIN_TOKENS`` tokens, or any
+    length under "flash"), else ``flash_attention``."""
+    impl = _attention.get_attention_impl()
+    if impl == "xla":
+        return dot_product_attention(q, k, v, scale)
+    if pv_int8 and (impl == "flash"
+                    or min(q.shape[1], k.shape[1]) >= PV_INT8_MIN_TOKENS):
         return flash_attention_pv_int8(q, k, v, scale)
     return flash_attention(q, k, v, scale)

@@ -391,8 +391,8 @@ def test_ae_config_checks():
         bad = {**base, section: {**base[section], key: value}}
         with pytest.raises(error):
             validate(bad)
-    for tpu, item in (({"deterministic_data": True}, "item 12"),
-                      ({"remat": "full"}, "item 15"), ({"mesh": {"data": 2}}, "item 13")):
+    for tpu, item in (({"deterministic_data": True}, "item A5"),
+                      ({"remat": "full"}, "item A4"), ({"mesh": {"data": 2}}, "item A6")):
         config = validate({**base, "tpu": {**base["tpu"], **tpu}})
         with pytest.raises(NotImplementedError, match=item):
             train(config, device="cpu", models=(None, None, None))

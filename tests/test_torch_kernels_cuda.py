@@ -60,24 +60,43 @@ def test_int8_chain_counts_the_tpu_whole_chain_shapes(shape, cout, whole):
                                            out_dtype=x.dtype))
 
 
+def _path(dtype, s):
+    """The path a launch takes: wgmma for bf16 at the models' head dims
+    (U-Net 40, 80, 160; autoencoder 512), mma.sync for other bf16 head dims
+    that are a multiple of 8, the FMA path for float32 and the rest."""
+    if dtype == torch.float32 or s % 8:
+        return "fma"
+    return "wgmma" if s in (40, 80, 160, 512) else "mma.sync"
+
+
+def _took(wrapper, before):
+    return {p: n - before[p] for p, n in wrapper.launches_by_path.items() if n - before[p]}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,t,kv,h,s", [(2, 1024, 1024, 8, 40),
                                          (2, 256, 256, 8, 80),
                                          (2, 64, 64, 8, 160),
                                          (1, 1024, 1024, 1, 512),
+                                         (3, 1024, 1024, 1, 512),
+                                         (8, 1024, 1024, 1, 512),
+                                         (2, 1024, 1000, 1, 512),
                                          (2, 1000, 999, 8, 40),
-                                         (2, 100, 77, 4, 36)])
+                                         (2, 100, 77, 4, 36),
+                                         (2, 100, 77, 4, 64)])
 def test_flash_kernel_matches_plain_on_card(dtype, b, t, kv, h, s):
-    """bf16 S = 40, 80, 160 take the tensor-core path; S = 512 and S = 36
-    (not a multiple of 8) the FMA path, as float32 does."""
+    """bf16 S = 40, 80, 160 and 512 take the wgmma path, S = 64 the
+    mma.sync path; S = 36 (not a multiple of 8) and float32 the FMA path."""
     _need_cuda()
     g = torch.Generator(device="cuda").manual_seed(0)
     q, k, v = (torch.randn(b, n, h, s, generator=g, device="cuda").to(dtype)
                for n in (t, kv, kv))
     before = flash_attention.launches
+    paths = dict(flash_attention.launches_by_path)
     got = flash_attention(q, k, v, s**-0.5).float()
     assert flash_attention.launches == before + 1
+    assert _took(flash_attention, paths) == {_path(dtype, s): 1}
     ref = dot_product_attention(q.float(), k.float(), v.float(), s**-0.5)
     # f32: summation order only; bf16: one rounding of the output (2^-8)
     tol = 1e-4 if dtype == torch.float32 else 2e-2
@@ -196,8 +215,12 @@ def test_pv_int8_kernel_matches_plain_on_card(dtype, b, t, kv, h, s):
                                                  (2, 256, 256, 8, 80, False),
                                                  (2, 64, 64, 8, 160, False),
                                                  (1, 1024, 1024, 1, 512, False),
+                                                 (3, 1024, 1024, 1, 512, False),
+                                                 (8, 1024, 1024, 1, 512, False),
+                                                 (2, 1000, 999, 1, 512, False),
                                                  (2, 1000, 999, 8, 40, True),
-                                                 (2, 100, 77, 4, 36, False)])
+                                                 (2, 100, 77, 4, 36, False),
+                                                 (2, 100, 77, 4, 64, False)])
 def test_flash_backward_kernels_match_plain_on_card(dtype, b, t, kv, h, s, extreme):
     """The forward's lse and the dq and dk/dv kernels against their plain
     versions on the forward's own residuals.  ``extreme``: logits near
@@ -212,6 +235,8 @@ def test_flash_backward_kernels_match_plain_on_card(dtype, b, t, kv, h, s, extre
     scale = s**-0.5
     counts = (tfa.flash_attention.launches, tfa.flash_backward_dq.launches,
               tfa.flash_backward_dkv.launches)
+    wrappers = (tfa.flash_attention, tfa.flash_backward_dq, tfa.flash_backward_dkv)
+    paths = [dict(w.launches_by_path) for w in wrappers]
     out, lse = tfa._launch(q, k, v, scale, with_lse=True)
     _, ref_lse = tfa._plain_forward(q.float(), k.float(), v.float(), scale)
     di = tfa._di(out, do)
@@ -219,6 +244,8 @@ def test_flash_backward_kernels_match_plain_on_card(dtype, b, t, kv, h, s, extre
     dk, dv = tfa.flash_backward_dkv(q, k, v, do, lse, di, scale)
     assert (tfa.flash_attention.launches, tfa.flash_backward_dq.launches,
             tfa.flash_backward_dkv.launches) == tuple(c + 1 for c in counts)
+    for w, before in zip(wrappers, paths):
+        assert _took(w, before) == {_path(dtype, s): 1}
     args = (q.float(), k.float(), v.float(), do.float(), lse, di, scale)
     ref = (tfa._plain_dq(*args), *tfa._plain_dkv(*args))
     # lse: float32 in both; f32 gradients: summation order only; bf16: one

@@ -164,7 +164,7 @@ def test_per_slot_guidance_matches_jax():
 
 
 def test_server_refuses_unported_branches():
-    for sampling, tpu, what in (({"sampler": "plms", "cache_interval": 3}, {}, "item 8"),
+    for sampling, tpu, what in (({"sampler": "plms", "cache_interval": 3}, {}, "item A1"),
                                 ({"cache_interval": 2}, {}, "DeepCache"),
                                 ({}, {"mesh": {"data": -1, "model": 2}}, "mesh")):
         config = _config(**tpu)
