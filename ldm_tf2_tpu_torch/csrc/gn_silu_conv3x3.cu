@@ -28,8 +28,8 @@
 // elements moved) are far above the card's operations-per-byte ratio, so
 // the conv runs on the bf16 tensor cores.
 //
-// Design, four launches (five with split-K), all in one call:
-//  1-2. gn_stats.cuh: per-(image, group) partial sums, then per-channel mean
+// Design, three launches (four with split-K), all in one call:
+//  1-2. gn_stats.cuh, one launch: per-channel sums, then per-channel mean
 //       and rstd * gamma, with the clamp;
 //  3.   gn_stats.cuh's normalize: y = silu(...) in T, written once.  Like the
 //       TPU kernel's slab, each element is normalized once; y makes one
@@ -337,15 +337,15 @@ conv_fma_kernel(const T* __restrict__ y, const T* __restrict__ w, const T* __res
 template <typename T>
 cudaError_t run(const void* x, const float* gamma, const float* beta, const void* w,
                 const void* bias, const void* time_add, const void* residual, void* out,
-                void* y, float* scratch, int b, int h, int wd, int cin, int cout, int groups,
-                int chunks, int splits, float eps, cudaStream_t st) {
+                void* y, float* scratch, float* partial, unsigned* tickets, int b, int h,
+                int wd, int cin, int cout, int groups, int chunks, int gps, int vec,
+                int splits, float eps, cudaStream_t st) {
   const T* xt = static_cast<const T*>(x);
   T* yt = static_cast<T*>(y);
   float* mean = scratch;
   float* factor = mean + (long)b * cin;
-  float* partial = factor + (long)b * cin;
-  cudaError_t err = gn_stats<T>(xt, gamma, partial, mean, factor, b, h * wd, cin, groups,
-                                chunks, eps, /*clamp=*/1, st);
+  cudaError_t err = gn_stats<T>(xt, gamma, mean, factor, partial, tickets, b, h * wd, cin,
+                                groups, chunks, gps, vec, eps, /*clamp=*/1, st);
   if (err != cudaSuccess) return err;
   err = gn_normalize<T>(xt, mean, factor, beta, yt, b, h * wd, cin, /*activate=*/1, st);
   if (err != cudaSuccess) return err;
@@ -363,8 +363,8 @@ cudaError_t run(const void* x, const float* gamma, const float* beta, const void
       const int blocks = cin / BK;
       const int per_split = (blocks + splits - 1) / splits;
       const int used = (blocks + per_split - 1) / per_split;
-      // split-K partials go after the stats scratch, 16-byte aligned
-      float* sk = used > 1 ? partial + (((long)b * groups * chunks * 2 + 3) / 4) * 4 : nullptr;
+      // split-K partials go after mean and factor, 16-byte aligned
+      float* sk = used > 1 ? factor + (((long)b * cin + 3) / 4) * 4 : nullptr;
       const dim3 grid((m_total + BM - 1) / BM, (cout + BN - 1) / BN, used);
       conv_mma_kernel<<<grid, kThreads, kMmaSmem, st>>>(yt, wt, bt, tt, rt, ot, sk, h, wd, cin,
                                                         cout, m_total, per_split);
@@ -388,23 +388,28 @@ cudaError_t run(const void* x, const float* gamma, const float* beta, const void
 // Returns a cudaError_t value (0 on success).  is_bf16: 1 when x, w, bias,
 // time_add, residual, out and y are bfloat16, 0 for float32.  time_add and
 // residual may be null.  y: scratch of x's shape and type (the normalized
-// input).  scratch: 2 * B * Cin + B * groups * chunks * 2 floats, rounded
-// up to a multiple of 4, then splits * B*H*W * Cout floats when the
-// tensor-core path splits K (splits > 1: the caller's request, at most
-// Cin / 32).  The caller checks shapes (cin % groups == 0, chunks >= 1).
+// input).  scratch: 2 * B * Cin floats (mean, rstd * gamma), rounded up to
+// a multiple of 4, then splits * B*H*W * Cout floats when the tensor-core
+// path splits K (splits > 1: the caller's request, at most Cin / 32).
+// chunks, gps, vec, partial, tickets: the statistics' launch grid and
+// persistent workspace (gn_stats.cuh).  The caller checks shapes
+// (cin % groups == 0).
 extern "C" int ldm_gn_silu_conv3x3(const void* x, const void* gamma, const void* beta,
                                    const void* w, const void* bias, const void* time_add,
-                                   const void* residual, void* out, void* y, void* scratch, int b,
-                                   int h, int wd, int cin, int cout, int groups, int chunks,
+                                   const void* residual, void* out, void* y, void* scratch,
+                                   void* partial, void* tickets, int b, int h, int wd, int cin,
+                                   int cout, int groups, int chunks, int gps, int vec,
                                    int splits, float eps, int is_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* g = static_cast<const float*>(gamma);
   const float* be = static_cast<const float*>(beta);
   float* s = static_cast<float*>(scratch);
+  float* p = static_cast<float*>(partial);
+  unsigned* t = static_cast<unsigned*>(tickets);
   cudaError_t err =
-      is_bf16 ? run<bf16>(x, g, be, w, bias, time_add, residual, out, y, s, b, h, wd, cin, cout,
-                          groups, chunks, splits, eps, st)
-              : run<float>(x, g, be, w, bias, time_add, residual, out, y, s, b, h, wd, cin, cout,
-                           groups, chunks, splits, eps, st);
+      is_bf16 ? run<bf16>(x, g, be, w, bias, time_add, residual, out, y, s, p, t, b, h, wd, cin,
+                          cout, groups, chunks, gps, vec, splits, eps, st)
+              : run<float>(x, g, be, w, bias, time_add, residual, out, y, s, p, t, b, h, wd,
+                           cin, cout, groups, chunks, gps, vec, splits, eps, st);
   return static_cast<int>(err);
 }

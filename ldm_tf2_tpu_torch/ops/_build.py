@@ -100,6 +100,22 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+_ENTRIES: dict = {}
+
+
+def entry(name: str, symbol: str, argtypes):
+    """The C entry ``symbol`` of ``csrc/<name>.cu`` with its argument types
+    set once (the wrappers run once per kernel call, and their host time is
+    paid before the kernel starts); it returns a cudaError_t as an int."""
+    fn = _ENTRIES.get(symbol)
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _ENTRIES[symbol] = fn
+    return fn
+
+
 def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")

@@ -18,11 +18,14 @@ Without a gradient nothing changes: no ``lse`` is written.
 
 ``flash_attention_pv_int8`` is the serving mode
 ``tpu.quantize_attention: int8pv``: the TPU kernel with ``pv_int8=True``
-(``csrc/flash_attention_pv_int8.cu``).  Its results depend on the TPU
-kernel's kv block (v is quantized per block, p against the running max up
-to the block), so that block size, ``jax_block_k``, is copied from the JAX
-package as a definition of the function, not as a tuning choice.  It
-refuses to be differentiated, as the JAX package does.
+(``csrc/flash_attention_pv_int8.cu``: a pre-pass that quantizes v once per
+JAX block, then the main kernel).  Its results depend on the TPU kernel's
+kv block (v is quantized per block, p against the running max up to the
+block), so that block size, ``jax_block_k``, is copied from the JAX package
+as a definition of the function, not as a tuning choice.  On the wgmma path
+the pre-pass writes v8 as the s8 wgmma's K-major operand (``v8_layout``:
+keys contiguous and permuted inside each 32-key step, ``V8_KEY_SLOTS``).
+It refuses to be differentiated, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -50,6 +53,9 @@ _DTYPES = (torch.float32, torch.bfloat16)
 # [2|3, 1024, 1, 512]).  CTAs per SM is the kernel's occupancy target
 # (``__launch_bounds__``), which caps its registers.  The CUDA sources hold
 # one instantiation per entry and refuse a geometry they do not hold.
+# "pv8" is the int8-P.V forward: 64-key K tiles and, in a second ring of as
+# many stages, 128-key v8 tiles of ``cols`` rows (an s8 wgmma N: 40 is none,
+# so S = 40 computes 48 columns, 8 of them zeros, and stores 40).
 WGMMA_TILES = {
     "fwd": {40: (128, 64, 40, 2, 2), 80: (128, 128, 80, 2, 1),
             160: (64, 64, 160, 2, 1), 512: (64, 64, 128, 2, 1)},
@@ -57,7 +63,10 @@ WGMMA_TILES = {
            160: (64, 64, 160, 2, 1), 512: (64, 32, 128, 1, 1)},
     "dkv": {40: (128, 64, 40, 2, 1), 80: (128, 64, 80, 2, 1),
             160: (64, 32, 160, 2, 1), 512: (64, 32, 128, 1, 1)},
+    "pv8": {40: (128, 64, 48, 2, 1), 80: (128, 64, 80, 2, 1),
+            160: (64, 64, 160, 2, 1), 512: (64, 64, 128, 2, 1)},
 }
+V8_TILE_KEYS = 128  # keys per v8 tile: one 128-byte swizzled row per column
 SMEM_LIMIT = 232_448  # dynamic shared memory a block may use on Hopper
 SMEM_PER_SM = 233_472  # an SM's shared memory, 1 KB of it reserved per block
 PATHS = ("wgmma", "mma.sync", "fma")  # the C entries' path codes 2, 1, 0
@@ -65,28 +74,34 @@ PATHS = ("wgmma", "mma.sync", "fma")  # the C entries' path codes 2, 1, 0
 
 def wgmma_geometry(kind: str, s: int, b: int = 1, tq: int = 1, tk: int = 1,
                    h: int = 1):
-    """The wgmma path's launch geometry of ``kind`` ("fwd", "dq", "dkv") at
-    head dim ``s``, or None where the path has no instantiation.
+    """The wgmma path's launch geometry of ``kind`` ("fwd", "dq", "dkv",
+    "pv8") at head dim ``s``, or None where the path has no instantiation.
 
     Operand tiles are 64-column chunks of 128-byte rows (``csrc/hopper.cuh``):
     ``chunks`` cover the 16-column k-steps of the score products.  Shared
     memory: 1024 bytes to align the base, the resident tiles (Q; or q and
     dO; or k and v), ``stages`` streamed tiles (K and this CTA's V slice; or
-    k and v; or q and dO), 64 bytes of barriers.  ``grid``: (row tiles,
-    b * h, column slices)."""
+    k and v; or q and dO; or K and a ``cols`` x 128-key v8 tile), 64 bytes of
+    barriers (128 for "pv8", whose two rings take 1 + 4 * stages).
+    ``grid``: (row tiles, b * h, column slices)."""
     tiles = WGMMA_TILES.get(kind, {}).get(s)
     if tiles is None:
         return None
     rows, tile, cols, stages, ctas = tiles
     ksteps = -(-s // 16)
     chunks = -(-ksteps * 16 // 64)
+    barriers = 64
     if kind == "fwd":
         resident = chunks * rows * 128
         streamed = (chunks + -(-cols // 64)) * tile * 128
+    elif kind == "pv8":
+        resident = chunks * rows * 128
+        streamed = chunks * tile * 128 + cols * V8_TILE_KEYS
+        barriers = 128
     else:
         resident = 2 * chunks * rows * 128
         streamed = 2 * chunks * tile * 128
-    smem = 1024 + resident + stages * streamed + 64
+    smem = 1024 + resident + stages * streamed + barriers
     t_rows = tk if kind == "dkv" else tq
     return dict(rows=rows, tile=tile, cols=cols, stages=stages, ctas_per_sm=ctas,
                 ksteps=ksteps, chunks=chunks, splits=-(-s // cols), smem_bytes=smem,
@@ -113,23 +128,14 @@ def _geometry_arg(kind, q):
     return _GEOMETRY_ARGS[key]
 
 
-_ENTRIES: dict = {}
-
-
-def _entry(lib: str, symbol: str, n_ptrs: int):
-    """A C entry of the flash libraries with its argument types set once:
-    ``n_ptrs`` pointers, (b, tq, tk, h, s), scale, is_bf16, geometry,
-    path, stream."""
-    fn = _ENTRIES.get(symbol)
-    if fn is None:
-        fn = getattr(_build.load(lib), symbol)
-        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 5 + [
-            ctypes.c_float, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
-            ctypes.POINTER(ctypes.c_int), ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
-        _ENTRIES[symbol] = fn
-    return fn
+def _entry(lib: str, symbol: str, n_ptrs: int, n_ints: int = 5):
+    """A C entry of the flash libraries: ``n_ptrs`` pointers, ``n_ints``
+    ints ((b, tq, tk, h, s), and the JAX block for int8 P.V), scale,
+    is_bf16, geometry, path, stream."""
+    return _build.entry(lib, symbol, [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [
+        ctypes.c_float, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_int), ctypes.c_void_p,
+    ])
 
 
 def _count_path(fn, code: int) -> None:
@@ -394,6 +400,39 @@ def jax_block_k(s: int, kv_len: int) -> int:
     return min(bk, _round_up(kv_len, _LANE))
 
 
+def _quantize_v_block(vb):
+    """The int8-P.V quantization of one JAX block of v, [B, H, keys, S]
+    float32: (v8, sv), sv = max(amax |v|, 1e-8) / 127 per (b, h) and
+    v8 = clip(round(v / sv), -127, 127), both float32."""
+    sv = torch.clamp(vb.abs().amax(dim=(2, 3), keepdim=True), min=1e-8) * (1.0 / 127.0)
+    return torch.clamp(torch.round(vb * (1.0 / sv)), -127.0, 127.0), sv
+
+
+def _plain_v8(v, s_pad: int, tk_pad: int):
+    """The plain version of the wgmma path's pre-pass: (v8, sv), v8 the
+    [B * H, s_pad, tk_pad] int8 codes of each JAX block of v [B, Tk, H, S]
+    (``_quantize_v_block``), keys contiguous, each 32-key step's keys in the
+    order ``V8_KEY_SLOTS``, zeros past Tk and S; sv [B * H, blocks]
+    float32."""
+    b, tk, h, s = v.shape
+    bk = jax_block_k(s, tk)
+    nblk = -(-tk // bk)
+    vf = F.pad(v.float(), (0, 0, 0, 0, 0, nblk * bk - tk)).permute(0, 2, 3, 1)
+    codes = torch.zeros(b, h, s_pad, nblk * bk, device=v.device)  # blocks: 128-key multiples
+    svs = []
+    for j in range(nblk):
+        v8, sv = _quantize_v_block(vf[..., j * bk:(j + 1) * bk].transpose(-1, -2))
+        codes[:, :, :s, j * bk:(j + 1) * bk] = v8.transpose(-1, -2)
+        svs.append(sv.reshape(b * h))
+    codes = codes[..., :tk_pad]
+    codes[..., tk:] = 0
+    slots = torch.tensor(V8_KEY_SLOTS, device=v.device)
+    order = torch.empty_like(slots)
+    order[slots] = torch.arange(32, device=v.device)  # the key at each slot
+    steps = codes.reshape(b * h, s_pad, tk_pad // 32, 32)[..., order]
+    return steps.reshape(b * h, s_pad, tk_pad).to(torch.int8), torch.stack(svs, dim=1)
+
+
 def _plain_pv_int8(q, k, v, scale):
     """The plain version of ``_flash_kernel`` with ``pv_int8=True``: per
     JAX kv block, the running row max m, p = exp(s - m) quantized to
@@ -420,37 +459,66 @@ def _plain_pv_int8(q, k, v, scale):
         p8 = torch.round(torch.exp(logits - m_new) * 127.0)
         alpha = torch.exp(m - m_new)
         l = l * alpha + (p8 * (1.0 / 127.0)).sum(dim=-1, keepdim=True)
-        sv = torch.clamp(vb.abs().amax(dim=(2, 3), keepdim=True),
-                         min=1e-8) * (1.0 / 127.0)
-        v8 = torch.clamp(torch.round(vb * (1.0 / sv)), -127.0, 127.0)
+        v8, sv = _quantize_v_block(vb)
         pv = (p8.double() @ v8.double()).float() * (sv * (1.0 / 127.0))
         acc = acc * alpha + pv
         m = m_new
     return (acc / l).permute(0, 2, 1, 3).to(q.dtype)
 
 
-def _launch_pv_int8(q, k, v, scale):
+V8_KEY_SLOTS = tuple(16 * (r // 16) + 4 * (r % 8 // 2) + 2 * (r // 8 % 2) + r % 2
+                     for r in range(32))
+"""Where key r of a 32-key step lies in its step of v8: the byte of the s8
+wgmma's A fragment into which the thread holding that key's score packs
+its p8 (``csrc/flash_attention_pv_int8.cu``)."""
+
+
+def v8_layout(s: int, tk: int):
+    """(rows, keys) of each (b, h) slab of the wgmma path's v8: the head dim
+    rounded up to the geometry's column slices, Tk rounded up to whole
+    128-key tiles; or None where bf16 at head dim ``s`` has no wgmma path."""
+    geo = wgmma_geometry("pv8", s)
+    if geo is None:
+        return None
+    return geo["splits"] * geo["cols"], -(-tk // V8_TILE_KEYS) * V8_TILE_KEYS
+
+
+def pv_int8_scratch(q, tk: int):
+    """The kernel's scratch for q [B, Tq, H, S] against Tk keys: one uint8
+    tensor, v8 [B * H, rows, keys] int8 for the wgmma path (``v8_layout``;
+    none for other paths), then sv [B * H, blocks] float32; and the bytes of
+    v8 in it."""
+    b, _, h, s = q.shape
+    layout = v8_layout(s, tk) if _geometry_arg("pv8", q) is not None else None
+    v8_bytes = 0 if layout is None else b * h * layout[0] * layout[1]
+    blocks = -(-tk // jax_block_k(s, tk))
+    return torch.empty(v8_bytes + 4 * b * h * blocks, dtype=torch.uint8,
+                       device=q.device), v8_bytes
+
+
+def _launch_pv_int8(q, k, v, scale, scratch=None):
+    """The kernel on CUDA tensors; ``scratch`` (``pv_int8_scratch``) is
+    allocated here unless the caller keeps its own to read v8 and sv."""
     _check_launch(q, k, v, "flash_attention_pv_int8")
     b, tq, h, s = q.shape
     tk = k.shape[1]
     bk = jax_block_k(s, tk)
-    lib = _build.load("flash_attention_pv_int8")
-    fn = lib.ldm_flash_attention_pv_int8_fwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
+    fn = _entry("flash_attention_pv_int8", "ldm_flash_attention_pv_int8_fwd", 5,
+                n_ints=6)
+    geometry = _geometry_arg("pv8", q)
+    if scratch is None:
+        scratch = pv_int8_scratch(q, tk)[0]
     out = torch.empty_like(q)
-    sv = torch.empty(b * h * -(-tk // bk), dtype=torch.float32,
-                     device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    stream = torch._C._cuda_getCurrentRawStream(q.get_device())
+    path = ctypes.c_int(-1)
     err = fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        sv.data_ptr(), b, tq, tk, h, s, float(scale), bk,
-        int(q.dtype == torch.bfloat16), stream,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+        b, tq, tk, h, s, bk, float(scale), int(q.dtype == torch.bfloat16), geometry,
+        ctypes.byref(path), stream,
     )
     _build.check(err, "flash_attention_pv_int8 kernel launch")
     flash_attention_pv_int8.launches += 1
+    _count_path(flash_attention_pv_int8, path.value)
     return out
 
 
@@ -459,8 +527,9 @@ def flash_attention_pv_int8(q, k, v, scale: float):
     ``tpu.quantize_attention: int8pv``), over [B, T, H, S] tensors.
 
     A CPU tensor takes the plain version; a CUDA tensor takes the kernel,
-    or raises.  ``flash_attention_pv_int8.launches`` counts kernel
-    launches.  Refuses to be differentiated."""
+    or raises.  ``flash_attention_pv_int8.launches`` counts kernel calls
+    (the pre-pass and the main kernel), ``.launches_by_path`` the same by
+    the path the main kernel took.  Refuses to be differentiated."""
     _check(q, k, v)
     _build.refuse_grad("flash attention int8-PV (tpu.quantize_attention: int8pv)",
                 q, k, v)
@@ -470,6 +539,7 @@ def flash_attention_pv_int8(q, k, v, scale: float):
 
 
 flash_attention_pv_int8.launches = 0
+flash_attention_pv_int8.launches_by_path = dict.fromkeys(PATHS, 0)
 
 
 # The JAX package runs int8 P.V only inside its flash kernel, which it takes

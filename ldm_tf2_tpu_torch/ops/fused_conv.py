@@ -37,7 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from ldm_tf2_tpu_torch.ops import _build
-from ldm_tf2_tpu_torch.ops.group_norm import _mxu_group_norm, stats_chunks
+from ldm_tf2_tpu_torch.ops.group_norm import _mxu_group_norm, stats_args
 from ldm_tf2_tpu_torch.ops.quant_conv import gn_silu_conv3x3_int8, use_int8_conv
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -128,25 +128,21 @@ def _launch(x, gamma, beta, w, b, time_add, residual_add, num_groups, eps):
     x, w, b = x.contiguous(), w.to(dt).contiguous(), b.to(dt).contiguous()
     extras = [None if t is None else t.to(dt).contiguous()
               for t in (time_add, residual_add)]
-    chunks = stats_chunks(bsz, h * wd, num_groups)
+    _, chunks, gps, vec, partial, tickets = stats_args(x, num_groups)
     splits = conv_splits(bsz * h * wd, cin, cout) if dt == torch.bfloat16 else 1
-    # per-channel mean and rstd * gamma, the stats' partial sums (rounded up
-    # to 16 bytes), then the split-K partial sums
-    stats = -(-bsz * num_groups * chunks * 2 // 4) * 4
-    scratch = torch.empty(2 * bsz * cin + stats
-                          + (splits * bsz * h * wd * cout if splits > 1 else 0), **f32)
+    # per-channel mean and rstd * gamma (rounded up to 16 bytes), then the
+    # split-K partial sums
+    stats = -(-2 * bsz * cin // 4) * 4
+    scratch = torch.empty(stats + (splits * bsz * h * wd * cout if splits > 1 else 0), **f32)
     y = torch.empty_like(x)  # the normalized input
     out = torch.empty((bsz, h, wd, cout), dtype=dt, device=x.device)
-    lib = _build.load("gn_silu_conv3x3")
-    fn = lib.ldm_gn_silu_conv3x3
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _build.entry("gn_silu_conv3x3", "ldm_gn_silu_conv3x3", [ctypes.c_void_p] * 12 + [
+        ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     err = fn(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w.data_ptr(), b.data_ptr(),
              *(None if t is None else t.data_ptr() for t in extras), out.data_ptr(),
-             y.data_ptr(), scratch.data_ptr(), bsz, h, wd, cin, cout, num_groups, chunks,
-             splits, float(eps), int(dt == torch.bfloat16),
-             torch.cuda.current_stream(x.device).cuda_stream)
+             y.data_ptr(), scratch.data_ptr(), partial, tickets, bsz, h, wd, cin, cout,
+             num_groups, chunks, gps, vec, splits, float(eps), int(dt == torch.bfloat16),
+             torch._C._cuda_getCurrentRawStream(x.get_device()))
     _build.check(err, "gn_silu_conv3x3 kernel launch")
     gn_silu_conv3x3_fused.launches += 1
     return out

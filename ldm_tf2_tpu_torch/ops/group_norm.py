@@ -38,6 +38,7 @@ CPU tensor takes the kernels' plain versions (``_plain_group_norm_fused``,
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -182,29 +183,99 @@ def _f32(t, device):
     return t.to(device=device, dtype=torch.float32).contiguous()
 
 
+def _entry(symbol: str, n_ptrs: int, n_after: int):
+    """A C entry of the GroupNorm library: ``n_ptrs`` pointers, (b, hw, c,
+    groups, chunks, gps, vec), eps, ``n_after`` more ints, the stream."""
+    return _build.entry("group_norm", symbol, [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 7
+                        + [ctypes.c_float] + [ctypes.c_int] * n_after + [ctypes.c_void_p])
+
+
+# The stats kernel's grid fills the card's 132 SMs about twice
+STATS_CTAS = 264
+
+
+def stats_vec(x) -> int:
+    """Elements per load of the stats kernel (``csrc/gn_stats.cuh``): 16
+    bytes along C where C and x's base allow it, else one."""
+    per = 16 // x.element_size()
+    return per if x.shape[-1] % per == 0 and x.data_ptr() % 16 == 0 else 1
+
+
+def stats_grid(b: int, hw: int, c: int, num_groups: int, vec: int):
+    """(chunks, gps): how the stats kernel splits each image's positions
+    into chunks and its channels into slices of ``gps`` whole groups (a
+    multiple of ``vec`` channels), for about ``STATS_CTAS`` blocks of at
+    least 32 positions: grid (chunks, ceil(num_groups / gps), b).  A
+    function of the shape only, so the summation order is fixed per
+    shape."""
+    cg = c // num_groups
+    chunks = max(1, min(-(-STATS_CTAS // b), hw // 32))
+    unit = vec // math.gcd(cg, vec)  # groups per slice step: unit * cg % vec == 0
+    want = -(-STATS_CTAS // (b * chunks))
+    gps = min(max(unit, num_groups // want // unit * unit), 256 // unit * unit)
+    return chunks, gps
+
+
+_WORKSPACES: dict = {}
+
+
+def stats_workspace(device, b: int, chunks: int, gps: int, num_groups: int):
+    """(partial, tickets) pointers for a stats launch: a float32 area for the
+    chunks' group sums and one counter per (image, slice), kept per device
+    between calls (the counters start at 0 and the kernel's last block of
+    each (image, slice) sets its counter back to 0).  A grid of one chunk
+    needs neither."""
+    if chunks == 1:
+        return None, None
+    slices = -(-num_groups // gps)
+    n_partial = b * slices * chunks * gps * 2
+    n_tickets = b * slices
+    key = device.index if device.index is not None else torch.cuda.current_device()
+    partial, tickets = _WORKSPACES.get(key, (None, None))
+    if partial is None or partial.numel() < n_partial:
+        partial = torch.empty(max(n_partial, 1 << 16), dtype=torch.float32, device=device)
+        _STATS_ARGS.clear()  # their pointers may be to the old workspace
+    if tickets is None or tickets.numel() < n_tickets:
+        tickets = torch.zeros(max(n_tickets, 1 << 10), dtype=torch.int32, device=device)
+        _STATS_ARGS.clear()
+    _WORKSPACES[key] = (partial, tickets)
+    return partial.data_ptr(), tickets.data_ptr()
+
+
+_STATS_ARGS: dict = {}
+
+
+def stats_args(x, num_groups):
+    """The stats launch's (hw, chunks, gps, vec, partial, tickets) for a
+    contiguous CUDA ``x`` [B, ..., C], kept per shape (the wrappers run
+    once per GroupNorm, and their host time is paid before the kernel
+    starts)."""
+    key = (x.shape, x.dtype, x.get_device(), x.data_ptr() % 16 == 0, num_groups)
+    args = _STATS_ARGS.get(key)
+    if args is None:
+        b, c = x.shape[0], x.shape[-1]
+        hw = x.numel() // (b * c)
+        vec = stats_vec(x)
+        chunks, gps = stats_grid(b, hw, c, num_groups, vec)
+        ws = stats_workspace(x.device, b, chunks, gps, num_groups)
+        args = _STATS_ARGS[key] = (hw, chunks, gps, vec, *ws)
+    return args
+
+
 def _launch_stats(x, num_groups, eps):
-    if x.device.type != "cuda":
+    if not x.is_cuda:
         raise ValueError(f"group_stats takes CPU or CUDA tensors, got {x.device}")
     x = x.contiguous()
     b, c = x.shape[0], x.shape[-1]
-    hw = x.numel() // (b * c)
-    lib = _build.load("group_norm")
-    fn = lib.ldm_group_stats
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    chunks = stats_chunks(b, hw, num_groups)
-    mean = torch.empty(b, c, dtype=torch.float32, device=x.device)
-    rstd = torch.empty_like(mean)
-    partial = torch.empty(b * num_groups * chunks * 2, dtype=torch.float32,
-                          device=x.device)
-    err = fn(x.data_ptr(), mean.data_ptr(), rstd.data_ptr(), partial.data_ptr(),
-             b, hw, c, num_groups, chunks, float(eps),
-             int(x.dtype == torch.bfloat16),
-             torch.cuda.current_stream(x.device).cuda_stream)
+    hw, chunks, gps, vec, partial, tickets = stats_args(x, num_groups)
+    fn = _entry("ldm_group_stats", 4, 1)
+    out = torch.empty((2, b, c), dtype=torch.float32, device=x.device)  # mean, rstd
+    err = fn(x.data_ptr(), out.data_ptr(), partial, tickets, b, hw, c, num_groups, chunks,
+             gps, vec, float(eps), x.dtype == torch.bfloat16,
+             torch._C._cuda_getCurrentRawStream(x.get_device()))
     _build.check(err, "group_stats kernel launch")
     group_stats.launches += 1
-    return mean, rstd
+    return out.unbind(0)
 
 
 def _launch_fused(x, gamma, beta, num_groups, eps, activate):
@@ -212,35 +283,18 @@ def _launch_fused(x, gamma, beta, num_groups, eps, activate):
         raise ValueError(f"group_norm_fused takes CPU or CUDA tensors, got {x.device}")
     x = x.contiguous()
     b, c = x.shape[0], x.shape[-1]
-    hw = x.numel() // (b * c)
     gamma, beta = _f32(gamma, x.device), _f32(beta, x.device)
-    lib = _build.load("group_norm")
-    fn = lib.ldm_group_norm
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    chunks = stats_chunks(b, hw, num_groups)
+    hw, chunks, gps, vec, partial, tickets = stats_args(x, num_groups)
+    fn = _entry("ldm_group_norm", 7, 2)
     out = torch.empty_like(x)
-    # partial sums, then per-channel mean and rstd * gamma
-    scratch = torch.empty(b * num_groups * chunks * 2 + 2 * b * c,
-                          dtype=torch.float32, device=x.device)
+    stats = torch.empty(2 * b * c, dtype=torch.float32, device=x.device)  # mean, rstd * gamma
     err = fn(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(),
-             scratch.data_ptr(), b, hw, c, num_groups, chunks, float(eps),
-             int(activate),
-             int(x.dtype == torch.bfloat16),
-             torch.cuda.current_stream(x.device).cuda_stream)
+             stats.data_ptr(), partial, tickets, b, hw, c, num_groups, chunks, gps, vec,
+             float(eps), int(activate), int(x.dtype == torch.bfloat16),
+             torch._C._cuda_getCurrentRawStream(x.get_device()))
     _build.check(err, "group_norm kernel launch")
     group_norm_fused.launches += 1
     return out
-
-
-def stats_chunks(b: int, hw: int, num_groups: int) -> int:
-    """How many position chunks the stats kernels split each (image, group)
-    into (``csrc/gn_stats.cuh``): enough blocks to fill the card's 132 SMs
-    twice, at least 32 positions a chunk.  A function of the shape only, so
-    the summation order is fixed per shape."""
-    want = -(-264 // (b * num_groups))
-    return max(1, min(want, hw // 32))
 
 
 class _GroupNormFused(torch.autograd.Function):
@@ -294,7 +348,7 @@ def group_stats(x, num_groups: int = 32, eps: float = 1e-5):
     A CPU tensor takes the plain version; a CUDA tensor takes the kernel,
     or raises.  ``group_stats.launches`` counts kernel calls."""
     _check(x, None, None, num_groups)
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return _plain_group_stats(x, num_groups, eps)
     return _launch_stats(x, num_groups, eps)
 

@@ -12,7 +12,7 @@ import torch
 from ldm_tf2_tpu_torch.ops import flash_attention as tfa
 
 HEAD_DIMS = (40, 80, 160, 512)
-KINDS = ("fwd", "dq", "dkv")
+KINDS = ("fwd", "dq", "dkv", "pv8")
 
 
 @pytest.mark.parametrize("kind", KINDS)
@@ -49,6 +49,24 @@ def test_shared_memory_bytes_by_hand():
         1024 + 2 * 64 * 512 * 2 + 1 * 2 * 32 * 512 * 2 + 64)
 
 
+def test_pv8_shared_memory_bytes_by_hand():
+    # S = 512: Q 64 x 512 resident; two stages of a 64-key K tile (64 x 512)
+    # and a 128-key v8 tile of the CTA's 128 columns; 128 bytes of barriers
+    assert tfa.wgmma_geometry("pv8", 512)["smem_bytes"] == (
+        1024 + 64 * 512 * 2 + 2 * (64 * 512 * 2 + 128 * 128) + 128)
+    # S = 40: one 64-column chunk; 48 v8 rows (N = 40 is not an s8 wgmma shape)
+    geo = tfa.wgmma_geometry("pv8", 40)
+    assert geo["cols"] == 48 and geo["splits"] == 1
+    assert geo["smem_bytes"] == 1024 + 128 * 64 * 2 + 2 * (64 * 64 * 2 + 48 * 128) + 128
+    # the v8 operand's rows are whole s8 wgmma N slices (multiples of 16 up
+    # to 256), and its tiles stay 1024-byte aligned (the swizzle's period)
+    for s in HEAD_DIMS:
+        g = tfa.wgmma_geometry("pv8", s)
+        assert g["cols"] % 16 == 0 and g["cols"] * tfa.V8_TILE_KEYS % 1024 == 0
+        assert tfa.v8_layout(s, 1000) == (g["splits"] * g["cols"], 1024)
+    assert tfa.v8_layout(64, 1000) is None
+
+
 @pytest.mark.parametrize("kind,shape,grid", [
     ("fwd", (3, 1024, 1024, 1, 512), (16, 3, 4)),   # the VQ AE step: 192 CTAs
     ("fwd", (2, 1024, 1024, 1, 512), (16, 2, 4)),
@@ -61,6 +79,10 @@ def test_shared_memory_bytes_by_hand():
     ("dkv", (8, 256, 256, 8, 80), (2, 64, 1)),
     ("dkv", (8, 64, 64, 8, 160), (1, 64, 1)),
     ("dkv", (4, 1000, 999, 1, 512), (16, 4, 4)),
+    ("pv8", (8, 1024, 1024, 8, 40), (8, 64, 1)),    # the int8 U-Net's level 0
+    ("pv8", (4, 1024, 1024, 1, 512), (16, 4, 4)),   # the serve decode's head
+    ("pv8", (2, 256, 256, 8, 80), (2, 16, 1)),
+    ("pv8", (2, 64, 64, 8, 160), (1, 16, 1)),
 ])
 def test_blocks_per_shape(kind, shape, grid):
     b, tq, tk, h, s = shape
@@ -81,14 +103,17 @@ def test_geometry_argument_only_for_bf16_at_the_models_head_dims():
     assert list(got) == [want[k] for k in ("rows", "tile", "cols", "stages", "smem_bytes",
                                            "ctas_per_sm")]
     assert tfa.wgmma_geometry("fwd", 64) is None and tfa.wgmma_geometry("bogus", 40) is None
+    pv8 = tfa._geometry_arg("pv8", torch.zeros(1, 4, 1, 40, dtype=torch.bfloat16))
+    assert list(pv8)[:3] == [128, 64, 48]
 
 
 def test_cpu_tensors_count_no_path():
-    before = [dict(w.launches_by_path) for w in (tfa.flash_attention, tfa.flash_backward_dq,
-                                                 tfa.flash_backward_dkv)]
+    wrappers = (tfa.flash_attention, tfa.flash_backward_dq, tfa.flash_backward_dkv,
+                tfa.flash_attention_pv_int8)
+    before = [dict(w.launches_by_path) for w in wrappers]
     q = torch.randn(1, 8, 1, 40, dtype=torch.bfloat16, requires_grad=True)
     tfa.flash_attention(q, q, q, 0.1).float().sum().backward()
-    after = [w.launches_by_path for w in (tfa.flash_attention, tfa.flash_backward_dq,
-                                          tfa.flash_backward_dkv)]
+    tfa.flash_attention_pv_int8(q.detach(), q.detach(), q.detach(), 0.1)
+    after = [w.launches_by_path for w in wrappers]
     assert after == before
     assert set(after[0]) == set(tfa.PATHS) == {"wgmma", "mma.sync", "fma"}

@@ -191,8 +191,8 @@ def test_s8_conv_kernel_matches_plain_on_card(dtype, shape, cout, epilogue):
                                          (1, 1024, 1024, 1, 512),
                                          (2, 1000, 1000, 8, 40)])
 def test_pv_int8_kernel_matches_plain_on_card(dtype, b, t, kv, h, s):
-    """bf16 S = 40 takes the tensor-core path (s8 mma.sync for P.V); S = 512
-    and float32 the FMA path.  Both keep the JAX package's kv blocks."""
+    """bf16 S = 40 and 512 take the wgmma path (s8 wgmma for P.V), float32
+    the FMA path.  Both keep the JAX package's kv blocks."""
     _need_cuda()
     g = torch.Generator(device="cuda").manual_seed(3)
     q, k, v = (torch.randn(b, n, h, s, generator=g, device="cuda").to(dtype)
@@ -207,6 +207,48 @@ def test_pv_int8_kernel_matches_plain_on_card(dtype, b, t, kv, h, s):
     err = (got - ref).abs()
     assert float(err.max()) <= (2e-3 if dtype == torch.float32 else 1e-2)
     assert float(err.norm() / ref.norm()) <= (1e-3 if dtype == torch.float32 else 5e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,tk,h,s", [(2, 1000, 8, 40), (2, 1024, 1, 512), (1, 300, 2, 80)])
+def test_pv_int8_pre_pass_matches_its_plain_mirror_on_card(b, tk, h, s):
+    """The wgmma path's pre-pass writes v8 (permuted, K-major, zero-padded)
+    and sv exactly as ``_plain_v8`` lays them out."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(4)
+    q = torch.randn(b, 64, h, s, generator=g, device="cuda").bfloat16()
+    v = torch.randn(b, tk, h, s, generator=g, device="cuda").bfloat16()
+    scratch, v8_bytes = tfa.pv_int8_scratch(q, tk)
+    scratch.fill_(77)  # every byte of v8 must be written
+    before = tfa.flash_attention_pv_int8.launches_by_path["wgmma"]
+    tfa._launch_pv_int8(q, v, v, s**-0.5, scratch=scratch)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_pv_int8.launches_by_path["wgmma"] == before + 1
+    rows, keys = tfa.v8_layout(s, tk)
+    v8 = scratch[:v8_bytes].view(torch.int8).reshape(b * h, rows, keys).cpu()
+    sv = scratch[v8_bytes:].view(torch.float32).reshape(b * h, -1).cpu()
+    want_v8, want_sv = tfa._plain_v8(v.float().cpu(), rows, keys)
+    assert torch.equal(v8, want_v8)
+    assert torch.equal(sv, want_sv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,s,path", [(torch.bfloat16, 40, "wgmma"),
+                                          (torch.bfloat16, 512, "wgmma"),
+                                          (torch.bfloat16, 64, "mma.sync"),
+                                          (torch.float32, 40, "fma")])
+def test_pv_int8_paths_on_card(dtype, s, path):
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(6)
+    q, k, v = (torch.randn(1, 1024, 2, s, generator=g, device="cuda").to(dtype)
+               for _ in range(3))
+    before = dict(tfa.flash_attention_pv_int8.launches_by_path)
+    got = tfa.flash_attention_pv_int8(q, k, v, s**-0.5).float()
+    took = {p: n - before[p] for p, n in tfa.flash_attention_pv_int8.launches_by_path.items()}
+    assert took == {**dict.fromkeys(took, 0), path: 1}
+    ref = tfa._plain_pv_int8(q.float(), k.float(), v.float(), s**-0.5)
+    err = (got - ref).abs()
+    assert float(err.max()) <= (2e-3 if dtype == torch.float32 else 1e-2)
 
 
 @pytest.mark.cuda
@@ -351,6 +393,33 @@ def test_group_norm_kernels_match_plain_on_card(dtype, shape, activate):
     assert _rel(y, tgn._plain_group_norm_fused(x, gamma, beta, 32, 1e-6, activate)) < tol
     want_mean, want_rstd = tgn._plain_group_stats(x, 32, 1e-6)
     assert _rel(mean, want_mean) < 1e-5 and _rel(rstd, want_rstd) < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4, 32, 32, 320), (4, 4, 4, 1280), (2, 256, 256, 128),
+                                   (2, 5, 7, 96)])
+def test_group_stats_is_one_deterministic_launch_on_card(dtype, shape):
+    """Row 6 in one kernel launch (the profiler's count), the same bits on
+    every call, within the plain version's float32 rounding."""
+    _need_cuda()
+    from torch.profiler import ProfilerActivity, profile
+
+    from ldm_tf2_tpu_torch.ops import group_norm as tgn
+
+    g = torch.Generator(device="cuda").manual_seed(21)
+    x = (torch.randn(shape, generator=g, device="cuda") * 2 + 0.5).to(dtype)
+    first = torch.cat(tgn.group_stats(x, 32, 1e-6))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        again = torch.cat(tgn.group_stats(x, 32, 1e-6))
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA and "stats" in e.name]
+    assert len(kernels) == 1, [e.name for e in kernels]
+    assert torch.equal(first, again)
+    want = torch.cat(tgn._plain_group_stats(x, 32, 1e-6))
+    assert _rel(again, want) < 1e-5
 
 
 @pytest.mark.cuda
