@@ -21,9 +21,12 @@ final line is printed:
    ``OPT_CROSS``) in both dtypes; each flash launch's path (wgmma,
    mma.sync or FMA, from the wrappers' ``launches_by_path``; the int8-P.V
    forward's too): every bf16 launch at the models' head dims (40, 80,
-   160, 512) takes wgmma; beside each timed row's wall time, its device
-   time per call from ``torch.profiler`` (``device_ms``, and the library
-   call's ``library_device_ms``);
+   160, 512) takes wgmma; each fused chain and cross-attention launch's
+   path too (wgmma in bf16, FMA in float32), and the chain's device time
+   summed over one U-Net eval's 44 chains (``OPT_EVAL_CHAINS``) against the
+   default chain's and the bound; beside each timed row's wall time, its
+   device time per call from ``torch.profiler`` (``device_ms``, and the
+   library call's ``library_device_ms``);
 4. unet: one full-width U-Net eval (CFG batch 4, 32x32 latent, seeded
    weights) on the card against the same weights on the CPU in float32,
    plain, under ``tpu.attention_impl: xla`` (no flash launch) and in the
@@ -36,8 +39,11 @@ final line is printed:
 5b. opt-in main path: the same call with the JAX package's three opt-in
    switches on (GroupNorm, fused conv, packed cross), in turns with the
    default route, exact launch counts (``OPT_EVAL``, ``OPT_DECODE``),
-   latents and images against the default route's, a profiled window; a
-   10-step run with GroupNorm "stats";
+   every chain and cross-attention launch on wgmma, each chain weight
+   relaid for the wgmma conv once (72 in the first call, none after),
+   latents and images against the default route's, a profiled window with
+   its device busy time beside the default route's; a 10-step run with
+   GroupNorm "stats";
 5c. samplers, switches on: PLMS, DPM-Solver++(2M) (karras), DDPM on a
    100-step timeline, the progressive DDIM loop, one ``serve()`` call with
    dpm_solver_pp_2m;
@@ -70,7 +76,7 @@ final line is printed:
    dispatches (``FFN8_SHAPES``), and the whole int8 chain (row 10).
 
 The main path, serve, LDM train and AE train phases also check that no
-bf16 flash launch of theirs took the FMA path.  The last lines are the
+bf16 launch of theirs took the FMA path.  The last lines are the
 kernels JSON, the nvidia-smi line and ``{"ok": true, "device": {...}}``.
 """
 
@@ -263,6 +269,10 @@ OPT_CROSS = [(4, 1024, 77, 8, 40), (4, 256, 77, 8, 80), (4, 64, 77, 8, 160),
 # mid-block attention's and the head's GroupNorms)
 OPT_EVAL = {"gn_silu_conv3x3_fused": 44, "group_norm": 17, "cross_attention": 16}
 OPT_DECODE = {"gn_silu_conv3x3_fused": 28, "group_norm": 2, "cross_attention": 0}
+# How many of one eval's 44 chains run at each of OPT_CHAINS' first 18
+# (the down path's 16, the middle block's 4, the up path's 24): the weights
+# of row 7's per-eval sum of device times
+OPT_EVAL_CHAINS = [2, 5, 1, 5, 1, 1, 5, 1, 4, 7, 3, 2, 1, 1, 1, 1, 1, 2]
 # rel-L2 against the plain version on the same inputs: float32 differs in
 # summation order; bfloat16 rounds the output (and the chain its normalized
 # input, the cross-attention its weights) at 2^-9, and an element whose
@@ -422,19 +432,24 @@ def errors(got, ref):
     return max_abs, rel_l2
 
 
-def _flash_paths():
-    """The flash wrappers' launches by path ("wgmma", "mma.sync", "fma")."""
+def _path_wrappers():
+    """The wrappers that count launches by path ("wgmma", "mma.sync",
+    "fma"): the flash kernels, the fused chain and the cross-attention."""
+    from ldm_tf2_tpu_torch.ops import cross_attention as ca
     from ldm_tf2_tpu_torch.ops import flash_attention as fa
+    from ldm_tf2_tpu_torch.ops import fused_conv as fc
 
     return {"flash_attention": fa.flash_attention,
             "flash_backward_dq": fa.flash_backward_dq,
             "flash_backward_dkv": fa.flash_backward_dkv,
-            "flash_attention_pv_int8": fa.flash_attention_pv_int8}
+            "flash_attention_pv_int8": fa.flash_attention_pv_int8,
+            "gn_silu_conv3x3_fused": fc.gn_silu_conv3x3_fused,
+            "cross_attention": ca.cross_attention}
 
 
 def paths_of(fn) -> dict:
-    """The launches by path of ``fn()`` (one or more flash wrappers)."""
-    wrappers = _flash_paths()
+    """The launches by path of ``fn()`` (one or more wrappers)."""
+    wrappers = _path_wrappers()
     before = {k: dict(w.launches_by_path) for k, w in wrappers.items()}
     fn()
     out = {}
@@ -788,11 +803,26 @@ def phase_ffn_int8_kernel(results, randn):
                 f"flip {flipped:.2%} {'PASS' if ok else 'FAIL'}{times}")
 
 
+# Row 7's device time summed over one U-Net eval's chains, the default
+# chain's and the bound (``phase_opt_in_kernels``, bf16)
+EVAL_SUMS: dict = {}
+
+
+def _one_path(took: dict) -> str:
+    """The path of a call that launched its kernel once."""
+    ran = [p for p, n in took.items() if n]
+    check(len(ran) == 1 and took[ran[0]] == 1, f"one launch expected, got {took}")
+    return ran[0]
+
+
 def phase_opt_in_kernels(results, randn):
     """The opt-in kernels (GroupNorm, GroupNorm stats, the GN+SiLU+3x3
     chain, short-kv cross-attention), each against its plain version on the
     card at every shape of the opt-in main path, in float32 and bf16.  Times
-    in bf16 at every shape (float32 at the first only)."""
+    in bf16 at every shape (float32 at the first only).  Each chain and
+    cross-attention launch's path is held to wgmma in bf16 and FMA in
+    float32; row 7's bf16 device times are also summed over one U-Net
+    eval's chains (``EVAL_SUMS``)."""
     import torch
     import torch.nn.functional as F
 
@@ -806,6 +836,8 @@ def phase_opt_in_kernels(results, randn):
         max_abs = max(errors(a, b)[0] for a, b in pairs)
         finite = all(bool(torch.isfinite(a.float()).all()) for a in got)
         ok = finite and rel < OPT_TOL[dtype]
+        if "path" in extra:  # the one launch took the path its dtype must take
+            ok = ok and extra["path"] == {"bfloat16": "wgmma", "float32": "fma"}[dtype]
         times = {k: (time_ms(f) if timed else None) for k, f in fns.items()}
         b2b = {k: (time_b2b_ms(fns[k]) if timed else None) for k in ("kernel", "library")}
         per_call = []  # the kernel's launches per call, from the profiler
@@ -872,7 +904,9 @@ def phase_opt_in_kernels(results, randn):
                 extra["residual_add"] = randn(b, h, w, cout).to(dtype)
             args = (x, gamma, beta, wk, bias)
             plain_args = (*args, extra.get("time_add"), extra.get("residual_add"), 32, 1e-5)
-            got = fc.gn_silu_conv3x3_fused(*args, **extra)
+            out = []
+            took = paths_of(lambda: out.append(fc.gn_silu_conv3x3_fused(*args, **extra)))
+            got = out[0]
             want = fc._plain_chain(*plain_args)
             m, elem = b * h * w, x.element_size()
             nbytes = (m * cin + 9 * cin * cout + m * cout) * elem + (
@@ -885,12 +919,23 @@ def phase_opt_in_kernels(results, randn):
                 {"kernel": lambda: fc.gn_silu_conv3x3_fused(*args, **extra),
                  "plain": lambda: fc._plain_chain(*plain_args),
                  "library": default_chain},
-                nbytes, 2.0 * m * cout * 9 * cin, f32_ops, epilogue=epilogue)
+                nbytes, 2.0 * m * cout * 9 * cin, f32_ops, epilogue=epilogue,
+                path=_one_path(took.get("gn_silu_conv3x3_fused", {})))
+        if dtype == torch.bfloat16:  # row 7 over one U-Net eval's 44 chains
+            unet_rows = results["gn_silu_conv3x3_fused"][:len(OPT_EVAL_CHAINS)]
+            EVAL_SUMS.update({k: sum(n * r[k] for n, r in zip(OPT_EVAL_CHAINS, unet_rows))
+                              for k in ("device_ms", "library_device_ms", "bound_ms")})
+            log(f"gn_silu_conv3x3_fused per U-Net eval ({sum(OPT_EVAL_CHAINS)} chains, "
+                f"OPT_EVAL_CHAINS): device {EVAL_SUMS['device_ms']:.4f} ms, default bf16 "
+                f"chain {EVAL_SUMS['library_device_ms']:.4f} ms, bound "
+                f"{EVAL_SUMS['bound_ms']:.4f} ms")
         for i, (b, tq, tk, h, sh) in enumerate(OPT_CROSS):
             timed = dtype == torch.bfloat16 or i == 0
             q, k, v = (randn(b, t, h, sh).to(dtype) for t in (tq, tk, tk))
             scale = sh**-0.5
-            got = ca.cross_attention(q, k, v, scale)
+            out = []
+            took = paths_of(lambda: out.append(ca.cross_attention(q, k, v, scale)))
+            got = out[0]
             want = ca._plain_cross_attention(q, k, v, scale)
             qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
             row("cross_attention", (b, tq, tk, h, sh), name, [got], [want], timed,
@@ -898,7 +943,8 @@ def phase_opt_in_kernels(results, randn):
                  "plain": lambda: ca._plain_cross_attention(q, k, v, scale),
                  "library": lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale)},
                 (2 * q.numel() + 2 * k.numel()) * q.element_size(),
-                4.0 * b * h * tq * tk * sh, f32_ops)
+                4.0 * b * h * tq * tk * sh, f32_ops,
+                path=_one_path(took.get("cross_attention", {})))
 
 
 def phase_backward_kernels(results, randn):
@@ -1237,36 +1283,35 @@ class _Count:
 PATH_TOTALS: dict = {}
 
 
-# The flash wrappers' launches by path in the last path run (``_read``)
+# The launches by path in the last path run (``_read``)
 LAST_PATHS: dict = {}
 
 
 def _reset(counters) -> None:
-    """Every count to 0 just before a path run, the flash wrappers' counts
-    by path too."""
+    """Every count to 0 just before a path run, the counts by path too."""
     for fn in counters.values():
         fn.launches = 0
-    for fn in _flash_paths().values():
+    for fn in _path_wrappers().values():
         fn.launches_by_path = dict.fromkeys(fn.launches_by_path, 0)
 
 
 def _read(counters) -> dict:
     """The counts of one path run, its counters set to 0 just before it
-    (``_reset``); also added to ``PATH_TOTALS``.  The flash launches by
-    path go to ``LAST_PATHS``."""
+    (``_reset``); also added to ``PATH_TOTALS``.  The launches by path go
+    to ``LAST_PATHS``."""
     got = {k: fn.launches for k, fn in counters.items()}
     for k, v in got.items():
         PATH_TOTALS[k] = PATH_TOTALS.get(k, 0) + v
     LAST_PATHS.clear()
-    LAST_PATHS.update({k: dict(fn.launches_by_path) for k, fn in _flash_paths().items()})
+    LAST_PATHS.update({k: dict(fn.launches_by_path) for k, fn in _path_wrappers().items()})
     return got
 
 
 def check_no_fma(what: str) -> None:
-    """A bf16 path run: no flash launch of the last run took the FMA path."""
+    """A bf16 path run: no launch of the last run took the FMA path."""
     fma = {k: p["fma"] for k, p in LAST_PATHS.items() if p["fma"]}
-    log(f"{what}: flash launches by path {LAST_PATHS}")
-    check(not fma, f"{what}: bf16 flash launches took the FMA path: {fma}")
+    log(f"{what}: launches by path {LAST_PATHS}")
+    check(not fma, f"{what}: bf16 launches took the FMA path: {fma}")
 
 
 def _counters():
@@ -1332,23 +1377,34 @@ def phase_opt_in(card: str, run: dict):
     (GroupNorm "pallas", fused conv "pallas", packed cross): 50 DDIM steps,
     batch 2, through ``sample_txt2img``, in turns with the default route
     (default, opt-in, default, opt-in); exact launch counts; latents and
-    images against the default route's; a profiled window of U-Net evals.
-    Then a 10-step run with GroupNorm "stats", against a 10-step default
-    run.  Returns the launches of both opt-in runs."""
+    images against the default route's; every chain and cross-attention
+    launch of the counted call on wgmma; each chain weight relaid once, in
+    the first call; a profiled window of U-Net evals, its device busy time
+    beside the default route's.  Then a 10-step run with GroupNorm "stats",
+    against a 10-step default run.  Returns the launches of both opt-in
+    runs and the counted call's chain and cross launches by path."""
     import numpy as np
 
     from ldm_tf2_tpu_torch.diffusion.schedule import make_schedule
 
     from ldm_tf2_tpu_torch import factory
+    from ldm_tf2_tpu_torch.ops import fused_conv as fc
 
     models, ids, shape, kwargs = run["models"], run["ids"], run["shape"], run["kwargs"]
     schedule = factory.build_schedule(run["config"])
     steps = schedule.num_ddim_steps
+    chain = fc.gn_silu_conv3x3_fused
     _set_switches("pallas", "pallas", True)
     try:
-        # warm-up: a 2-step run outside the counted, timed ones
+        # warm-up: a 2-step run outside the counted, timed ones; the first
+        # call relays each chain's weight once, the second none
+        chain.relayouts = 0
         _counted_call(models, make_schedule(num_ddim_steps=2), ids, shape, kwargs)
+        relayouts = [chain.relayouts]
+        chain.relayouts = 0
         seconds, launches, images, x0 = _counted_call(models, schedule, ids, shape, kwargs)
+        relayouts.append(chain.relayouts)
+        paths = {k: dict(LAST_PATHS[k]) for k in ("gn_silu_conv3x3_fused", "cross_attention")}
         _set_switches("auto", "auto", False)
         default_s = _counted_call(models, schedule, ids, shape, kwargs)[0]
         _set_switches("pallas", "pallas", True)
@@ -1366,11 +1422,24 @@ def phase_opt_in(card: str, run: dict):
             f"{seconds2:.3f} s per call against the default route's "
             f"{run['seconds']:.3f} s and {default_s:.3f} s (turns: default, opt-in, "
             f"default, opt-in); x0 rel_l2 {rel_x0:.3e}, images rel_l2 {rel_img:.3e} "
-            f"against the default route (bound {OPT_ROUTE_TOL:g}); launches {got}")
+            f"against the default route (bound {OPT_ROUTE_TOL:g}); launches {got}; by "
+            f"path {paths}; weight relayouts {relayouts[0]} in the first call, "
+            f"{relayouts[1]} in the second")
         check(got == want, f"opt-in launch counts {got}, expected {want}")
         check(rel_x0 < OPT_ROUTE_TOL and rel_img < OPT_ROUTE_TOL,
               f"opt-in route x0 {rel_x0:.3e} / images {rel_img:.3e} from the default")
-        phase_profile(models[1], shape, what="opt-in bf16")
+        for k, p in paths.items():  # every bf16 launch on the wgmma path
+            check(p == {"wgmma": want[k], "mma.sync": 0, "fma": 0},
+                  f"opt-in {k} launches by path {p}, expected {want[k]} on wgmma")
+        chains = OPT_EVAL["gn_silu_conv3x3_fused"] + OPT_DECODE["gn_silu_conv3x3_fused"]
+        check(relayouts == [chains, 0],
+              f"weight relayouts {relayouts}, expected [{chains}, 0] (one per chain weight)")
+        profile = phase_profile(models[1], shape, what="opt-in bf16")
+        busy = [("not measured" if p is None else
+                 f"{p['busy_ms']:.2f} ms in {p['launches']:.0f} launches")
+                for p in (profile, run["profile"])]
+        log(f"opt-in U-Net eval at CFG batch {2 * shape[0]}: device busy {busy[0]} against "
+            f"the default route's {busy[1]}")
 
         # GroupNorm "stats": the stats kernel, the normalize in PyTorch
         short = make_schedule(num_ddim_steps=10)
@@ -1391,7 +1460,7 @@ def phase_opt_in(card: str, run: dict):
         check(rel_s < OPT_ROUTE_TOL, f"stats route x0 {rel_s:.3e} from the default")
     finally:
         _set_switches("auto", "auto", False)
-    return launches, stats_launches
+    return launches, stats_launches, paths
 
 
 def phase_samplers(card: str, run: dict):
@@ -1562,9 +1631,9 @@ def _kernel_group(name: str) -> str:
         return "flash_attention kernel"
     if "pv_int8" in low or "v_quant" in low:
         return "flash_attention_pv_int8 kernels"
-    if "conv_mma" in low or "conv_fma" in low or "splitk_epilogue" in low:
+    if any(k in low for k in ("conv_wgmma", "conv_mma", "conv_fma", "splitk_epilogue")):
         return "gn_silu_conv3x3 kernels"
-    if "cross_mma" in low or "cross_fma" in low:
+    if any(k in low for k in ("cross_wgmma", "cross_mma", "cross_fma")):
         return "cross_attention kernel"
     if "gn_channel_stats" in low or "gn_normalize" in low:
         return "GroupNorm stats / normalize kernels"
@@ -1894,7 +1963,9 @@ def _profile_report(prof, n: int, what: str, wall_ms: float,
                     bare_ms: float | None = None) -> None:
     """Device time by kernel group per unit over a profiled window of ``n``
     units, and the device's idle share of the window's wall time (and of
-    ``bare_ms``, the same work timed without the profiler, when given)."""
+    ``bare_ms``, the same work timed without the profiler, when given).
+    Returns the device busy time and the launches per unit (None when the
+    window recorded no device time)."""
     import torch
 
     groups: dict[str, float] = {}
@@ -1910,7 +1981,7 @@ def _profile_report(prof, n: int, what: str, wall_ms: float,
     busy = sum(groups.values())
     if busy <= 0.0:
         log("profile: the profiler recorded no device time")
-        return
+        return None
     parts = ", ".join(f"{k} {v / n:.2f} ms ({v / busy:.1%})"
                       for k, v in sorted(groups.items(), key=lambda kv: -kv[1]))
     launches = sum(c for _, c in kernels.values()) / n
@@ -1923,11 +1994,13 @@ def _profile_report(prof, n: int, what: str, wall_ms: float,
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
     log("profile: top kernels per unit: " + "; ".join(
         f"{name[:60]} {ms / n:.3f} ms x{c // n}" for name, (ms, c) in top))
+    return {"busy_ms": busy / n, "launches": launches}
 
 
 def phase_profile(unet, shape, evals: int = 3, what: str | None = None):
     """Device time by kernel group over a few U-Net evals at the CFG batch
-    of a latent ``shape``, and the device's idle share of the window."""
+    of a latent ``shape``, and the device's idle share of the window;
+    returns ``_profile_report``'s busy time and launches per eval."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1953,7 +2026,8 @@ def phase_profile(unet, shape, evals: int = 3, what: str | None = None):
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - start) * 1e3
     modes = what or ("int8 + int8-P.V" if unet.conv_quant else "bf16")
-    _profile_report(prof, evals, f"{modes} U-Net eval at CFG batch {b2}", wall_ms, bare_ms)
+    return _profile_report(prof, evals, f"{modes} U-Net eval at CFG batch {b2}", wall_ms,
+                           bare_ms)
 
 
 def main() -> int:
@@ -1984,7 +2058,8 @@ def main() -> int:
     # the opt-in kernels report their launches in the opt-in main path (the
     # stats kernel in its GroupNorm "stats" run), the serving path's in the
     # serve run, the backward kernels theirs in the LDM train run (5 steps)
-    opt_in, stats = phase_opt_in(card, run)
+    opt_in, stats, opt_paths = phase_opt_in(card, run)
+    by_path.update(opt_paths)
     launches.update({k: opt_in[k] for k in ("group_norm_fused", "gn_silu_conv3x3_fused",
                                             "cross_attention")})
     launches["group_stats"] = stats["group_stats"]
@@ -2044,6 +2119,8 @@ def main() -> int:
         })
         if name in by_path:  # the launches above by path (wgmma, mma.sync, fma)
             kernels[-1]["launches_by_path"] = by_path[name]
+        if name == "gn_silu_conv3x3_fused":  # over one U-Net eval's 44 chains
+            kernels[-1]["per_eval"] = dict(EVAL_SUMS)
         if name == "fused_ffn_int8":  # on no path; row 2 as the yardstick
             kernels[-1].update(kernels_phase_launches=ffn8_checked,
                                bf16_ffn_ms=main_row["bf16_ffn_ms"])

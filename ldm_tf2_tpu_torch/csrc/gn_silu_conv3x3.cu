@@ -19,14 +19,18 @@
 //           add in x's type T (bf16 adds round at every step)
 //
 // Layout: x, y [B, H, W, Cin] (NHWC); gamma, beta [Cin] float32; w [Cout,
-// Cin, 3, 3] (the port's OIHW, read in place) and bias [Cout] in T;
-// time_add [B, Cout] and residual [B, H, W, Cout] in T; out [B, H, W, Cout]
-// in T.
+// Cin, 3, 3] (the port's OIHW, read in place by the mma.sync and FMA
+// paths); wr [9, Cout, Cin] (the same weights relaid once per weight by the
+// wrapper, ops/fused_conv.py::relaid_weight: the wgmma path's K-major B);
+// bias [Cout] in T; time_add [B, Cout] and residual [B, H, W, Cout] in T;
+// out [B, H, W, Cout] in T.
 //
-// What bounds it on this card: at the U-Net's shapes the products (2 * M *
-// Cout * 9 * Cin operations, M = B*H*W, against about M * (Cin + 2 * Cout)
-// elements moved) are far above the card's operations-per-byte ratio, so
-// the conv runs on the bf16 tensor cores.
+// What bounds it on this card: at the U-Net's 32x32 and 16x16 levels the
+// products (2 * M * Cout * 9 * Cin operations, M = B*H*W, against about
+// M * (Cin + 2 * Cout) + 9 * Cin * Cout elements moved) are far above the
+// card's operations-per-byte ratio, so the conv runs on the bf16 tensor
+// cores; at the 8x8 and 4x4 levels (M = 256, 64) the 29-59 MB of weights
+// are the bound.
 //
 // Design, three launches (four with split-K), all in one call:
 //  1-2. gn_stats.cuh, one launch: per-channel sums, then per-channel mean
@@ -35,34 +39,50 @@
 //       TPU kernel's slab, each element is normalized once; y makes one
 //       round trip through device memory (2 * M * Cin elements), where
 //       normalizing in the conv's prologue instead recomputed it for every
-//       tap and every Cout tile that reads it (9 * Cout / 64 times) and made
-//       the conv 3-5x slower;
-//  4.   the conv, an implicit GEMM over M = B*H*W rows, N = Cout, K = 9 * Cin:
-//   * tensor-core path (bf16, Cin % 32 == 0, 16-byte aligned y and w): a
-//     64 x 64 output tile per block of 4 warps (each 32 x 32: 2 m16 x 4 n8
-//     tiles), mma.sync m16n8k16 with float32 accumulators.  Each k-step
-//     takes 32 input channels of one tap, channel block outermost.  The A
-//     tile (64 shifted pixels x 32 channels of y) comes in with cp.async,
-//     whose zero-fill supplies the SAME border, three stages deep.  The
-//     weights of a channel block are, per output channel, one contiguous
-//     576-byte span of the OIHW tensor (32 channels x 9 taps): they stream
-//     in with 16-byte loads, two per thread per k-step over the previous
-//     block's 9 steps, and are scattered into 9 per-tap tiles [co][ci]
-//     (double-buffered).  Rows of 80 bytes keep ldmatrix free of bank
-//     conflicts.  Where the output has too few 64 x 64 tiles to fill the
-//     card (the U-Net's 4x4 and 8x8 levels: 20-80 tiles), the channel
-//     blocks are split over `splits` blocks per tile, each writing float32
-//     partial sums; launch 5 adds them in a fixed order and applies the
-//     epilogue, so the result is deterministic.
-//   * FMA path (float32, and shapes the tensor-core path does not take): a
-//     64 x 64 tile per block of 256 threads (4 x 4 outputs each), 16 input
-//     channels of one tap per k-step, float32 FMAs.
+//       tap and every Cout tile that reads it;
+//  4.   the conv, an implicit GEMM over M = B*H*W rows, N = Cout, K = 9 * Cin,
+//       on one of three paths (the wrapper's conv_plan chooses; the C entry
+//       reports the path taken):
+//   * wgmma path (bf16, Cin % 64 == 0, Cout % 8 == 0: every chain of the
+//     U-Net and the autoencoders): a CTA owns a BM x BN output tile and a
+//     range of k-steps, a k-step being one tap and 64 input channels.  BM:
+//     one or two consumer warpgroups of one or two 64-row sub-tiles each
+//     (64 rows at M <= 64, 256 at 128 < M <= 256, else 128); BN = 160 or
+//     128 (128 where a warpgroup holds two sub-tiles: 256 x 160 float32
+//     sums would take 160 registers a thread, and four warpgroups are
+//     capped at 96 registers, 17 warps sharing 4 register files).  A
+//     producer warp issues TMA loads into a ring of stages signalled by
+//     mbarriers: the A tile is one box {64 channels, bw, bh, bb} of a 4-D
+//     map over y (bw * bh * bb = BM pixels, the M tile a block of whole
+//     rows and images), loaded at coordinates shifted by the tap, so TMA's
+//     zero fill of everything outside the tensor, negative coordinates
+//     included, is exactly the SAME border of y; the B tile is one box {64,
+//     BN, 1} of a map over wr.  Both are one-chunk K-major tiles with the
+//     128-byte swizzle (hopper.cuh), read by SS wgmma m64nBNk16, four
+//     k-steps of 16 channels per stage; the products of stage j run while
+//     stage j - 1's are retired and its slot refilled.  Where the output has
+//     too few tiles to fill the card (the 16x16 and smaller levels) the
+//     k-steps are split over blockIdx.z, each split writing float32 partial
+//     sums to its own slot; launch 5 adds them in split order and applies
+//     the epilogue, so the result is deterministic.  At M <= 256 one M tile
+//     covers every pixel, so each weight byte is read once per call.
+//     Otherwise the epilogue runs from the accumulator registers.
+//   * mma.sync path (bf16 shapes the wgmma path does not take, Cin % 32 ==
+//     0, 16-byte aligned y and w): a 64 x 64 output tile per block of 4
+//     warps, mma.sync m16n8k16; A (32 channels of 64 shifted pixels) through
+//     cp.async, whose zero-fill supplies the SAME border; the weights read
+//     in place from OIHW and scattered into 9 per-tap tiles; split-K as
+//     above.
+//   * FMA path (float32, whose products the TPU computes exactly, so TF32
+//     would change results; and shapes no other path takes): a 64 x 64 tile
+//     per block of 256 threads (4 x 4 outputs each), float32 FMAs.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "common.cuh"
 #include "gn_stats.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -261,6 +281,201 @@ splitk_epilogue_kernel(const float* __restrict__ partial, const T* __restrict__ 
   }
 }
 
+// ------------------------------------------------------------ wgmma path
+
+// NWG consumer warpgroups, each owning MT sub-tiles of 64 output rows; BN
+// output channels per CTA; STAGES ring stages of one A and one B tile.
+template <int NWG, int MT, int BN, int STAGES>
+struct ConvWgmma {
+  static constexpr int BM = 64 * MT * NWG;
+  static constexpr int A_BYTES = BM * 128;  // BM pixels x 64 channels
+  static constexpr int B_BYTES = BN * 128;  // BN output channels x 64 channels
+  static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+  static constexpr int THREADS = NWG * 128 + 32;  // + one producer warp
+  // 1024 bytes to align the dynamic base, the ring, its full and empty barriers
+  static constexpr int SMEM = 1024 + STAGES * STAGE_BYTES + 16 * STAGES;
+  static_assert(SMEM <= 232448, "shared memory");
+  static_assert(BN % 8 == 0 && BN <= 256, "wgmma shape");
+};
+
+// Grid (M tiles, N tiles, splits).  M tile t covers pixels x0 .. x0 + bw,
+// y0 .. y0 + bh of images b0 .. b0 + bb; split z reduces k-steps
+// [z * per_split, min((z + 1) * per_split, k_total)), k-step it being tap
+// it % 9 of channels 64 * (it / 9) ...  partial: null when there is one
+// split (the epilogue runs here), else [splits, M, Cout] float32.
+template <int NWG, int MT, int BN, int STAGES>
+__global__ void __launch_bounds__(NWG * 128 + 32, 1)
+conv_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
+                  const __grid_constant__ CUtensorMap bmap, const bf16* __restrict__ bias,
+                  const bf16* __restrict__ time_add, const bf16* __restrict__ residual,
+                  bf16* __restrict__ out, float* __restrict__ partial, int b, int h, int wd,
+                  int cout, int bw, int bh, int bb, int tiles_x, int tiles_y, int k_total,
+                  int per_split) {
+  using C = ConvWgmma<NWG, MT, BN, STAGES>;
+  using namespace hopper;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * C::STAGE_BYTES);
+  uint64_t* empty = full + STAGES;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int tm = blockIdx.x;
+  const int x0 = tm % tiles_x * bw, y0 = tm / tiles_x % tiles_y * bh;
+  const int b0 = tm / (tiles_x * tiles_y) * bb;
+  const int n0 = blockIdx.y * BN;
+  const int k0 = blockIdx.z * per_split;
+  const int nk = min(per_split, k_total - k0);
+  if (tid == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], NWG * 128);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == NWG * 4) {  // producer: one thread issues every TMA load
+    if (lane == 0) {
+      for (int j = 0; j < nk; ++j) {
+        const int st = j % STAGES, it = k0 + j, tap = it % 9;
+        mbar_wait(&empty[st], ((j / STAGES) & 1) ^ 1);
+        unsigned char* a = ring + st * C::STAGE_BYTES;
+        mbar_expect_tx(&full[st], C::STAGE_BYTES);
+        tma_load_4d(a, &amap, &full[st], (it / 9) * 64, x0 + tap % 3 - 1, y0 + tap / 3 - 1, b0);
+        tma_load_4d(a + C::A_BYTES, &bmap, &full[st], (it / 9) * 64, n0, tap, 0);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns tile rows 64 (MT wg + mt) .. + 63, mt < MT
+  const int wg = warp / 4;
+  float acc[MT][BN / 2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[mt][i] = 0.f;
+  for (int j = 0; j < nk; ++j) {
+    const int st = j % STAGES;
+    mbar_wait(&full[st], (j / STAGES) & 1);
+    const uint32_t a = smem_u32(ring + st * C::STAGE_BYTES);
+    const uint32_t bt = a + C::A_BYTES;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) fence_regs(acc[mt]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        WgmmaSS<BN>::run(acc[mt], desc_kmajor(a, C::BM, (wg * MT + mt) * 64, kk),
+                         desc_kmajor(bt, BN, 0, kk), 1);
+    wgmma_commit();
+    wgmma_wait<1>();  // stage j - 1's products are done: refill its slot
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) fence_regs(acc[mt]);
+    if (j > 0) mbar_arrive(&empty[(j - 1) % STAGES]);
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) fence_regs(acc[mt]);
+
+  // Register 4j + e of sub-tile mt holds its row 16 (warp % 4) + g + 8 (e / 2),
+  // column 8j + 2 t4 + (e % 2); tile row r is pixel (x0 + r % bw, y0 + r / bw
+  // % bh) of image b0 + r / (bw * bh), in the box's order.
+  const int g = lane / 4, t4 = lane % 4;
+  const long m_total = (long)b * h * wd;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = (wg * MT + mt) * 64 + (warp % 4) * 16 + g + 8 * half;
+      const int x = x0 + r % bw, y = y0 + r / bw % bh, img = b0 + r / (bw * bh);
+      if (x >= wd || y >= h || img >= b) continue;
+      const long m = ((long)img * h + y) * wd + x;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int co = n0 + 8 * j + 2 * t4;
+        if (co >= cout) continue;
+        const float v0 = acc[mt][4 * j + 2 * half], v1 = acc[mt][4 * j + 2 * half + 1];
+        if (partial != nullptr) {
+          *reinterpret_cast<float2*>(partial + ((long)blockIdx.z * m_total + m) * cout + co) =
+              make_float2(v0, v1);
+        } else {
+          __nv_bfloat162 pair;
+          pair.x = epilogue<bf16>(v0, bias, time_add, residual, img, m, co, cout);
+          pair.y = epilogue<bf16>(v1, bias, time_add, residual, img, m, co + 1, cout);
+          *reinterpret_cast<__nv_bfloat162*>(out + m * cout + co) = pair;
+        }
+      }
+    }
+  }
+}
+
+// geometry: {BM, BN, stages, dynamic shared bytes, bw, bh, bb, per_split,
+// consumer warpgroups}, from ops/fused_conv.py's conv_plan; a geometry this
+// build does not hold is refused.
+template <int NWG, int MT, int BN, int STAGES>
+bool conv_geometry_is(const int* geo) {
+  using C = ConvWgmma<NWG, MT, BN, STAGES>;
+  return geo[0] == C::BM && geo[1] == BN && geo[2] == STAGES && geo[3] == C::SMEM &&
+         geo[4] * geo[5] * geo[6] == C::BM && geo[7] >= 1 && geo[8] == NWG;
+}
+
+template <int NWG, int MT, int BN, int STAGES>
+cudaError_t launch_conv_wgmma(const bf16* y, const bf16* wr, const bf16* bias,
+                              const bf16* time_add, const bf16* residual, bf16* out,
+                              float* partial, int b, int h, int wd, int cin, int cout,
+                              const int* geo, cudaStream_t st) {
+  using C = ConvWgmma<NWG, MT, BN, STAGES>;
+  const int bw = geo[4], bh = geo[5], bb = geo[6], per_split = geo[7];
+  CUtensorMap am, bm;
+  cudaError_t err = hopper::make_bf16_map(&am, y, {cin, wd, h, b}, {64, bw, bh, bb});
+  if (err == cudaSuccess) err = hopper::make_bf16_map(&bm, wr, {cin, cout, 9, 1}, {64, BN, 1, 1});
+  if (err != cudaSuccess) return err;
+  auto kernel = conv_wgmma_kernel<NWG, MT, BN, STAGES>;
+  static bool smem_set = false;  // once per instantiation
+  if (!smem_set) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    if (err != cudaSuccess) return err;
+    smem_set = true;
+  }
+  const int tiles_x = (wd + bw - 1) / bw, tiles_y = (h + bh - 1) / bh;
+  const int tiles_b = (b + bb - 1) / bb;
+  const int k_total = 9 * (cin / 64);
+  const int splits = (k_total + per_split - 1) / per_split;
+  const dim3 grid(tiles_x * tiles_y * tiles_b, (cout + BN - 1) / BN, splits);
+  kernel<<<grid, C::THREADS, C::SMEM, st>>>(am, bm, bias, time_add, residual, out,
+                                           splits > 1 ? partial : nullptr, b, h, wd, cout, bw,
+                                           bh, bb, tiles_x, tiles_y, k_total, per_split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  const int m_total = b * h * wd;
+  const long total = (long)m_total * cout;
+  const long nblk = (total + 255) / 256;
+  splitk_epilogue_kernel<bf16><<<(unsigned)(nblk < 132 * 16 ? nblk : 132 * 16), 256, 0, st>>>(
+      partial, bias, time_add, residual, out, h * wd, cout, m_total, splits);
+  return cudaGetLastError();
+}
+
+// The instantiations: ops/fused_conv.py's CONV_WGMMA_STAGES.
+cudaError_t dispatch_conv_wgmma(const bf16* y, const bf16* wr, const bf16* bias,
+                                const bf16* time_add, const bf16* residual, bf16* out,
+                                float* partial, int b, int h, int wd, int cin, int cout,
+                                const int* geo, cudaStream_t st) {
+#define LDM_CONV(...)                                                                    \
+  if (conv_geometry_is<__VA_ARGS__>(geo))                                                \
+    return launch_conv_wgmma<__VA_ARGS__>(y, wr, bias, time_add, residual, out, partial, b, \
+                                          h, wd, cin, cout, geo, st)
+  LDM_CONV(1, 1, 128, 8);
+  LDM_CONV(1, 1, 160, 8);
+  LDM_CONV(2, 1, 128, 7);
+  LDM_CONV(2, 1, 160, 6);
+  LDM_CONV(2, 2, 128, 4);
+  return cudaErrorInvalidValue;
+#undef LDM_CONV
+}
+
 // ---------------------------------------------------------------- FMA path
 
 constexpr int kFmaThreads = 256;
@@ -336,14 +551,16 @@ conv_fma_kernel(const T* __restrict__ y, const T* __restrict__ w, const T* __res
 
 template <typename T>
 cudaError_t run(const void* x, const float* gamma, const float* beta, const void* w,
-                const void* bias, const void* time_add, const void* residual, void* out,
-                void* y, float* scratch, float* partial, unsigned* tickets, int b, int h,
-                int wd, int cin, int cout, int groups, int chunks, int gps, int vec,
-                int splits, float eps, cudaStream_t st) {
+                const void* wr, const void* bias, const void* time_add, const void* residual,
+                void* out, void* y, float* scratch, float* partial, unsigned* tickets, int b,
+                int h, int wd, int cin, int cout, int groups, int chunks, int gps, int vec,
+                int splits, float eps, const int* geometry, int* path, cudaStream_t st) {
   const T* xt = static_cast<const T*>(x);
   T* yt = static_cast<T*>(y);
   float* mean = scratch;
   float* factor = mean + (long)b * cin;
+  // split-K partials go after mean and factor, 16-byte aligned
+  float* sk = factor + (((long)b * cin + 3) / 4) * 4;
   cudaError_t err = gn_stats<T>(xt, gamma, mean, factor, partial, tickets, b, h * wd, cin,
                                 groups, chunks, gps, vec, eps, /*clamp=*/1, st);
   if (err != cudaSuccess) return err;
@@ -356,17 +573,24 @@ cudaError_t run(const void* x, const float* gamma, const float* beta, const void
   const T* rt = static_cast<const T*>(residual);
   T* ot = static_cast<T*>(out);
   if constexpr (sizeof(T) == 2) {
+    if (geometry != nullptr) {  // the caller's plan: wgmma, or an error
+      *path = 2;
+      if (cin % 64 != 0 || cout % 8 != 0 || !aligned16(y) || !aligned16(wr))
+        return cudaErrorInvalidValue;
+      return dispatch_conv_wgmma(yt, static_cast<const bf16*>(wr), bt, tt, rt, ot, sk, b, h, wd,
+                                 cin, cout, geometry, st);
+    }
     if (cin % BK == 0 && aligned16(y) && aligned16(w)) {
+      *path = 1;
       err = cudaFuncSetAttribute(conv_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  (int)kMmaSmem);
       if (err != cudaSuccess) return err;
       const int blocks = cin / BK;
       const int per_split = (blocks + splits - 1) / splits;
       const int used = (blocks + per_split - 1) / per_split;
-      // split-K partials go after mean and factor, 16-byte aligned
-      float* sk = used > 1 ? factor + (((long)b * cin + 3) / 4) * 4 : nullptr;
       const dim3 grid((m_total + BM - 1) / BM, (cout + BN - 1) / BN, used);
-      conv_mma_kernel<<<grid, kThreads, kMmaSmem, st>>>(yt, wt, bt, tt, rt, ot, sk, h, wd, cin,
+      conv_mma_kernel<<<grid, kThreads, kMmaSmem, st>>>(yt, wt, bt, tt, rt, ot,
+                                                        used > 1 ? sk : nullptr, h, wd, cin,
                                                         cout, m_total, per_split);
       err = cudaGetLastError();
       if (err != cudaSuccess || used == 1) return err;
@@ -377,6 +601,7 @@ cudaError_t run(const void* x, const float* gamma, const float* beta, const void
       return cudaGetLastError();
     }
   }
+  *path = 0;
   const dim3 grid((m_total + FM - 1) / FM, (cout + FN - 1) / FN);
   conv_fma_kernel<T><<<grid, kFmaThreads, 0, st>>>(yt, wt, bt, tt, rt, ot, h, wd, cin, cout,
                                                    m_total);
@@ -385,21 +610,24 @@ cudaError_t run(const void* x, const float* gamma, const float* beta, const void
 
 }  // namespace
 
-// Returns a cudaError_t value (0 on success).  is_bf16: 1 when x, w, bias,
-// time_add, residual, out and y are bfloat16, 0 for float32.  time_add and
-// residual may be null.  y: scratch of x's shape and type (the normalized
-// input).  scratch: 2 * B * Cin floats (mean, rstd * gamma), rounded up to
-// a multiple of 4, then splits * B*H*W * Cout floats when the tensor-core
-// path splits K (splits > 1: the caller's request, at most Cin / 32).
-// chunks, gps, vec, partial, tickets: the statistics' launch grid and
-// persistent workspace (gn_stats.cuh).  The caller checks shapes
-// (cin % groups == 0).
+// Returns a cudaError_t value (0 on success).  is_bf16: 1 when x, w, wr,
+// bias, time_add, residual, out and y are bfloat16, 0 for float32.  wr,
+// time_add and residual may be null.  y: scratch of x's shape and type (the
+// normalized input).  scratch: 2 * B * Cin floats (mean, rstd * gamma),
+// rounded up to a multiple of 4, then splits * B*H*W * Cout floats when the
+// conv splits K.  geometry: null, or the wgmma path's plan (bf16; the
+// caller's conv_plan), which then runs or fails; wr is its relaid weight.
+// splits: the mma.sync path's split count (at most Cin / 32).  *path
+// receives the path taken: 0 FMA, 1 mma.sync, 2 wgmma.  chunks, gps, vec,
+// partial, tickets: the statistics' launch grid and persistent workspace
+// (gn_stats.cuh).  The caller checks shapes (cin % groups == 0).
 extern "C" int ldm_gn_silu_conv3x3(const void* x, const void* gamma, const void* beta,
-                                   const void* w, const void* bias, const void* time_add,
-                                   const void* residual, void* out, void* y, void* scratch,
-                                   void* partial, void* tickets, int b, int h, int wd, int cin,
-                                   int cout, int groups, int chunks, int gps, int vec,
-                                   int splits, float eps, int is_bf16, void* stream) {
+                                   const void* w, const void* wr, const void* bias,
+                                   const void* time_add, const void* residual, void* out,
+                                   void* y, void* scratch, void* partial, void* tickets, int b,
+                                   int h, int wd, int cin, int cout, int groups, int chunks,
+                                   int gps, int vec, int splits, float eps, int is_bf16,
+                                   const int* geometry, int* path, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* g = static_cast<const float*>(gamma);
   const float* be = static_cast<const float*>(beta);
@@ -407,9 +635,9 @@ extern "C" int ldm_gn_silu_conv3x3(const void* x, const void* gamma, const void*
   float* p = static_cast<float*>(partial);
   unsigned* t = static_cast<unsigned*>(tickets);
   cudaError_t err =
-      is_bf16 ? run<bf16>(x, g, be, w, bias, time_add, residual, out, y, s, p, t, b, h, wd, cin,
-                          cout, groups, chunks, gps, vec, splits, eps, st)
-              : run<float>(x, g, be, w, bias, time_add, residual, out, y, s, p, t, b, h, wd,
-                           cin, cout, groups, chunks, gps, vec, splits, eps, st);
+      is_bf16 ? run<bf16>(x, g, be, w, wr, bias, time_add, residual, out, y, s, p, t, b, h, wd,
+                          cin, cout, groups, chunks, gps, vec, splits, eps, geometry, path, st)
+              : run<float>(x, g, be, w, wr, bias, time_add, residual, out, y, s, p, t, b, h, wd,
+                           cin, cout, groups, chunks, gps, vec, splits, eps, nullptr, path, st);
   return static_cast<int>(err);
 }

@@ -9,6 +9,10 @@
 // view [B, T, H, S] of a [B, T, H, S] tensor writes one chunk, zero-filling
 // columns past S and rows past T: so head dims that are not a multiple of 64
 // (40, 80, 160) read no neighbouring head, and ragged tails read as zeros.
+// A box over more dims ({64 channels, bw, bh, bb} over an NHWC tensor, the
+// conv's A operand) writes its rows in raster order (x fastest): a
+// one-chunk tile of bw * bh * bb rows.  The swizzle depends only on the
+// shared address, so any such box lays out as above.
 // Tiles and chunks start at 1024-byte boundaries (the swizzle's period).
 //
 // wgmma reads such a tile two ways (the PTX ISA's canonical layouts with
@@ -141,25 +145,36 @@ inline cudaError_t encode_tiled_fn(EncodeTiledFn* out) {
   return cudaSuccess;
 }
 
-// The 4-D map of a contiguous [B, T, H, S] bf16 tensor read in boxes
-// {64 columns, 1 head, `rows` tokens, 1 batch} with the 128-byte swizzle;
-// out-of-bounds elements read as zeros.  Needs S % 8 == 0 (16-byte strides)
-// and a 16-byte aligned base.
-inline cudaError_t make_tile_map(CUtensorMap* map, const void* base, int b, int t, int h, int s,
-                                 int rows) {
+// The 4-D map of a contiguous bf16 tensor of dims {d[0] (innermost), d[1],
+// d[2], d[3]} read in boxes {box[0], .., box[3]} with the 128-byte swizzle
+// (box[0] * 2 <= 128 bytes); out-of-bounds elements, negative coordinates
+// included, read as zeros.  Needs d[0] % 8 == 0 (16-byte strides) and a
+// 16-byte aligned base.
+inline cudaError_t make_bf16_map(CUtensorMap* map, const void* base, const int (&d)[4],
+                                 const int (&box)[4]) {
   EncodeTiledFn fn;
   cudaError_t err = encode_tiled_fn(&fn);
   if (err != cudaSuccess) return err;
-  const cuuint64_t dims[4] = {(cuuint64_t)s, (cuuint64_t)h, (cuuint64_t)t, (cuuint64_t)b};
-  const cuuint64_t strides[3] = {(cuuint64_t)s * 2, (cuuint64_t)h * s * 2,
-                                 (cuuint64_t)t * h * s * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint64_t dims[4] = {(cuuint64_t)d[0], (cuuint64_t)d[1], (cuuint64_t)d[2],
+                              (cuuint64_t)d[3]};
+  const cuuint64_t strides[3] = {dims[0] * 2, dims[0] * dims[1] * 2,
+                                 dims[0] * dims[1] * dims[2] * 2};
+  const cuuint32_t boxes[4] = {(cuuint32_t)box[0], (cuuint32_t)box[1], (cuuint32_t)box[2],
+                               (cuuint32_t)box[3]};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        strides, boxes, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The 4-D map of a contiguous [B, T, H, S] bf16 tensor read in boxes
+// {64 columns, 1 head, `rows` tokens, 1 batch}: one box is one chunk of a
+// tile laid out as above.  Needs S % 8 == 0 and a 16-byte aligned base.
+inline cudaError_t make_tile_map(CUtensorMap* map, const void* base, int b, int t, int h, int s,
+                                 int rows) {
+  return make_bf16_map(map, base, {s, h, t, b}, {64, 1, rows, 1});
 }
 
 // The 3-D map of a contiguous [n, rows, cols] int8 tensor (cols contiguous,
@@ -279,6 +294,26 @@ template <> struct WgmmaSS<64> {
   }
 };
 
+template <> struct WgmmaSS<80> {
+  static __device__ __forceinline__ void run(float (&d)[40], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39"
+        "}, %40, %41, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
 template <> struct WgmmaSS<128> {
   static __device__ __forceinline__ void run(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
     asm volatile(
@@ -300,6 +335,35 @@ template <> struct WgmmaSS<128> {
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
           "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <> struct WgmmaSS<160> {
+  static __device__ __forceinline__ void run(float (&d)[80], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %82, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79"
+        "}, %80, %81, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+          "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+          "+f"(d[78]), "+f"(d[79])
         : "l"(a), "l"(b), "r"(scale_d));
   }
 };

@@ -17,6 +17,12 @@ the shape; the gate decides speed only (the plain route,
 rounding).  Differentiable: the backward recomputes through
 ``dot_product_attention``, as the JAX ``custom_vjp`` recomputes through
 ``_xla_reference_flat``.
+
+On the card, bf16 at the U-Net's head dims (40, 80, 160) with at most 80
+keys takes the kernel's wgmma path (``cross_plan``): K and V loaded once
+per CTA, 64-query tiles through a TMA ring; other bf16 shapes its mma.sync
+path, float32 its FMA path.  ``cross_attention.launches_by_path`` counts
+launches by path.
 """
 
 from __future__ import annotations
@@ -27,10 +33,59 @@ import torch
 
 from ldm_tf2_tpu_torch.ops import _build
 from ldm_tf2_tpu_torch.ops.attention import dot_product_attention
+from ldm_tf2_tpu_torch.ops.flash_attention import PATHS, SMS
 
 MAX_KV = 128    # the key tile (the JAX package's MAX_KV_PAD // 4)
 MAX_HEAD = 160  # the U-Net's widest head
 _DTYPES = (torch.float32, torch.bfloat16)
+
+# The wgmma path (``csrc/cross_attention.cu``): head dims it is built for,
+# its key tile (TMA zero-fills keys past Tk), query rows per tile, and Q
+# ring stages per consumer warpgroup.
+CROSS_WGMMA_HEADS = (40, 80, 160)
+CROSS_KEYS = 80
+CROSS_ROWS = 64
+CROSS_STAGES = 2
+
+
+def cross_plan(b: int, tq: int, tk: int, h: int, s: int, dtype) -> dict:
+    """The kernel's path for q [b, tq, h, s] and kv [b, tk, h, s], and the
+    wgmma path's geometry: a CTA per (b, head) and group of ``per_cta``
+    consecutive 64-query tiles, as many groups as bring the grid near one
+    wave of ``SMS`` CTAs; two consumer warpgroups (alternate tiles) where a CTA
+    has two tiles or more, else one.  K and V (``CROSS_KEYS`` rows of
+    ``chunks`` 64-column chunks each) load once per CTA, Q tiles through
+    ``CROSS_STAGES`` stages per warpgroup.  Shared memory: 1024 bytes to
+    align, K, V, the Q ring, 128 bytes of barriers."""
+    if dtype != torch.bfloat16:
+        return {"path": "fma"}
+    if s not in CROSS_WGMMA_HEADS or tk > CROSS_KEYS:
+        return {"path": "mma.sync" if s % 8 == 0 else "fma"}
+    tiles = -(-tq // CROSS_ROWS)
+    per_cta = -(-tiles // min(tiles, max(1, -(-SMS // (b * h)))))
+    nwg = 2 if per_cta >= 2 else 1
+    chunks = -(-(-(-s // 16) * 16) // 64)
+    kv_bytes = chunks * CROSS_KEYS * 128
+    q_bytes = chunks * CROSS_ROWS * 128
+    stages = CROSS_STAGES * nwg
+    return dict(path="wgmma", ksteps=-(-s // 16), chunks=chunks, per_cta=per_cta,
+                warpgroups=nwg, stages=stages, kv_bytes=kv_bytes, q_bytes=q_bytes,
+                smem_bytes=1024 + 2 * kv_bytes + stages * q_bytes + 128,
+                threads=128 * nwg + 32, grid=(-(-tiles // per_cta), b * h))
+
+
+_GEOMETRY_ARGS: dict = {}
+
+
+def _geometry_arg(plan: dict, key):
+    """The C entry's geometry argument for a wgmma plan, made once per
+    shape: {query rows, keys, stages, shared bytes, per_cta}."""
+    arg = _GEOMETRY_ARGS.get(key)
+    if arg is None:
+        arg = _GEOMETRY_ARGS[key] = (ctypes.c_int * 6)(
+            CROSS_ROWS, CROSS_KEYS, plan["stages"], plan["smem_bytes"], plan["per_cta"],
+            plan["warpgroups"])
+    return arg
 
 
 def kernel_takes(q_len: int, kv_len: int, size_per_head: int) -> bool:
@@ -54,17 +109,20 @@ def _launch(q, k, v, scale):
     b, tq, h, s = q.shape
     tk = k.shape[1]
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    lib = _build.load("cross_attention")
-    fn = lib.ldm_cross_attention
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    key = (b, tq, tk, h, s, q.dtype)
+    plan = cross_plan(*key)
+    geometry = _geometry_arg(plan, key) if plan["path"] == "wgmma" else None
+    fn = _build.entry("cross_attention", "ldm_cross_attention", [ctypes.c_void_p] * 4 + [
+        ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                             ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
     out = torch.empty_like(q)
+    path = ctypes.c_int(-1)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, tq, tk, h,
-             s, float(scale), int(q.dtype == torch.bfloat16),
-             torch.cuda.current_stream(q.device).cuda_stream)
+             s, float(scale), int(q.dtype == torch.bfloat16), geometry, ctypes.byref(path),
+             torch._C._cuda_getCurrentRawStream(q.get_device()))
     _build.check(err, "cross_attention kernel launch")
     cross_attention.launches += 1
+    cross_attention.launches_by_path[PATHS[2 - path.value]] += 1
     return out
 
 
@@ -91,7 +149,8 @@ class _CrossAttention(torch.autograd.Function):
 def cross_attention(q, k, v, scale: float):
     """Attention of q [B, Q, H, S] to a short k, v [B, C, H, S] (C <= 128):
     the single-tile kernel on the card, its plain version on the CPU.
-    ``cross_attention.launches`` counts kernel launches."""
+    ``cross_attention.launches`` counts kernel launches,
+    ``launches_by_path`` them by path ("wgmma", "mma.sync", "fma")."""
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
         raise ValueError(f"q, k, v must be [B, T, H, S], got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
@@ -111,3 +170,4 @@ def cross_attention(q, k, v, scale: float):
 
 
 cross_attention.launches = 0
+cross_attention.launches_by_path = dict.fromkeys(PATHS, 0)

@@ -68,6 +68,7 @@ WGMMA_TILES = {
 }
 V8_TILE_KEYS = 128  # keys per v8 tile: one 128-byte swizzled row per column
 SMEM_LIMIT = 232_448  # dynamic shared memory a block may use on Hopper
+SMS = 132  # the H100 SXM's multiprocessors
 SMEM_PER_SM = 233_472  # an SM's shared memory, 1 KB of it reserved per block
 PATHS = ("wgmma", "mma.sync", "fma")  # the C entries' path codes 2, 1, 0
 

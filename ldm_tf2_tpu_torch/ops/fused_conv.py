@@ -24,19 +24,24 @@ up to rounding, so ``kernel_takes`` decides speed, not results.
 
 Activations are NHWC.  Convolution kernels are in PyTorch's OIHW order
 (the checkpoint bridge transposes the JAX package's HWIO kernels once, at
-load time); the fused kernel reads them in place.  An NHWC tensor permuted
-to NCHW is a channels-last NCHW view, so no activation is copied on either
-side of the cuDNN convolution.
+load time).  The fused kernel's wgmma path (``conv_plan``: bf16 with Cin %
+64 == 0, every chain the models run in bf16) reads them relaid as ``[9,
+Cout, Cin]`` (``relaid_weight``: once per weight and version, cached); its
+other paths read OIHW in place.  An NHWC tensor permuted to NCHW is a
+channels-last NCHW view, so no activation is copied on either side of the
+cuDNN convolution.
 """
 
 from __future__ import annotations
 
 import ctypes
+import weakref
 
 import torch
 import torch.nn.functional as F
 
 from ldm_tf2_tpu_torch.ops import _build
+from ldm_tf2_tpu_torch.ops.flash_attention import PATHS, SMS
 from ldm_tf2_tpu_torch.ops.group_norm import _mxu_group_norm, stats_args
 from ldm_tf2_tpu_torch.ops.quant_conv import gn_silu_conv3x3_int8, use_int8_conv
 
@@ -44,6 +49,15 @@ _DTYPES = (torch.float32, torch.bfloat16)
 _IMPLS = ("auto", "xla", "pallas")
 _XLA_ONLY = ("dots", "dots3")
 _IMPL = "auto"
+
+# The wgmma conv's instantiations (``csrc/gn_silu_conv3x3.cu``): (consumer
+# warpgroups, 64-row sub-tiles per warpgroup, N tile) -> ring stages, as
+# many as the shared memory holds, at most 8.  A stage is one A tile (the M
+# tile's pixels x 64 channels) and one B tile (N output channels x 64
+# channels), 128-byte rows.
+CONV_WGMMA_STAGES = {(1, 1, 128): 8, (1, 1, 160): 8, (2, 1, 128): 7, (2, 1, 160): 6,
+                     (2, 2, 128): 4}
+MIN_SPLIT_STEPS = 4  # k-steps (one tap, 64 channels) a split takes at least
 
 
 def set_fused_conv_impl(impl: str) -> None:
@@ -86,6 +100,102 @@ def conv_splits(m: int, cin: int, cout: int) -> int:
     return -(-blocks // per_split)
 
 
+def _pow2_ceil(n: int) -> int:
+    return 1 << (n - 1).bit_length()
+
+
+def conv_plan(shape, cout: int, dtype) -> dict:
+    """The conv path of the fused chain for an input of ``shape`` [B, H, W,
+    Cin] and ``cout`` outputs, and the wgmma path's launch geometry.
+
+    float32 takes the FMA path (the JAX kernel's float32 products are exact;
+    TF32 would change results).  bf16 with Cin % 64 == 0 and Cout % 8 == 0
+    takes wgmma; other bf16 shapes the mma.sync path (Cin % 32 == 0; the C
+    side also needs 16-byte aligned operands) or FMA.  wgmma geometry:
+
+    * an M tile of ``bm`` pixels, 64 rows per sub-tile of a consumer
+      warpgroup: one warpgroup of one sub-tile where M = B*H*W <= 64, two
+      of two where 128 < M <= 256 (one tile covers every pixel, so each
+      weight byte is read once a call), else two of one;
+    * its TMA box {64 channels, bw, bh, bb}: powers of two, bw * bh * bb =
+      bm, bw <= 128 (each at most TMA's 256); pixels past the map are
+      zero-filled and never stored;
+    * an N tile ``bn`` of 160 where it divides Cout and a warpgroup holds
+      one sub-tile, else 128 (two sub-tiles of 160 columns would need 160
+      accumulator registers a thread);
+    * ``splits`` of the 9 * Cin / 64 k-steps where the tiles cannot fill
+      the card: as many as keep tiles * splits within one wave of ``SMS``,
+      each at least ``MIN_SPLIT_STEPS`` k-steps.  Each split writes its
+      own float32 slot and a last pass adds them in split order, so the
+      sum's order is a function of the shape only;
+    * shared memory: 1024 bytes to align, ``stages`` stages, 16 bytes of
+      barriers a stage."""
+    b, h, w, cin = shape
+    if dtype != torch.bfloat16:
+        return {"path": "fma"}
+    if cin % 64 or cout % 8:
+        return {"path": "mma.sync" if cin % 32 == 0 else "fma"}
+    m = b * h * w
+    nwg, mt = (1, 1) if m <= 64 else (2, 2) if 128 < m <= 256 else (2, 1)
+    bm = 64 * nwg * mt
+    bn = 160 if cout % 160 == 0 and mt == 1 else 128
+    bw = min(_pow2_ceil(w), 128, bm)
+    bh = min(_pow2_ceil(h), bm // bw)
+    bb = bm // (bw * bh)
+    tiles_m = -(-w // bw) * -(-h // bh) * -(-b // bb)
+    tiles_n = -(-cout // bn)
+    k_steps = 9 * cin // 64
+    splits = max(1, min(SMS // (tiles_m * tiles_n), k_steps // MIN_SPLIT_STEPS))
+    per_split = -(-k_steps // splits)
+    splits = -(-k_steps // per_split)
+    stages = CONV_WGMMA_STAGES[(nwg, mt, bn)]
+    stage_bytes = (bm + bn) * 128
+    return dict(path="wgmma", warpgroups=nwg, subtiles=mt, bm=bm, bn=bn, box=(bw, bh, bb),
+                tiles=(tiles_m, tiles_n), k_steps=k_steps, splits=splits,
+                per_split=per_split, stages=stages, stage_bytes=stage_bytes,
+                smem_bytes=1024 + stages * (stage_bytes + 16), threads=128 * nwg + 32,
+                grid=(tiles_m, tiles_n, splits))
+
+
+_GEOMETRY_ARGS: dict = {}
+
+
+def _geometry_arg(plan: dict, key):
+    """The C entry's geometry argument for a wgmma plan, made once per
+    shape: {bm, bn, stages, shared bytes, bw, bh, bb, per_split, consumer
+    warpgroups}."""
+    arg = _GEOMETRY_ARGS.get(key)
+    if arg is None:
+        arg = _GEOMETRY_ARGS[key] = (ctypes.c_int * 9)(
+            plan["bm"], plan["bn"], plan["stages"], plan["smem_bytes"], *plan["box"],
+            plan["per_split"], plan["warpgroups"])
+    return arg
+
+
+# id(weight) -> (weakref to it, dtype, its _version, the relaid copy)
+_RELAID: dict = {}
+
+
+def relaid_weight(w, dtype):
+    """``w`` [Cout, Cin, 3, 3] in ``dtype``, relaid as ``[9, Cout, Cin]``
+    (tap-major, Cin contiguous): the wgmma conv's K-major B operand, which
+    TMA can read (OIHW strides Cin by 9 elements).  Cached per weight
+    tensor, dtype and ``_version``: an in-place update (an optimizer step)
+    relays again, and the copy is freed with the weight.  Counts
+    ``gn_silu_conv3x3_fused.relayouts``."""
+    key = id(w)
+    hit = _RELAID.get(key)
+    if hit is not None and hit[0]() is w and hit[1] == dtype and hit[2] == w._version:
+        return hit[3]
+    cout, cin = w.shape[:2]
+    copy = w.detach().to(dtype).permute(2, 3, 0, 1).reshape(9, cout, cin).contiguous()
+    if hit is None or hit[0]() is not w:
+        weakref.finalize(w, _RELAID.pop, key, None)
+    _RELAID[key] = (weakref.ref(w), dtype, w._version, copy)
+    gn_silu_conv3x3_fused.relayouts += 1
+    return copy
+
+
 def conv2d(x, w, b=None, stride: int = 1, padding: int = 0):
     """NHWC convolution with an OIHW kernel; weights cast to x's dtype."""
     out = F.conv2d(
@@ -123,28 +233,40 @@ def _launch(x, gamma, beta, w, b, time_add, residual_add, num_groups, eps):
     dt = x.dtype
     bsz, h, wd, cin = x.shape
     cout = w.shape[0]
+    key = (tuple(x.shape), cout, dt)
+    plan = conv_plan(key[0], cout, dt)
     f32 = dict(device=x.device, dtype=torch.float32)
     gamma, beta = gamma.to(**f32).contiguous(), beta.to(**f32).contiguous()
-    x, w, b = x.contiguous(), w.to(dt).contiguous(), b.to(dt).contiguous()
+    x, b = x.contiguous(), b.to(dt).contiguous()
     extras = [None if t is None else t.to(dt).contiguous()
               for t in (time_add, residual_add)]
     _, chunks, gps, vec, partial, tickets = stats_args(x, num_groups)
-    splits = conv_splits(bsz * h * wd, cin, cout) if dt == torch.bfloat16 else 1
+    if plan["path"] == "wgmma":
+        geometry = _geometry_arg(plan, key)
+        wr, w, splits = relaid_weight(w, dt), None, plan["splits"]
+    else:
+        geometry, wr, w = None, None, w.to(dt).contiguous()
+        splits = conv_splits(bsz * h * wd, cin, cout) if dt == torch.bfloat16 else 1
     # per-channel mean and rstd * gamma (rounded up to 16 bytes), then the
     # split-K partial sums
     stats = -(-2 * bsz * cin // 4) * 4
     scratch = torch.empty(stats + (splits * bsz * h * wd * cout if splits > 1 else 0), **f32)
     y = torch.empty_like(x)  # the normalized input
     out = torch.empty((bsz, h, wd, cout), dtype=dt, device=x.device)
-    fn = _build.entry("gn_silu_conv3x3", "ldm_gn_silu_conv3x3", [ctypes.c_void_p] * 12 + [
-        ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    err = fn(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w.data_ptr(), b.data_ptr(),
-             *(None if t is None else t.data_ptr() for t in extras), out.data_ptr(),
-             y.data_ptr(), scratch.data_ptr(), partial, tickets, bsz, h, wd, cin, cout,
-             num_groups, chunks, gps, vec, splits, float(eps), int(dt == torch.bfloat16),
+    path = ctypes.c_int(-1)
+    fn = _build.entry("gn_silu_conv3x3", "ldm_gn_silu_conv3x3", [ctypes.c_void_p] * 13 + [
+        ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                              ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+    err = fn(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+             None if w is None else w.data_ptr(), None if wr is None else wr.data_ptr(),
+             b.data_ptr(), *(None if t is None else t.data_ptr() for t in extras),
+             out.data_ptr(), y.data_ptr(), scratch.data_ptr(), partial, tickets, bsz, h, wd,
+             cin, cout, num_groups, chunks, gps, vec, splits, float(eps),
+             int(dt == torch.bfloat16), geometry, ctypes.byref(path),
              torch._C._cuda_getCurrentRawStream(x.get_device()))
     _build.check(err, "gn_silu_conv3x3 kernel launch")
     gn_silu_conv3x3_fused.launches += 1
+    gn_silu_conv3x3_fused.launches_by_path[PATHS[2 - path.value]] += 1
     return out
 
 
@@ -181,7 +303,8 @@ def gn_silu_conv3x3_fused(x, gamma, beta, w, b, *, time_add=None, residual_add=N
 
     A CPU tensor takes the plain version; a CUDA tensor takes the kernel,
     or raises.  Differentiable on both.  ``gn_silu_conv3x3_fused.launches``
-    counts kernel calls."""
+    counts kernel calls, ``launches_by_path`` them by conv path ("wgmma",
+    "mma.sync", "fma"), ``relayouts`` the wgmma path's weight relayouts."""
     if x.dim() != 4 or x.dtype not in _DTYPES:
         raise TypeError(f"x must be [B, H, W, Cin] in one of {_DTYPES}")
     bsz, h, wd, cin = x.shape
@@ -207,6 +330,8 @@ def gn_silu_conv3x3_fused(x, gamma, beta, w, b, *, time_add=None, residual_add=N
 
 
 gn_silu_conv3x3_fused.launches = 0
+gn_silu_conv3x3_fused.launches_by_path = dict.fromkeys(PATHS, 0)
+gn_silu_conv3x3_fused.relayouts = 0
 
 
 def gn_silu_conv3x3(x, gamma, beta, w, b, *, time_add=None, residual_add=None,

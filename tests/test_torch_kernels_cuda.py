@@ -428,9 +428,14 @@ def test_group_stats_is_one_deterministic_launch_on_card(dtype, shape):
                                                  ((4, 4, 4, 2560), 1280, "t"),
                                                  ((4, 8, 8, 1280), 1280, "residual"),
                                                  ((2, 64, 64, 512), 256, None),
-                                                 ((2, 8, 8, 48), 64, "t")])
+                                                 ((2, 8, 8, 48), 64, "t"),
+                                                 ((3, 5, 7, 128), 136, "residual"),
+                                                 ((2, 8, 8, 96), 64, "t")])
 def test_chain_kernel_matches_plain_on_card(dtype, shape, cout, epilogue):
-    """Cin = 48 takes the FMA path in bf16 too (48 % 32 != 0, 16 groups)."""
+    """On the path ``conv_plan`` names: wgmma for bf16 with Cin % 64 == 0
+    (a ragged map and N included: TMA's zero fill is the SAME border and
+    the tile's tail), mma.sync for Cin = 96, FMA for float32 and for Cin =
+    48 (48 % 32 != 0, 16 groups)."""
     _need_cuda()
     from ldm_tf2_tpu_torch.ops import fused_conv as tfc
 
@@ -450,11 +455,14 @@ def test_chain_kernel_matches_plain_on_card(dtype, shape, cout, epilogue):
         extra["residual_add"] = torch.randn(b, h, w, cout, generator=g,
                                             device="cuda").to(dtype)
     before = tfc.gn_silu_conv3x3_fused.launches
+    paths = dict(tfc.gn_silu_conv3x3_fused.launches_by_path)
     got = tfc.gn_silu_conv3x3_fused(x, gamma, beta, wk, bias, num_groups=groups, **extra)
     want = tfc._plain_chain(x, gamma, beta, wk, bias, extra.get("time_add"),
                             extra.get("residual_add"), groups, 1e-5)
     torch.cuda.synchronize()
     assert tfc.gn_silu_conv3x3_fused.launches == before + 1
+    assert _took(tfc.gn_silu_conv3x3_fused, paths) == {
+        tfc.conv_plan(shape, cout, dtype)["path"]: 1}
     assert bool(torch.isfinite(got.float()).all())
     assert _rel(got, want) < (1e-4 if dtype == torch.float32 else 1e-2)
 
@@ -462,8 +470,13 @@ def test_chain_kernel_matches_plain_on_card(dtype, shape, cout, epilogue):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,t,kv,h,s", [(4, 1024, 77, 8, 40), (4, 64, 77, 8, 160),
-                                        (2, 100, 128, 2, 64), (1, 33, 5, 1, 24)])
+                                        (2, 100, 128, 2, 64), (1, 33, 5, 1, 24),
+                                        (4, 256, 77, 8, 80), (2, 100, 80, 2, 40),
+                                        (1, 33, 5, 1, 80)])
 def test_cross_kernel_matches_plain_on_card(dtype, b, t, kv, h, s):
+    """On the path ``cross_plan`` names: wgmma for bf16 at the U-Net's head
+    dims with at most 80 keys (ragged query tiles and 5 keys included),
+    mma.sync for other bf16 shapes, FMA for float32."""
     _need_cuda()
     from ldm_tf2_tpu_torch.ops import cross_attention as tca
 
@@ -471,11 +484,86 @@ def test_cross_kernel_matches_plain_on_card(dtype, b, t, kv, h, s):
     q, k, v = (torch.randn(b, n, h, s, generator=g, device="cuda").to(dtype)
                for n in (t, kv, kv))
     before = tca.cross_attention.launches
+    paths = dict(tca.cross_attention.launches_by_path)
     got = tca.cross_attention(q, k, v, s**-0.5)
     want = tca._plain_cross_attention(q, k, v, s**-0.5)
     torch.cuda.synchronize()
     assert tca.cross_attention.launches == before + 1
+    assert _took(tca.cross_attention, paths) == {
+        tca.cross_plan(b, t, kv, h, s, dtype)["path"]: 1}
     assert _rel(got, want) < (1e-5 if dtype == torch.float32 else 1e-2)
+
+
+@pytest.mark.cuda
+def test_cross_wgmma_with_scores_far_below_the_row_max_on_card():
+    """Scores 30x wider than the U-Net's: many p fall below 2^-64, so tiles
+    take the exact division's slow branch (a warp vote) and masked keys give
+    p = 0; the result stays within the bf16 tolerance on wgmma."""
+    _need_cuda()
+    from ldm_tf2_tpu_torch.ops import cross_attention as tca
+
+    g = torch.Generator(device="cuda").manual_seed(25)
+    q, k, v = (torch.randn(4, n, 8, 40, generator=g, device="cuda") for n in (1024, 77, 77))
+    q, k, v = (q * 30).bfloat16(), k.bfloat16(), v.bfloat16()
+    paths = dict(tca.cross_attention.launches_by_path)
+    got = tca.cross_attention(q, k, v, 40**-0.5)
+    want = tca._plain_cross_attention(q, k, v, 40**-0.5)
+    torch.cuda.synchronize()
+    assert _took(tca.cross_attention, paths) == {"wgmma": 1}
+    assert _rel(got, want) < 1e-2
+
+
+@pytest.mark.cuda
+def test_cross_row_division_is_div_rn_on_card():
+    """The wgmma path divides p by the row sum with one reciprocal per row
+    (``div_by_row``); every quotient must carry div.rn.f32's bits: p over
+    [0, 1] on a log scale down to 2^-149 and 0, l over [1, 80]."""
+    _need_cuda()
+    import ctypes
+
+    from ldm_tf2_tpu_torch.ops import _build
+
+    g = torch.Generator(device="cuda").manual_seed(23)
+    n = 1 << 22
+    p = torch.exp2(-torch.rand(n, generator=g, device="cuda") * 160).clamp_max(1.0)
+    p[:4096] = torch.rand(4096, generator=g, device="cuda")  # the common range
+    p[4096:4100] = torch.tensor([0.0, 1.0, 2.0**-64, 2.0**-149], device="cuda")
+    l = 1.0 + torch.rand(n, generator=g, device="cuda") * 79
+    mismatches = torch.zeros(1, dtype=torch.int32, device="cuda")
+    fn = _build.entry("cross_attention", "ldm_cross_div_check",
+                      [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_void_p])
+    err = fn(p.data_ptr(), l.data_ptr(), n, mismatches.data_ptr(),
+             torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "div check")
+    assert int(mismatches.item()) == 0
+
+
+@pytest.mark.cuda
+def test_chain_wgmma_relayout_cache_and_split_order_on_card():
+    """The wgmma conv relays a weight once per version and repeats its bits
+    (split-K partials added in split order); an in-place update relays
+    again and changes the result as the plain version does."""
+    _need_cuda()
+    from ldm_tf2_tpu_torch.ops import fused_conv as tfc
+
+    g = torch.Generator(device="cuda").manual_seed(24)
+    shape, cout = (4, 8, 8, 1920), 1280
+    assert tfc.conv_plan(shape, cout, torch.bfloat16)["splits"] > 1
+    x = torch.randn(shape, generator=g, device="cuda").bfloat16()
+    gamma, beta = torch.ones(1920, device="cuda"), torch.zeros(1920, device="cuda")
+    w = (torch.randn(cout, 1920, 3, 3, generator=g, device="cuda") * 0.01).bfloat16()
+    bias = torch.zeros(cout, device="cuda").bfloat16()
+    count = tfc.gn_silu_conv3x3_fused.relayouts
+    first = tfc.gn_silu_conv3x3_fused(x, gamma, beta, w, bias)
+    again = tfc.gn_silu_conv3x3_fused(x, gamma, beta, w, bias)
+    assert tfc.gn_silu_conv3x3_fused.relayouts == count + 1
+    assert torch.equal(first, again)
+    w.mul_(-1)  # a version bump: relaid again, and the output flips sign
+    flipped = tfc.gn_silu_conv3x3_fused(x, gamma, beta, w, bias)
+    torch.cuda.synchronize()
+    assert tfc.gn_silu_conv3x3_fused.relayouts == count + 2
+    assert torch.equal(flipped, -first)
 
 
 @pytest.mark.cuda
