@@ -24,9 +24,15 @@ final line is printed:
    160, 512) takes wgmma; each fused chain and cross-attention launch's
    path too (wgmma in bf16, FMA in float32), and the chain's device time
    summed over one U-Net eval's 44 chains (``OPT_EVAL_CHAINS``) against the
-   default chain's and the bound; beside each timed row's wall time, its
-   device time per call from ``torch.profiler`` (``device_ms``, and the
-   library call's ``library_device_ms``);
+   default chain's and the bound; the fused FFN at every ``FFN_SHAPES``
+   shape and the s8 conv at every ``SERVE_CHAINS`` shape with each launch's
+   path (wgmma in bf16, FMA for the float32 FFN), two FFN calls held
+   bit-equal, the FFN's library yardstick (the unfused chain of PyTorch
+   calls), and their device times summed over one U-Net eval's 16 FFNs
+   (``FFN_EVAL``, at CFG batch 4 and 8) and 29 int8 convs
+   (``SERVE_EVAL_CHAINS``) against the bound; beside each timed row's wall
+   time, its device time per call from ``torch.profiler`` (``device_ms``,
+   and the library call's ``library_device_ms``);
 4. unet: one full-width U-Net eval (CFG batch 4, 32x32 latent, seeded
    weights) on the card against the same weights on the CPU in float32,
    plain, under ``tpu.attention_impl: xla`` (no flash launch) and in the
@@ -75,8 +81,9 @@ final line is printed:
    float32.  The kernels phase also checks row 4, the W8A8 FFN that no path
    dispatches (``FFN8_SHAPES``), and the whole int8 chain (row 10).
 
-The main path, serve, LDM train and AE train phases also check that no
-bf16 launch of theirs took the FMA path.  The last lines are the
+The main path, opt-in, serve, LDM train and AE train phases also check
+that no bf16 launch of theirs took the FMA path and that every FFN and s8
+conv launch took wgmma.  The last lines are the
 kernels JSON, the nvidia-smi line and ``{"ok": true, "device": {...}}``.
 """
 
@@ -84,6 +91,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -145,6 +153,12 @@ SERVE_CHAINS = [
 ]
 SERVE_EVAL = {"int8_chains": 29, "whole_chains": 19, "self_attentions": 16,
               "pv_int8": 5, "ffn": 16}
+# How many of one serve eval's 29 int8 chains run at each of SERVE_CHAINS,
+# and of one bf16 eval's 16 FFNs at each of FFN_SHAPES' first four (CFG batch
+# 4; the serve eval's at CFG 8 are the last four): the weights of rows 11's
+# and 2's per-eval sums of device times
+SERVE_EVAL_CHAINS = [2, 5, 1, 5, 1, 1, 5, 1, 2, 1, 1, 1, 1, 2]
+FFN_EVAL = [5, 5, 5, 1]
 
 # Tolerances against the plain version computed in float32 from the same
 # inputs.  float32: only summation order differs.  bfloat16: the kernel
@@ -434,15 +448,19 @@ def errors(got, ref):
 
 def _path_wrappers():
     """The wrappers that count launches by path ("wgmma", "mma.sync",
-    "fma"): the flash kernels, the fused chain and the cross-attention."""
+    "fma"): the flash kernels, the fused FFN, the s8 conv, the fused chain
+    and the cross-attention."""
     from ldm_tf2_tpu_torch.ops import cross_attention as ca
     from ldm_tf2_tpu_torch.ops import flash_attention as fa
     from ldm_tf2_tpu_torch.ops import fused_conv as fc
+    from ldm_tf2_tpu_torch.ops import quant_conv as qc
+    from ldm_tf2_tpu_torch.ops.fused_ffn import fused_ffn
 
     return {"flash_attention": fa.flash_attention,
             "flash_backward_dq": fa.flash_backward_dq,
             "flash_backward_dkv": fa.flash_backward_dkv,
             "flash_attention_pv_int8": fa.flash_attention_pv_int8,
+            "fused_ffn": fused_ffn, "s8_conv3x3": qc.s8_conv3x3,
             "gn_silu_conv3x3_fused": fc.gn_silu_conv3x3_fused,
             "cross_attention": ca.cross_attention}
 
@@ -538,26 +556,58 @@ def phase_kernels():
                   randn(d, f, scale=d**-0.5), randn(f, scale=0.1),
                   randn(f, d, scale=f**-0.5), randn(d, scale=0.1)]
             ws = [w.to(dtype) for w in ws]
-            got = fused_ffn(x, lns, lnb, *ws)
+            out = []
+            took = paths_of(lambda: out.extend(fused_ffn(x, lns, lnb, *ws) for _ in range(2)))
+            got = out[0]
             ref = _plain_ffn(x.float(), lns, lnb, *[w.float() for w in ws])
             torch.cuda.synchronize()
             max_abs, rel = errors(got, ref)
             tol_abs, tol_rel = FFN_TOL[name]
-            ok = max_abs < tol_abs and rel < tol_rel
+            path = "wgmma" if dtype == torch.bfloat16 else "fma"
+            took = took.get("fused_ffn", {})
+            same = bool(torch.equal(out[0], out[1]))  # deterministic
+            ok = (max_abs < tol_abs and rel < tol_rel and same
+                  and took == {**dict.fromkeys(took, 0), path: 2})
             ms = time_ms(lambda: fused_ffn(x, lns, lnb, *ws))
             plain = time_ms(lambda: _plain_ffn(x, lns, lnb, *ws))
-            dev = device_ms(lambda: fused_ffn(x, lns, lnb, *ws))
+            parts = {}  # the kernel's launches: LN, up, down (and the split pass)
+            dev = device_ms(lambda: fused_ffn(x, lns, lnb, *ws), by_kernel=parts)
+            # the library yardstick: the unfused chain of PyTorch calls
+            w1 = torch.cat([ws[0], ws[2]], dim=1).T.contiguous()
+            b1 = torch.cat([ws[1], ws[3]])
+            w2t = ws[4].T.contiguous()
+            lnd = (lns.to(dtype), lnb.to(dtype))
+
+            def library():
+                h = F.linear(F.layer_norm(x, (d,), *lnd), w1, b1)
+                return F.linear(h[..., :f] * F.gelu(h[..., f:]), w2t, ws[5]) + x
+
+            lib = time_ms(library)
+            lib_dev = device_ms(library)
             nbytes = (2 * x.numel() + sum(w.numel() for w in ws)) * x.element_size() \
                 + 2 * d * 4
             bms, by = bound_ms(nbytes, 6.0 * m * d * f, name)
             row = dict(shape=[m, d], dtype=name, max_abs_err=max_abs,
-                       rel_l2=rel, ok=ok, ms=ms, plain_ms=plain, library_ms=None,
-                       bound_ms=bms, bound_by=by, device_ms=dev, library_device_ms=None)
+                       rel_l2=rel, ok=ok, ms=ms, plain_ms=plain, library_ms=lib,
+                       bound_ms=bms, bound_by=by, device_ms=dev, library_device_ms=lib_dev,
+                       paths=took, deterministic=same)
             results["fused_ffn"].append(row)
+            parts = ", ".join(f"{(re.findall(r'ffn_[a-z0-9]+', k) or [k[:24]])[0]} {v:.4f}"
+                              for k, v in parts.items())
             log(f"fused_ffn {name} M {m} d {d}: max_abs {max_abs:.3e} (tol "
-                f"{tol_abs:g}) rel_l2 {rel:.3e} (tol {tol_rel:g}) "
-                f"{'PASS' if ok else 'FAIL'}; ms {ms:.4f} plain {plain:.4f} "
-                f"bound {bms:.4f} ({by}); device {dev:.4f}")
+                f"{tol_abs:g}) rel_l2 {rel:.3e} (tol {tol_rel:g}) two calls equal {same} "
+                f"path {took} (want {path}) {'PASS' if ok else 'FAIL'}; ms {ms:.4f} plain "
+                f"{plain:.4f} library {lib:.4f} bound {bms:.4f} ({by}); device {dev:.4f} "
+                f"({parts}), library {lib_dev:.4f}")
+        if dtype == torch.bfloat16:  # row 2 over one eval's 16 FFNs, CFG batch 4 and 8
+            rows = results["fused_ffn"]
+            for cfg, part in ((4, rows[:4]), (8, rows[4:8])):
+                EVAL_SUMS[f"fused_ffn cfg {cfg}"] = sums = {
+                    k: sum(n * r[k] for n, r in zip(FFN_EVAL, part))
+                    for k in ("device_ms", "library_device_ms", "bound_ms")}
+                log(f"fused_ffn per U-Net eval at CFG batch {cfg} ({sum(FFN_EVAL)} FFNs, "
+                    f"FFN_EVAL): device {sums['device_ms']:.4f} ms, library "
+                    f"{sums['library_device_ms']:.4f} ms, bound {sums['bound_ms']:.4f} ms")
     phase_int8_kernels(results, randn)
     phase_ffn_int8_kernel(results, randn)
     phase_backward_kernels(results, randn)
@@ -632,11 +682,14 @@ def phase_int8_kernels(results, randn):
         extra = ({"time_add": randn(b, cout).bfloat16()} if epilogue == "t" else
                  {"residual_add": randn(b, h, w, cout).bfloat16()})
         args = (y8, sa, w8, ws, bias)
-        got = qc.s8_conv3x3(*args, out_dtype=torch.bfloat16, **extra)
+        out = []
+        took = paths_of(lambda: out.append(
+            qc.s8_conv3x3(*args, out_dtype=torch.bfloat16, **extra)))["s8_conv3x3"]
+        got = out[0]
         want = qc._plain_s8_conv3x3(*args, extra.get("time_add"),
                                     extra.get("residual_add"), torch.bfloat16)
         torch.cuda.synchronize()
-        ok = bool(torch.equal(got, want))
+        ok = bool(torch.equal(got, want)) and took == {**dict.fromkeys(took, 0), "wgmma": 1}
         err = float((got.float() - want.float()).abs().max())
         ms = time_ms(lambda: qc.s8_conv3x3(*args, out_dtype=torch.bfloat16, **extra))
         plain = time_ms(lambda: qc._plain_s8_conv3x3(
@@ -660,13 +713,21 @@ def phase_int8_kernels(results, randn):
         results["s8_conv3x3"].append(dict(
             shape=[*shape, cout], epilogue=epilogue, dtype="bfloat16", max_abs_err=err,
             ok=ok, ms=ms, plain_ms=plain, library_ms=lib, bf16_chain_ms=chain,
-            bound_ms=bms, bound_by=by, device_ms=dev, library_device_ms=lib_dev))
+            bound_ms=bms, bound_by=by, device_ms=dev, library_device_ms=lib_dev, paths=took))
         log(f"s8_conv3x3 {list(shape)} -> {cout} +{epilogue}: equal to the plain "
-            f"version {'PASS' if ok else 'FAIL'} (max abs {err:.1e}); ms {ms:.4f} "
-            f"plain {plain:.4f} cudnn-f32 {lib:.4f} bf16 chain {chain:.4f} "
-            f"bound {bms:.4f} ({by}); device {dev:.4f}, cudnn-f32 {lib_dev:.4f}")
+            f"version, path {took} (want wgmma) {'PASS' if ok else 'FAIL'} (max abs "
+            f"{err:.1e}); ms {ms:.4f} plain {plain:.4f} cudnn-f32 {lib:.4f} bf16 chain "
+            f"{chain:.4f} bound {bms:.4f} ({by}); device {dev:.4f}, cudnn-f32 {lib_dev:.4f}")
         if (shape, cout, epilogue) == chains[0]:
             phase_int8_chain(results, randn, shape, cout, bias, extra, chain, chain_dev)
+    # row 11 over one serve eval's 29 int8 convs
+    conv_rows = results["s8_conv3x3"][:len(chains)]
+    EVAL_SUMS["s8_conv3x3"] = sums = {
+        k: sum(n * r[k] for n, r in zip(SERVE_EVAL_CHAINS, conv_rows))
+        for k in ("device_ms", "library_device_ms", "bound_ms")}
+    log(f"s8_conv3x3 per U-Net eval at CFG batch 8 ({sum(SERVE_EVAL_CHAINS)} convs, "
+        f"SERVE_EVAL_CHAINS): device {sums['device_ms']:.4f} ms, cudnn-f32 "
+        f"{sums['library_device_ms']:.4f} ms, bound {sums['bound_ms']:.4f} ms")
 
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[-1]
@@ -803,8 +864,9 @@ def phase_ffn_int8_kernel(results, randn):
                 f"flip {flipped:.2%} {'PASS' if ok else 'FAIL'}{times}")
 
 
-# Row 7's device time summed over one U-Net eval's chains, the default
-# chain's and the bound (``phase_opt_in_kernels``, bf16)
+# Device times summed over one U-Net eval's calls of a kernel, the library
+# call's and the bound, by row: 7 (``phase_opt_in_kernels``, bf16), 11 and
+# 2 (at CFG batch 4 and 8; ``phase_kernels``)
 EVAL_SUMS: dict = {}
 
 
@@ -923,12 +985,13 @@ def phase_opt_in_kernels(results, randn):
                 path=_one_path(took.get("gn_silu_conv3x3_fused", {})))
         if dtype == torch.bfloat16:  # row 7 over one U-Net eval's 44 chains
             unet_rows = results["gn_silu_conv3x3_fused"][:len(OPT_EVAL_CHAINS)]
-            EVAL_SUMS.update({k: sum(n * r[k] for n, r in zip(OPT_EVAL_CHAINS, unet_rows))
-                              for k in ("device_ms", "library_device_ms", "bound_ms")})
+            EVAL_SUMS["gn_silu_conv3x3_fused"] = sums = {
+                k: sum(n * r[k] for n, r in zip(OPT_EVAL_CHAINS, unet_rows))
+                for k in ("device_ms", "library_device_ms", "bound_ms")}
             log(f"gn_silu_conv3x3_fused per U-Net eval ({sum(OPT_EVAL_CHAINS)} chains, "
-                f"OPT_EVAL_CHAINS): device {EVAL_SUMS['device_ms']:.4f} ms, default bf16 "
-                f"chain {EVAL_SUMS['library_device_ms']:.4f} ms, bound "
-                f"{EVAL_SUMS['bound_ms']:.4f} ms")
+                f"OPT_EVAL_CHAINS): device {sums['device_ms']:.4f} ms, default bf16 "
+                f"chain {sums['library_device_ms']:.4f} ms, bound "
+                f"{sums['bound_ms']:.4f} ms")
         for i, (b, tq, tk, h, sh) in enumerate(OPT_CROSS):
             timed = dtype == torch.bfloat16 or i == 0
             q, k, v = (randn(b, t, h, sh).to(dtype) for t in (tq, tk, tk))
@@ -1308,10 +1371,14 @@ def _read(counters) -> dict:
 
 
 def check_no_fma(what: str) -> None:
-    """A bf16 path run: no launch of the last run took the FMA path."""
+    """A bf16 path run: no launch of the last run took the FMA path, and
+    every FFN and s8 conv launch took wgmma."""
     fma = {k: p["fma"] for k, p in LAST_PATHS.items() if p["fma"]}
     log(f"{what}: launches by path {LAST_PATHS}")
     check(not fma, f"{what}: bf16 launches took the FMA path: {fma}")
+    off = {k: LAST_PATHS[k] for k in ("fused_ffn", "s8_conv3x3")
+           if sum(LAST_PATHS[k].values()) != LAST_PATHS[k]["wgmma"]}
+    check(not off, f"{what}: FFN or s8 conv launches off the wgmma path: {off}")
 
 
 def _counters():
@@ -1405,6 +1472,7 @@ def phase_opt_in(card: str, run: dict):
         seconds, launches, images, x0 = _counted_call(models, schedule, ids, shape, kwargs)
         relayouts.append(chain.relayouts)
         paths = {k: dict(LAST_PATHS[k]) for k in ("gn_silu_conv3x3_fused", "cross_attention")}
+        check_no_fma("opt-in main path")
         _set_switches("auto", "auto", False)
         default_s = _counted_call(models, schedule, ids, shape, kwargs)[0]
         _set_switches("pallas", "pallas", True)
@@ -1631,14 +1699,14 @@ def _kernel_group(name: str) -> str:
         return "flash_attention kernel"
     if "pv_int8" in low or "v_quant" in low:
         return "flash_attention_pv_int8 kernels"
+    if "s8_conv" in low or "s8_splitk" in low:
+        return "s8_conv3x3 kernels"
     if any(k in low for k in ("conv_wgmma", "conv_mma", "conv_fma", "splitk_epilogue")):
         return "gn_silu_conv3x3 kernels"
     if any(k in low for k in ("cross_wgmma", "cross_mma", "cross_fma")):
         return "cross_attention kernel"
     if "gn_channel_stats" in low or "gn_normalize" in low:
         return "GroupNorm stats / normalize kernels"
-    if "s8_conv" in low:
-        return "s8_conv3x3 kernel"
     if any(k in low for k in ("gn_stats", "gn_amax", "gn_quant")):
         return "gn_silu_quant kernels"
     if "ffn_" in low:
@@ -2054,7 +2122,7 @@ def main() -> int:
     phase_unet()
     phase_grad()
     launches, run = phase_main_path(card)
-    by_path = {"flash_attention": dict(LAST_PATHS["flash_attention"])}
+    by_path = {k: dict(LAST_PATHS[k]) for k in ("flash_attention", "fused_ffn")}
     # the opt-in kernels report their launches in the opt-in main path (the
     # stats kernel in its GroupNorm "stats" run), the serving path's in the
     # serve run, the backward kernels theirs in the LDM train run (5 steps)
@@ -2065,7 +2133,7 @@ def main() -> int:
     launches["group_stats"] = stats["group_stats"]
     phase_samplers(card, run)
     serve = phase_serve(card, run["models"])
-    by_path["flash_attention_pv_int8"] = dict(LAST_PATHS["flash_attention_pv_int8"])
+    by_path.update({k: dict(LAST_PATHS[k]) for k in ("flash_attention_pv_int8", "s8_conv3x3")})
     launches.update({k: serve[k] for k in ("gn_silu_quant", "s8_conv3x3",
                                            "flash_attention_pv_int8")})
     del run
@@ -2119,8 +2187,9 @@ def main() -> int:
         })
         if name in by_path:  # the launches above by path (wgmma, mma.sync, fma)
             kernels[-1]["launches_by_path"] = by_path[name]
-        if name == "gn_silu_conv3x3_fused":  # over one U-Net eval's 44 chains
-            kernels[-1]["per_eval"] = dict(EVAL_SUMS)
+        per_eval = {k: v for k, v in EVAL_SUMS.items() if k.split()[0] == name}
+        if per_eval:  # over one U-Net eval's calls (rows 2, 7, 11)
+            kernels[-1]["per_eval"] = per_eval
         if name == "fused_ffn_int8":  # on no path; row 2 as the yardstick
             kernels[-1].update(kernels_phase_launches=ffn8_checked,
                                bf16_ffn_ms=main_row["bf16_ffn_ms"])

@@ -75,11 +75,23 @@ def validate(config: dict) -> dict:
         value = sampling.get(key, 1)
         if not _is_int(value) or value < 1:
             raise ValueError(f"ldm_sampling.{key} must be an int >= 1, got {value!r}")
+    if sampling.get("cache_interval", 1) > 1 and sampling.get("sampler", "ddim") not in (
+        "ddim", "dpm_solver_pp_2m",
+    ):
+        raise ValueError(
+            "ldm_sampling.cache_interval > 1 requires sampler: ddim or "
+            f"dpm_solver_pp_2m, got {sampling.get('sampler')!r}"
+        )
     rescale = sampling.get("guidance_rescale", 0.0)
     if not _is_number(rescale) or not 0.0 <= rescale <= 1.0:
         raise ValueError(
             f"ldm_sampling.guidance_rescale must be in [0, 1], got {rescale!r}"
         )
+    strength = sampling.get("strength", 0.75)
+    if not _is_number(strength) or not 0.0 <= strength <= 1.0:
+        raise ValueError(f"ldm_sampling.strength must be in [0, 1], got {strength!r}")
+    if sampling.get("mask_path") and not sampling.get("init_image_path"):
+        raise ValueError("ldm_sampling.mask_path requires ldm_sampling.init_image_path")
     spacing = config["ldm"].get("timestep_spacing", "uniform")
     if spacing not in ("uniform", "trailing", "karras"):
         raise ValueError(
@@ -127,6 +139,25 @@ def validate(config: dict) -> dict:
         raise ValueError(
             f"tpu.attention_impl must be auto|xla|flash, got "
             f"{tpu['attention_impl']!r}"
+        )
+    model_axis = (tpu.get("mesh") or {}).get("model", 1)
+    for key in ("sequence_parallel", "tensor_parallel"):
+        if not isinstance(tpu[key], bool):
+            raise ValueError(f"tpu.{key} must be a bool, got {tpu[key]!r}")
+        if tpu[key] and model_axis in (0, 1):
+            raise ValueError(
+                f"tpu.{key} requires a 'model' axis of size > 1 in tpu.mesh, got "
+                f"{tpu.get('mesh')}"
+            )
+    if tpu["tensor_parallel"] and tpu["sequence_parallel"]:
+        raise ValueError(
+            "tpu.tensor_parallel and tpu.sequence_parallel both claim the "
+            "'model' mesh axis — enable at most one"
+        )
+    cache_dir = tpu.get("compile_cache_dir")
+    if cache_dir is not None and not isinstance(cache_dir, str):
+        raise ValueError(
+            f"tpu.compile_cache_dir must be null or a directory path, got {cache_dir!r}"
         )
     if tpu["tensor_parallel"] and tpu["quantize"] != "none":
         raise ValueError(

@@ -283,21 +283,6 @@ splitk_epilogue_kernel(const float* __restrict__ partial, const T* __restrict__ 
 
 // ------------------------------------------------------------ wgmma path
 
-// NWG consumer warpgroups, each owning MT sub-tiles of 64 output rows; BN
-// output channels per CTA; STAGES ring stages of one A and one B tile.
-template <int NWG, int MT, int BN, int STAGES>
-struct ConvWgmma {
-  static constexpr int BM = 64 * MT * NWG;
-  static constexpr int A_BYTES = BM * 128;  // BM pixels x 64 channels
-  static constexpr int B_BYTES = BN * 128;  // BN output channels x 64 channels
-  static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
-  static constexpr int THREADS = NWG * 128 + 32;  // + one producer warp
-  // 1024 bytes to align the dynamic base, the ring, its full and empty barriers
-  static constexpr int SMEM = 1024 + STAGES * STAGE_BYTES + 16 * STAGES;
-  static_assert(SMEM <= 232448, "shared memory");
-  static_assert(BN % 8 == 0 && BN <= 256, "wgmma shape");
-};
-
 // Grid (M tiles, N tiles, splits).  M tile t covers pixels x0 .. x0 + bw,
 // y0 .. y0 + bh of images b0 .. b0 + bb; split z reduces k-steps
 // [z * per_split, min((z + 1) * per_split, k_total)), k-step it being tap
@@ -311,7 +296,7 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
                   bf16* __restrict__ out, float* __restrict__ partial, int b, int h, int wd,
                   int cout, int bw, int bh, int bb, int tiles_x, int tiles_y, int k_total,
                   int per_split) {
-  using C = ConvWgmma<NWG, MT, BN, STAGES>;
+  using C = hopper::ConvTiles<NWG, MT, BN, STAGES>;
   using namespace hopper;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ring = reinterpret_cast<unsigned char*>(
@@ -412,22 +397,12 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
   }
 }
 
-// geometry: {BM, BN, stages, dynamic shared bytes, bw, bh, bb, per_split,
-// consumer warpgroups}, from ops/fused_conv.py's conv_plan; a geometry this
-// build does not hold is refused.
-template <int NWG, int MT, int BN, int STAGES>
-bool conv_geometry_is(const int* geo) {
-  using C = ConvWgmma<NWG, MT, BN, STAGES>;
-  return geo[0] == C::BM && geo[1] == BN && geo[2] == STAGES && geo[3] == C::SMEM &&
-         geo[4] * geo[5] * geo[6] == C::BM && geo[7] >= 1 && geo[8] == NWG;
-}
-
 template <int NWG, int MT, int BN, int STAGES>
 cudaError_t launch_conv_wgmma(const bf16* y, const bf16* wr, const bf16* bias,
                               const bf16* time_add, const bf16* residual, bf16* out,
                               float* partial, int b, int h, int wd, int cin, int cout,
                               const int* geo, cudaStream_t st) {
-  using C = ConvWgmma<NWG, MT, BN, STAGES>;
+  using C = hopper::ConvTiles<NWG, MT, BN, STAGES>;
   const int bw = geo[4], bh = geo[5], bb = geo[6], per_split = geo[7];
   CUtensorMap am, bm;
   cudaError_t err = hopper::make_bf16_map(&am, y, {cin, wd, h, b}, {64, bw, bh, bb});
@@ -458,13 +433,13 @@ cudaError_t launch_conv_wgmma(const bf16* y, const bf16* wr, const bf16* bias,
   return cudaGetLastError();
 }
 
-// The instantiations: ops/fused_conv.py's CONV_WGMMA_STAGES.
+// The instantiations: ops/quant_conv.py's CONV_WGMMA_STAGES.
 cudaError_t dispatch_conv_wgmma(const bf16* y, const bf16* wr, const bf16* bias,
                                 const bf16* time_add, const bf16* residual, bf16* out,
                                 float* partial, int b, int h, int wd, int cin, int cout,
                                 const int* geo, cudaStream_t st) {
 #define LDM_CONV(...)                                                                    \
-  if (conv_geometry_is<__VA_ARGS__>(geo))                                                \
+  if (hopper::conv_geometry_is<__VA_ARGS__>(geo))                                        \
     return launch_conv_wgmma<__VA_ARGS__>(y, wr, bias, time_add, residual, out, partial, b, \
                                           h, wd, cin, cout, geo, st)
   LDM_CONV(1, 1, 128, 8);

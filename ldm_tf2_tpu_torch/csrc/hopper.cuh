@@ -40,7 +40,9 @@
 // transposed s8 operand: A and B are both K-major.  N is one of 8, 16, 24,
 // 32, 48, 64, 80, ..., 256 (no 40).  The register A fragment of each warp
 // is the mma.sync m16n8k32 s8 one: register r holds row g + 8 (r % 2),
-// columns 16 (r / 2) + 4t + {0..3}, one byte each.
+// columns 16 (r / 2) + 4t + {0..3}, one byte each.  A box {128, ...} of a
+// make_s8_map map writes one such tile of 128 k-values a row (the s8 conv's
+// A and B, read by WgmmaS8SS).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the driver call goes through the runtime
@@ -88,6 +90,17 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "r"(addr), "r"(parity)
         : "memory");
   }
+}
+
+// Named barrier `id` (1 to 15; 0 is __syncthreads') over `count` threads,
+// a multiple of 32: named_sync waits until `count` threads have reached it
+// by either call, named_arrive counts this thread and goes on.
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // ------------------------------------------------------------------ TMA
@@ -145,28 +158,40 @@ inline cudaError_t encode_tiled_fn(EncodeTiledFn* out) {
   return cudaSuccess;
 }
 
-// The 4-D map of a contiguous bf16 tensor of dims {d[0] (innermost), d[1],
-// d[2], d[3]} read in boxes {box[0], .., box[3]} with the 128-byte swizzle
-// (box[0] * 2 <= 128 bytes); out-of-bounds elements, negative coordinates
-// included, read as zeros.  Needs d[0] % 8 == 0 (16-byte strides) and a
-// 16-byte aligned base.
-inline cudaError_t make_bf16_map(CUtensorMap* map, const void* base, const int (&d)[4],
-                                 const int (&box)[4]) {
+// The 4-D map of a contiguous tensor of `elem`-byte elements (data type
+// `type`) of dims {d[0] (innermost), d[1], d[2], d[3]} read in boxes {box[0],
+// .., box[3]} with the 128-byte swizzle (box[0] * elem <= 128 bytes);
+// out-of-bounds elements, negative coordinates included, read as zeros.
+// Needs d[0] * elem % 16 == 0 (16-byte strides) and a 16-byte aligned base.
+inline cudaError_t make_map(CUtensorMap* map, CUtensorMapDataType type, int elem,
+                            const void* base, const int (&d)[4], const int (&box)[4]) {
   EncodeTiledFn fn;
   cudaError_t err = encode_tiled_fn(&fn);
   if (err != cudaSuccess) return err;
   const cuuint64_t dims[4] = {(cuuint64_t)d[0], (cuuint64_t)d[1], (cuuint64_t)d[2],
                               (cuuint64_t)d[3]};
-  const cuuint64_t strides[3] = {dims[0] * 2, dims[0] * dims[1] * 2,
-                                 dims[0] * dims[1] * dims[2] * 2};
+  const cuuint64_t strides[3] = {dims[0] * elem, dims[0] * dims[1] * elem,
+                                 dims[0] * dims[1] * dims[2] * elem};
   const cuuint32_t boxes[4] = {(cuuint32_t)box[0], (cuuint32_t)box[1], (cuuint32_t)box[2],
                                (cuuint32_t)box[3]};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-                        strides, boxes, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const cuuint32_t elems[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, type, 4, const_cast<void*>(base), dims, strides, boxes, elems,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// make_map for bf16 (box[0] <= 64; d[0] % 8 == 0).
+inline cudaError_t make_bf16_map(CUtensorMap* map, const void* base, const int (&d)[4],
+                                 const int (&box)[4]) {
+  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, d, box);
+}
+
+// make_map for int8 (box[0] <= 128; d[0] % 16 == 0): a box of 128 channels
+// is one K-major s8 wgmma operand chunk of 128-byte rows.
+inline cudaError_t make_s8_map(CUtensorMap* map, const void* base, const int (&d)[4],
+                               const int (&box)[4]) {
+  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, base, d, box);
 }
 
 // The 4-D map of a contiguous [B, T, H, S] bf16 tensor read in boxes
@@ -204,6 +229,36 @@ __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+// ------------------------------------------------- implicit-GEMM convs
+
+// The tiles of a wgmma implicit-GEMM 3x3 conv (gn_silu_conv3x3.cu in bf16,
+// s8_conv3x3.cu in int8): NWG consumer warpgroups, each owning MT sub-tiles
+// of 64 output rows; BN output channels per CTA; STAGES ring stages of one
+// A tile (BM pixels) and one B tile (BN output channels), each of 128-byte
+// rows (64 bf16 or 128 s8 channels).
+template <int NWG, int MT, int BN, int STAGES>
+struct ConvTiles {
+  static constexpr int BM = 64 * MT * NWG;
+  static constexpr int A_BYTES = BM * 128;
+  static constexpr int B_BYTES = BN * 128;
+  static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+  static constexpr int THREADS = NWG * 128 + 32;  // + one producer warp
+  // 1024 bytes to align the dynamic base, the ring, its full and empty barriers
+  static constexpr int SMEM = 1024 + STAGES * STAGE_BYTES + 16 * STAGES;
+  static_assert(SMEM <= 232448, "shared memory");
+  static_assert(BN % 8 == 0 && BN <= 256, "wgmma shape");
+};
+
+// geometry: {BM, BN, stages, dynamic shared bytes, bw, bh, bb, per_split,
+// consumer warpgroups}, from ops/quant_conv.py's conv_tiles; a geometry a
+// build does not hold is refused.
+template <int NWG, int MT, int BN, int STAGES>
+bool conv_geometry_is(const int* geo) {
+  using C = ConvTiles<NWG, MT, BN, STAGES>;
+  return geo[0] == C::BM && geo[1] == BN && geo[2] == STAGES && geo[3] == C::SMEM &&
+         geo[4] * geo[5] * geo[6] == C::BM && geo[7] >= 1 && geo[8] == NWG;
 }
 
 // ---------------------------------------------------------------- wgmma
@@ -257,6 +312,13 @@ template <int N> struct WgmmaSS;
 // d (64 x N, f32) += A B: A a bf16 fragment in registers (see above), B an
 // MN-major tile in shared memory (descriptor b).
 template <int N> struct WgmmaRS;
+// d (64 x N, f32) = [d +] A B: A a K-major tile in shared memory
+// (descriptor a), B an MN-major tile in shared memory (descriptor b, the
+// transpose flag set); scale_d = 0 overwrites d.
+template <int N> struct WgmmaSSMN;
+// d (64 x N, s32) = [d +] A B^T: A and B K-major s8 tiles in shared memory
+// (descriptors a, b); scale_d = 0 overwrites d.
+template <int N> struct WgmmaS8SS;
 // d (64 x N, s32) = [d +] A B^T: A an s8 fragment in registers (see above),
 // B a K-major s8 tile in shared memory (descriptor b); scale_d = 0
 // overwrites d.
@@ -364,6 +426,114 @@ template <> struct WgmmaSS<160> {
           "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
           "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
           "+f"(d[78]), "+f"(d[79])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <> struct WgmmaSSMN<128> {
+  static __device__ __forceinline__ void run(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <> struct WgmmaSSMN<160> {
+  static __device__ __forceinline__ void run(float (&d)[80], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %82, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79"
+        "}, %80, %81, p, 1, 1, 0, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+          "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+          "+f"(d[78]), "+f"(d[79])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <> struct WgmmaS8SS<128> {
+  static __device__ __forceinline__ void run(int (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+          "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+          "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+          "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+          "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+          "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+          "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+          "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+          "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+          "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <> struct WgmmaS8SS<160> {
+  static __device__ __forceinline__ void run(int (&d)[80], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %82, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n160k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79"
+        "}, %80, %81, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+          "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+          "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+          "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+          "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+          "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+          "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+          "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+          "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+          "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]), "+r"(d[65]),
+          "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+          "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]),
+          "+r"(d[78]), "+r"(d[79])
         : "l"(a), "l"(b), "r"(scale_d));
   }
 };

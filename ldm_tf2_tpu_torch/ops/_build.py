@@ -116,6 +116,18 @@ def entry(name: str, symbol: str, argtypes):
     return fn
 
 
+_INT_ARRAYS: dict = {}
+
+
+def int_array(values: tuple) -> ctypes.Array:
+    """``values`` as a C int array, made once per distinct tuple: a
+    kernel's geometry argument, passed on every call."""
+    arr = _INT_ARRAYS.get(values)
+    if arr is None:
+        arr = _INT_ARRAYS[values] = (ctypes.c_int * len(values))(*values)
+    return arr
+
+
 def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")

@@ -74,18 +74,11 @@ def cross_plan(b: int, tq: int, tk: int, h: int, s: int, dtype) -> dict:
                 threads=128 * nwg + 32, grid=(-(-tiles // per_cta), b * h))
 
 
-_GEOMETRY_ARGS: dict = {}
-
-
-def _geometry_arg(plan: dict, key):
-    """The C entry's geometry argument for a wgmma plan, made once per
-    shape: {query rows, keys, stages, shared bytes, per_cta}."""
-    arg = _GEOMETRY_ARGS.get(key)
-    if arg is None:
-        arg = _GEOMETRY_ARGS[key] = (ctypes.c_int * 6)(
-            CROSS_ROWS, CROSS_KEYS, plan["stages"], plan["smem_bytes"], plan["per_cta"],
-            plan["warpgroups"])
-    return arg
+def geometry_arg(plan: dict):
+    """The C entry's geometry argument for a wgmma plan: {query rows, keys,
+    stages, shared bytes, per_cta, consumer warpgroups}."""
+    return _build.int_array((CROSS_ROWS, CROSS_KEYS, plan["stages"], plan["smem_bytes"],
+                             plan["per_cta"], plan["warpgroups"]))
 
 
 def kernel_takes(q_len: int, kv_len: int, size_per_head: int) -> bool:
@@ -109,9 +102,8 @@ def _launch(q, k, v, scale):
     b, tq, h, s = q.shape
     tk = k.shape[1]
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    key = (b, tq, tk, h, s, q.dtype)
-    plan = cross_plan(*key)
-    geometry = _geometry_arg(plan, key) if plan["path"] == "wgmma" else None
+    plan = cross_plan(b, tq, tk, h, s, q.dtype)
+    geometry = geometry_arg(plan) if plan["path"] == "wgmma" else None
     fn = _build.entry("cross_attention", "ldm_cross_attention", [ctypes.c_void_p] * 4 + [
         ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
                              ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])

@@ -41,24 +41,16 @@ import torch
 import torch.nn.functional as F
 
 from ldm_tf2_tpu_torch.ops import _build
-from ldm_tf2_tpu_torch.ops.flash_attention import PATHS, SMS
+from ldm_tf2_tpu_torch.ops.flash_attention import PATHS
 from ldm_tf2_tpu_torch.ops.group_norm import _mxu_group_norm, stats_args
-from ldm_tf2_tpu_torch.ops.quant_conv import gn_silu_conv3x3_int8, use_int8_conv
+from ldm_tf2_tpu_torch.ops.quant_conv import (
+    conv_tiles, geometry_arg, gn_silu_conv3x3_int8, use_int8_conv,
+)
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _IMPLS = ("auto", "xla", "pallas")
 _XLA_ONLY = ("dots", "dots3")
 _IMPL = "auto"
-
-# The wgmma conv's instantiations (``csrc/gn_silu_conv3x3.cu``): (consumer
-# warpgroups, 64-row sub-tiles per warpgroup, N tile) -> ring stages, as
-# many as the shared memory holds, at most 8.  A stage is one A tile (the M
-# tile's pixels x 64 channels) and one B tile (N output channels x 64
-# channels), 128-byte rows.
-CONV_WGMMA_STAGES = {(1, 1, 128): 8, (1, 1, 160): 8, (2, 1, 128): 7, (2, 1, 160): 6,
-                     (2, 2, 128): 4}
-MIN_SPLIT_STEPS = 4  # k-steps (one tap, 64 channels) a split takes at least
-
 
 def set_fused_conv_impl(impl: str) -> None:
     """``"auto"`` | ``"xla"`` | ``"pallas"`` (see the module docstring)."""
@@ -100,10 +92,6 @@ def conv_splits(m: int, cin: int, cout: int) -> int:
     return -(-blocks // per_split)
 
 
-def _pow2_ceil(n: int) -> int:
-    return 1 << (n - 1).bit_length()
-
-
 def conv_plan(shape, cout: int, dtype) -> dict:
     """The conv path of the fused chain for an input of ``shape`` [B, H, W,
     Cin] and ``cout`` outputs, and the wgmma path's launch geometry.
@@ -111,65 +99,16 @@ def conv_plan(shape, cout: int, dtype) -> dict:
     float32 takes the FMA path (the JAX kernel's float32 products are exact;
     TF32 would change results).  bf16 with Cin % 64 == 0 and Cout % 8 == 0
     takes wgmma; other bf16 shapes the mma.sync path (Cin % 32 == 0; the C
-    side also needs 16-byte aligned operands) or FMA.  wgmma geometry:
-
-    * an M tile of ``bm`` pixels, 64 rows per sub-tile of a consumer
-      warpgroup: one warpgroup of one sub-tile where M = B*H*W <= 64, two
-      of two where 128 < M <= 256 (one tile covers every pixel, so each
-      weight byte is read once a call), else two of one;
-    * its TMA box {64 channels, bw, bh, bb}: powers of two, bw * bh * bb =
-      bm, bw <= 128 (each at most TMA's 256); pixels past the map are
-      zero-filled and never stored;
-    * an N tile ``bn`` of 160 where it divides Cout and a warpgroup holds
-      one sub-tile, else 128 (two sub-tiles of 160 columns would need 160
-      accumulator registers a thread);
-    * ``splits`` of the 9 * Cin / 64 k-steps where the tiles cannot fill
-      the card: as many as keep tiles * splits within one wave of ``SMS``,
-      each at least ``MIN_SPLIT_STEPS`` k-steps.  Each split writes its
-      own float32 slot and a last pass adds them in split order, so the
-      sum's order is a function of the shape only;
-    * shared memory: 1024 bytes to align, ``stages`` stages, 16 bytes of
-      barriers a stage."""
-    b, h, w, cin = shape
+    side also needs 16-byte aligned operands) or FMA.  The geometry is
+    ``quant_conv.conv_tiles`` with 64-channel k-steps and two sub-tiles a
+    warpgroup up to M = 256 (one tile covers every pixel, so each weight
+    byte is read once a call); each split writes float32 sums."""
+    cin = shape[-1]
     if dtype != torch.bfloat16:
         return {"path": "fma"}
     if cin % 64 or cout % 8:
         return {"path": "mma.sync" if cin % 32 == 0 else "fma"}
-    m = b * h * w
-    nwg, mt = (1, 1) if m <= 64 else (2, 2) if 128 < m <= 256 else (2, 1)
-    bm = 64 * nwg * mt
-    bn = 160 if cout % 160 == 0 and mt == 1 else 128
-    bw = min(_pow2_ceil(w), 128, bm)
-    bh = min(_pow2_ceil(h), bm // bw)
-    bb = bm // (bw * bh)
-    tiles_m = -(-w // bw) * -(-h // bh) * -(-b // bb)
-    tiles_n = -(-cout // bn)
-    k_steps = 9 * cin // 64
-    splits = max(1, min(SMS // (tiles_m * tiles_n), k_steps // MIN_SPLIT_STEPS))
-    per_split = -(-k_steps // splits)
-    splits = -(-k_steps // per_split)
-    stages = CONV_WGMMA_STAGES[(nwg, mt, bn)]
-    stage_bytes = (bm + bn) * 128
-    return dict(path="wgmma", warpgroups=nwg, subtiles=mt, bm=bm, bn=bn, box=(bw, bh, bb),
-                tiles=(tiles_m, tiles_n), k_steps=k_steps, splits=splits,
-                per_split=per_split, stages=stages, stage_bytes=stage_bytes,
-                smem_bytes=1024 + stages * (stage_bytes + 16), threads=128 * nwg + 32,
-                grid=(tiles_m, tiles_n, splits))
-
-
-_GEOMETRY_ARGS: dict = {}
-
-
-def _geometry_arg(plan: dict, key):
-    """The C entry's geometry argument for a wgmma plan, made once per
-    shape: {bm, bn, stages, shared bytes, bw, bh, bb, per_split, consumer
-    warpgroups}."""
-    arg = _GEOMETRY_ARGS.get(key)
-    if arg is None:
-        arg = _GEOMETRY_ARGS[key] = (ctypes.c_int * 9)(
-            plan["bm"], plan["bn"], plan["stages"], plan["smem_bytes"], *plan["box"],
-            plan["per_split"], plan["warpgroups"])
-    return arg
+    return conv_tiles(shape, cout, 64, 256)
 
 
 # id(weight) -> (weakref to it, dtype, its _version, the relaid copy)
@@ -233,8 +172,7 @@ def _launch(x, gamma, beta, w, b, time_add, residual_add, num_groups, eps):
     dt = x.dtype
     bsz, h, wd, cin = x.shape
     cout = w.shape[0]
-    key = (tuple(x.shape), cout, dt)
-    plan = conv_plan(key[0], cout, dt)
+    plan = conv_plan(tuple(x.shape), cout, dt)
     f32 = dict(device=x.device, dtype=torch.float32)
     gamma, beta = gamma.to(**f32).contiguous(), beta.to(**f32).contiguous()
     x, b = x.contiguous(), b.to(dt).contiguous()
@@ -242,7 +180,7 @@ def _launch(x, gamma, beta, w, b, time_add, residual_add, num_groups, eps):
               for t in (time_add, residual_add)]
     _, chunks, gps, vec, partial, tickets = stats_args(x, num_groups)
     if plan["path"] == "wgmma":
-        geometry = _geometry_arg(plan, key)
+        geometry = geometry_arg(plan)
         wr, w, splits = relaid_weight(w, dt), None, plan["splits"]
     else:
         geometry, wr, w = None, None, w.to(dt).contiguous()

@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from ldm_tf2_tpu_torch.ops import _build
+from ldm_tf2_tpu_torch.ops.flash_attention import PATHS, SMS
 from ldm_tf2_tpu_torch.ops.quant_conv import quantize_activations, quantize_cols
 
 MAX_WIDTH = 1280
@@ -74,13 +75,83 @@ def _check(x, ln_scale, ln_bias, w1v, b1v, w1g, b1g, w2, b2):
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
 
 
+# The wgmma path's instantiations (``csrc/fused_ffn.cu``): the
+# up-projection's consumer warpgroups -> ring stages, and the
+# down-projection's (consumer warpgroups, N tile) -> ring stages, as many as
+# the shared memory holds, at most 8.  An up stage is one A tile (the row
+# tile x 64 features of y) and a hidden block's 64 x 64 B chunks of w1v and
+# of w1g; a down stage one A tile (the row tile x 64 hidden columns of u)
+# and the N tile's 64 x 64 chunks of w2; 128-byte rows.
+FFN_UP_STAGES = {1: 8, 2: 7}
+FFN_DOWN_STAGES = {(1, 128): 8, (2, 128): 7, (1, 160): 7, (2, 160): 5}
+FFN_MIN_SPLIT_STEPS = 4  # hidden k-steps of 64 a down-projection split takes at least
+
+
+def ffn_plan(m: int, d: int, f: int, dtype) -> dict:
+    """The FFN's path for ``m`` rows of width ``d`` and hidden width ``f``,
+    and the wgmma path's launch geometry.
+
+    float32 takes the FMA path.  bf16 with d a multiple of 64 and of 128 or
+    160, at most ``MAX_WIDTH``, and F a multiple of 128 takes wgmma (the C
+    side also needs 16-byte aligned operands; every FFN of the models);
+    other bf16 shapes the FMA path.  The wgmma path is three launches (four
+    with a split):
+
+    * the LayerNorm, y = LN(x) in bf16, one warp per row;
+    * the up-projection u = (y w1v + b1v) * gelu(y w1g + b1g) in bf16: a
+      CTA owns a row tile of ``bm`` rows (64 where m <= 64, else 128) and
+      ``up_per`` hidden blocks of 64 columns, as many as keep row tiles x
+      groups within one wave of ``SMS``; every weight byte is read by each
+      row tile once.  With 128 rows, two consumer warpgroups (``warpgroups``)
+      take alternate blocks and turns at the tensor cores;
+    * the down-projection out = u w2 + b2 + x: N tiles of ``bn`` columns
+      (128, or 160 where 128 does not divide d), the F / 64 hidden k-steps
+      split where the tiles cannot fill the card (as for the convs: each
+      split at least ``FFN_MIN_SPLIT_STEPS`` k-steps, its float32 sums in
+      its own slot, a last pass adding them in split order and applying the
+      epilogue);
+    * shared memory: 1024 bytes to align, the stages, 16 bytes of barriers
+      a stage."""
+    if dtype != torch.bfloat16:
+        return {"path": "fma"}
+    if d % 64 or f % 128 or (d % 128 and d % 160) or d > MAX_WIDTH:
+        return {"path": "fma"}
+    nwg = 1 if m <= 64 else 2
+    bm = 64 * nwg
+    row_tiles = -(-m // bm)
+    blocks = k_steps = f // 64
+    per = -(-blocks // max(1, min(blocks, SMS // row_tiles)))
+    up_stages = FFN_UP_STAGES[nwg]
+    bn = 128 if d % 128 == 0 else 160
+    tiles_n = d // bn
+    splits = max(1, min(SMS // (row_tiles * tiles_n), k_steps // FFN_MIN_SPLIT_STEPS))
+    per_split = -(-k_steps // splits)
+    splits = -(-k_steps // per_split)
+    down_stages = FFN_DOWN_STAGES[(nwg, bn)]
+    chunks = -(-bn // 64)
+    return dict(path="wgmma", warpgroups=nwg, bm=bm, row_tiles=row_tiles, hidden_blocks=blocks,
+                up_per=per, up_grid=(row_tiles, -(-blocks // per)), up_stages=up_stages,
+                up_smem=1024 + up_stages * (bm * 128 + 2 * 64 * 128 + 16), bn=bn,
+                down_grid=(row_tiles, tiles_n, splits), splits=splits, per_split=per_split,
+                down_stages=down_stages,
+                down_smem=1024 + down_stages * (bm * 128 + chunks * 64 * 128 + 16))
+
+
+def geometry_arg(plan: dict):
+    """The C entry's geometry argument for a wgmma plan: {up warpgroups, up
+    stages, hidden blocks per up CTA, down warpgroups, down N tile, down
+    stages, down k-steps per split, up shared bytes, down shared bytes}."""
+    return _build.int_array((plan["warpgroups"], plan["up_stages"], plan["up_per"],
+                             plan["warpgroups"], plan["bn"], plan["down_stages"],
+                             plan["per_split"], plan["up_smem"], plan["down_smem"]))
+
+
 def _launch(x, ln_scale, ln_bias, w1v, b1v, w1g, b1g, w2, b2, eps):
     if x.device.type != "cuda":
         raise ValueError(f"fused_ffn takes CPU or CUDA tensors, got {x.device}")
     b, t, d = x.shape
     f = w1v.shape[1]
-    if d > MAX_WIDTH:
-        raise ValueError(f"width {d} exceeds the kernel's {MAX_WIDTH}")
+    m = b * t
     for name, w in (("w1v", w1v), ("b1v", b1v), ("w1g", w1g), ("b1g", b1g),
                     ("w2", w2), ("b2", b2)):
         if w.dtype != x.dtype:
@@ -92,29 +163,40 @@ def _launch(x, ln_scale, ln_bias, w1v, b1v, w1g, b1g, w2, b2, eps):
             raise ValueError(f"{name} must be contiguous")
     if ln_scale.dtype != torch.float32 or ln_bias.dtype != torch.float32:
         raise TypeError("ln_scale and ln_bias must be float32")
-    lib = _build.load("fused_ffn")
-    size = lib.ldm_fused_ffn_workspace_floats
-    size.argtypes = [ctypes.c_int] * 3
-    size.restype = ctypes.c_longlong
-    fn = lib.ldm_fused_ffn_fwd
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
+    if d > MAX_WIDTH:
+        raise ValueError(f"width {d} exceeds the kernel's {MAX_WIDTH}")
+    plan = ffn_plan(m, d, f, x.dtype)
+    fn = _build.entry("fused_ffn", "ldm_fused_ffn_fwd", [ctypes.c_void_p] * 13 + [
+        ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                             ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
     out = torch.empty_like(x)
-    # f32 partial sums when the kernel splits the hidden width over blocks
-    workspace = torch.empty(size(b * t, d, f), dtype=torch.float32,
-                            device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    geometry = y = u = workspace = None
+    if plan["path"] == "wgmma":
+        geometry = geometry_arg(plan)
+        y = torch.empty((m, d), dtype=x.dtype, device=x.device)  # the LayerNorm
+        u = torch.empty((m, f), dtype=x.dtype, device=x.device)  # the GEGLU hidden
+        if plan["splits"] > 1:  # the down-projection's split sums
+            workspace = torch.empty((plan["splits"], m, d), dtype=torch.float32,
+                                    device=x.device)
+    else:
+        # f32 partial sums when the kernel splits the hidden width over blocks
+        size = _build.entry("fused_ffn", "ldm_fused_ffn_workspace_floats", [ctypes.c_int] * 3)
+        size.restype = ctypes.c_longlong
+        floats = size(m, d, f)
+        if floats:
+            workspace = torch.empty(floats, dtype=torch.float32, device=x.device)
+    path = ctypes.c_int(-1)
     err = fn(
         x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
         w1v.data_ptr(), b1v.data_ptr(), w1g.data_ptr(), b1g.data_ptr(),
         w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
-        workspace.data_ptr() if workspace.numel() else None,
-        b * t, d, f, float(eps), int(x.dtype == torch.bfloat16), stream,
+        *(None if a is None else a.data_ptr() for a in (workspace, y, u)),
+        m, d, f, float(eps), int(x.dtype == torch.bfloat16), geometry, ctypes.byref(path),
+        torch._C._cuda_getCurrentRawStream(x.get_device()),
     )
     _build.check(err, "fused_ffn kernel launch")
     fused_ffn.launches += 1
+    fused_ffn.launches_by_path[PATHS[2 - path.value]] += 1
     return out
 
 
@@ -146,7 +228,9 @@ def fused_ffn(x, ln_scale, ln_bias, w1v, b1v, w1g, b1g, w2, b2, eps=1e-5):
     w1v, w1g: [d, F]; b1v, b1g: [F]; w2: [F, d]; b2: [d], all in x's dtype
     on the card.  A CPU tensor takes the plain version; a CUDA tensor takes
     the kernel, or raises.  Differentiable on both (see the module
-    docstring).  ``fused_ffn.launches`` counts kernel launches."""
+    docstring).  ``fused_ffn.launches`` counts kernel calls,
+    ``launches_by_path`` them by path ("wgmma", "fma"; ``ffn_plan``
+    chooses)."""
     _check(x, ln_scale, ln_bias, w1v, b1v, w1g, b1g, w2, b2)
     if _build.needs_grad(x, ln_scale, ln_bias, w1v, b1v, w1g, b1g, w2, b2):
         return _FusedFFN.apply(x, ln_scale, ln_bias, w1v, b1v, w1g, b1g, w2,
@@ -157,6 +241,7 @@ def fused_ffn(x, ln_scale, ln_bias, w1v, b1v, w1g, b1g, w2, b2, eps=1e-5):
 
 
 fused_ffn.launches = 0
+fused_ffn.launches_by_path = dict.fromkeys(PATHS, 0)
 
 
 # ------------------------------------------------------------ W8A8 FFN --

@@ -12,7 +12,8 @@ Counterpart of ``ldm_tf2_tpu.ops.quant_conv`` (the serving mode
   the s8 x s8 -> s32 3x3 SAME conv with the epilogue
   ``acc * (sa[b] * ws[co]) + b (+t) (+residual)`` in f32, cast to the
   activation dtype.  Launched after the first, it is also the card's form
-  of the TPU's whole-chain ``_chain_kernel``.
+  of the TPU's whole-chain ``_chain_kernel``.  It runs on s8 ``wgmma`` and
+  TMA with the launch geometry of ``s8_conv_plan``.
 
 Weights are quantized once per output channel (``quantize_weight``) when
 the mode is switched on: they are frozen at inference.  The s8 kernel reads
@@ -35,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from ldm_tf2_tpu_torch.ops import _build
+from ldm_tf2_tpu_torch.ops.flash_attention import PATHS, SMS
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _MODE = "the int8 conv path (tpu.quantize: int8)"
@@ -239,14 +241,98 @@ def _plain_s8_conv3x3(y8, sa, w8, ws, bias, time_add, residual_add,
     return out.to(out_dtype)
 
 
+# The wgmma implicit-GEMM convs' instantiations (``csrc/gn_silu_conv3x3.cu``
+# in bf16, ``csrc/s8_conv3x3.cu`` in int8): (consumer warpgroups, 64-row
+# sub-tiles per warpgroup, N tile) -> ring stages, as many as the shared
+# memory holds, at most 8.  A stage is one A tile (the M tile's pixels x one
+# 128-byte row of channels: 64 bf16 or 128 s8) and one B tile (N output
+# channels x the same channels).
+CONV_WGMMA_STAGES = {(1, 1, 128): 8, (1, 1, 160): 8, (2, 1, 128): 7, (2, 1, 160): 6,
+                     (2, 2, 128): 4}
+# k-steps (one tap, one 128-byte row of channels) a split takes at least
+MIN_SPLIT_STEPS = 4
+S8_CHUNK = 128  # input channels per k-step of the s8 conv: one 128-byte s8 row
+
+
+def _pow2_ceil(n: int) -> int:
+    return 1 << (n - 1).bit_length()
+
+
+def conv_tiles(shape, cout: int, chunk: int, two_subtiles_max: int) -> dict:
+    """The launch geometry of a wgmma implicit-GEMM 3x3 conv of an input of
+    ``shape`` [B, H, W, Cin] and ``cout`` outputs, a k-step being one tap
+    and ``chunk`` input channels (one 128-byte swizzled row):
+
+    * an M tile of ``bm`` pixels, 64 rows per sub-tile of a consumer
+      warpgroup: one warpgroup of one sub-tile where M = B*H*W <= 64, two
+      of two where 128 < M <= ``two_subtiles_max``, else two of one;
+    * its TMA box {chunk, bw, bh, bb}: powers of two, bw * bh * bb = bm,
+      bw <= 128 (each at most TMA's 256); pixels past the map are
+      zero-filled and never stored;
+    * an N tile ``bn`` of 160 where it divides Cout and a warpgroup holds
+      one sub-tile, else 128 (two sub-tiles of 160 columns would need 160
+      accumulator registers a thread);
+    * ``9 * ceil(Cin / chunk)`` k-steps, a chunk past Cin zero-filled in
+      both operands; ``splits`` of them where the tiles cannot fill the
+      card: as many as keep tiles * splits within one wave of ``SMS``, each
+      at least ``MIN_SPLIT_STEPS`` k-steps.  Each split writes its own slot
+      and a last pass adds them in split order, so the sum's order is a
+      function of the shape only;
+    * shared memory: 1024 bytes to align, ``stages`` stages, 16 bytes of
+      barriers a stage."""
+    b, h, w, cin = shape
+    m = b * h * w
+    nwg, mt = (1, 1) if m <= 64 else (2, 2) if 128 < m <= two_subtiles_max else (2, 1)
+    bm = 64 * nwg * mt
+    bn = 160 if cout % 160 == 0 and mt == 1 else 128
+    bw = min(_pow2_ceil(w), 128, bm)
+    bh = min(_pow2_ceil(h), bm // bw)
+    bb = bm // (bw * bh)
+    tiles_m = -(-w // bw) * -(-h // bh) * -(-b // bb)
+    tiles_n = -(-cout // bn)
+    k_steps = 9 * -(-cin // chunk)
+    splits = max(1, min(SMS // (tiles_m * tiles_n), k_steps // MIN_SPLIT_STEPS))
+    per_split = -(-k_steps // splits)
+    splits = -(-k_steps // per_split)
+    stages = CONV_WGMMA_STAGES[(nwg, mt, bn)]
+    stage_bytes = (bm + bn) * 128
+    return dict(path="wgmma", warpgroups=nwg, subtiles=mt, bm=bm, bn=bn, box=(bw, bh, bb),
+                tiles=(tiles_m, tiles_n), k_steps=k_steps, splits=splits,
+                per_split=per_split, stages=stages, stage_bytes=stage_bytes,
+                smem_bytes=1024 + stages * (stage_bytes + 16), threads=128 * nwg + 32,
+                grid=(tiles_m, tiles_n, splits))
+
+
+def s8_conv_plan(shape, cout: int) -> dict:
+    """The s8 conv's launch geometry for an input of ``shape`` [B, H, W,
+    Cin] and ``cout`` outputs (Cin % 32 == 0 and Cout % 8 == 0; the C side
+    also needs 16-byte aligned y8 and w8): ``conv_tiles`` with 128-channel
+    k-steps (one 128-byte s8 row; where Cin is not a multiple of 128 the
+    last chunk is zero-filled, the plan's ``padded_k``) and two sub-tiles a
+    warpgroup up to M = 512 (the 8x8 level at CFG batch 8: two tiles of
+    four whole images).  Each split's sums are exact s32 integers."""
+    plan = conv_tiles(shape, cout, S8_CHUNK, 512)
+    plan["padded_k"] = -(-shape[-1] // S8_CHUNK) * S8_CHUNK / shape[-1]
+    return plan
+
+
+def geometry_arg(plan: dict):
+    """The C entry's geometry argument for a wgmma conv plan: {bm, bn,
+    stages, shared bytes, bw, bh, bb, per_split, consumer warpgroups}."""
+    return _build.int_array((plan["bm"], plan["bn"], plan["stages"], plan["smem_bytes"],
+                             *plan["box"], plan["per_split"], plan["warpgroups"]))
+
+
 def _launch_s8_conv3x3(y8, sa, w8, ws, bias, time_add, residual_add,
                        out_dtype):
     if y8.device.type != "cuda":
         raise ValueError(f"s8_conv3x3 takes CPU or CUDA tensors, got {y8.device}")
     b, h, w, cin = y8.shape
     cout = w8.shape[0]
-    if cin % 32 != 0:
-        raise ValueError(f"the s8 conv kernel needs Cin % 32 == 0, got {cin}")
+    if cin % 32 or cout % 8:
+        raise ValueError(f"the s8 conv kernel needs Cin % 32 == 0 and Cout % 8 == 0, "
+                         f"got {cin} and {cout}")
+    plan = s8_conv_plan(tuple(y8.shape), cout)
     f32 = dict(device=y8.device, dtype=torch.float32)
     sa, ws, bias = (t.to(**f32).contiguous() for t in (sa, ws, bias))
     for name, t in (("time_add", time_add), ("residual_add", residual_add)):
@@ -258,20 +344,23 @@ def _launch_s8_conv3x3(y8, sa, w8, ws, bias, time_add, residual_add,
                          "both must start 16-byte aligned")
     extras = [None if t is None else t.contiguous()
               for t in (time_add, residual_add)]
-    lib = _build.load("s8_conv3x3")
-    fn = lib.ldm_s8_conv3x3
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _build.entry("s8_conv3x3", "ldm_s8_conv3x3", [ctypes.c_void_p] * 9 + [
+        ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
     out = torch.empty((b, h, w, cout), dtype=out_dtype, device=y8.device)
-    stream = torch.cuda.current_stream(y8.device).cuda_stream
+    partial = None
+    if plan["splits"] > 1:  # each split's exact s32 sums
+        partial = torch.empty((plan["splits"], b * h * w, cout), dtype=torch.int32,
+                              device=y8.device)
     err = fn(
         y8.data_ptr(), sa.data_ptr(), w8.data_ptr(), ws.data_ptr(),
         bias.data_ptr(), *(None if t is None else t.data_ptr() for t in extras),
-        out.data_ptr(), b, h, w, cin, cout,
-        int(out_dtype == torch.bfloat16), stream,
+        out.data_ptr(), None if partial is None else partial.data_ptr(), b, h, w, cin, cout,
+        int(out_dtype == torch.bfloat16), geometry_arg(plan),
+        torch._C._cuda_getCurrentRawStream(y8.get_device()),
     )
     _build.check(err, "s8_conv3x3 kernel launch")
     s8_conv3x3.launches += 1
+    s8_conv3x3.launches_by_path["wgmma"] += 1
     return out
 
 
@@ -283,7 +372,8 @@ def s8_conv3x3(y8, sa, w8, ws, bias, *, time_add=None, residual_add=None,
     [B, H, W, Cout]) in float32, cast to ``out_dtype``.
 
     A CPU tensor takes the plain version; a CUDA tensor takes the kernel,
-    or raises.  ``s8_conv3x3.launches`` counts kernel launches."""
+    or raises.  ``s8_conv3x3.launches`` counts kernel calls,
+    ``launches_by_path`` them by path (all "wgmma": the kernel has one)."""
     if y8.dim() != 4 or y8.dtype != torch.int8 or w8.dtype != torch.int8:
         raise TypeError("y8 must be [B, H, W, Cin] int8 and w8 int8")
     b, h, w, cin = y8.shape
@@ -311,6 +401,7 @@ def s8_conv3x3(y8, sa, w8, ws, bias, *, time_add=None, residual_add=None,
 
 
 s8_conv3x3.launches = 0
+s8_conv3x3.launches_by_path = dict.fromkeys(PATHS, 0)
 
 
 def gn_silu_conv3x3_int8(x, gamma, beta, w8, ws, b, *, time_add=None,

@@ -15,6 +15,7 @@ import torch
 from ldm_tf2_tpu_torch.models import autoencoder as tae
 from ldm_tf2_tpu_torch.models import unet as tunet
 from ldm_tf2_tpu_torch.ops import fused_conv as tfc
+from ldm_tf2_tpu_torch.ops import quant_conv as tqc
 from ldm_tf2_tpu_torch.ops.flash_attention import SMEM_LIMIT, SMEM_PER_SM, SMS
 
 # The opt-in main path's ResBlock chains (chip_smoke.OPT_CHAINS): the
@@ -112,11 +113,11 @@ def test_every_model_chain_takes_wgmma_and_fits(shape, cout):
     assert plan["k_steps"] == k_steps
     assert (plan["splits"] - 1) * plan["per_split"] < k_steps <= plan["splits"] * plan["per_split"]
     assert plan["splits"] == 1 or tiles_m * tiles_n * plan["splits"] <= SMS
-    assert plan["splits"] == 1 or plan["per_split"] >= tfc.MIN_SPLIT_STEPS
+    assert plan["splits"] == 1 or plan["per_split"] >= tqc.MIN_SPLIT_STEPS
     assert plan["grid"] == (tiles_m, tiles_n, plan["splits"])
     # one CTA a multiprocessor: the ring fills the shared memory
     assert plan["smem_bytes"] <= SMEM_LIMIT and plan["smem_bytes"] + 1024 <= SMEM_PER_SM
-    assert plan["stages"] == tfc.CONV_WGMMA_STAGES[(nwg, mt, plan["bn"])] >= 4
+    assert plan["stages"] == tqc.CONV_WGMMA_STAGES[(nwg, mt, plan["bn"])] >= 4
 
 
 def test_m_at_most_256_is_one_tile_so_weights_are_read_once():
@@ -170,7 +171,7 @@ def test_shared_memory_bytes_by_hand():
     # one warpgroup: 8 stages of 64 x 64 and 160 x 64
     assert tfc.conv_plan((4, 4, 4, 2560), 1280, torch.bfloat16)["smem_bytes"] == (
         1024 + 8 * (64 * 64 * 2 + 160 * 64 * 2) + 8 * 16)
-    for (nwg, mt, bn), stages in tfc.CONV_WGMMA_STAGES.items():
+    for (nwg, mt, bn), stages in tqc.CONV_WGMMA_STAGES.items():
         stage = (64 * nwg * mt + bn) * 128 + 16
         assert 1024 + stages * stage <= SMEM_LIMIT < 1024 + (stages + 1) * stage or stages == 8
 
@@ -188,10 +189,10 @@ def test_split_order_is_a_function_of_the_shape():
 
 def test_geometry_argument():
     plan = tfc.conv_plan((4, 4, 4, 2560), 1280, torch.bfloat16)
-    got = tfc._geometry_arg(plan, ("test", 1))
+    got = tfc.geometry_arg(plan)
     assert isinstance(got, ctypes.Array)
     assert list(got) == [64, 160, 8, plan["smem_bytes"], 4, 4, 4, 23, 1]
-    assert tfc._geometry_arg(plan, ("test", 1)) is got
+    assert tfc.geometry_arg(plan) is got
 
 
 def test_relayout_is_tap_major_cin_contiguous():

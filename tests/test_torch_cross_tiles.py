@@ -97,10 +97,10 @@ def test_other_shapes_keep_their_paths():
 
 def test_geometry_argument():
     plan = tca.cross_plan(4, 1024, 77, 8, 40, torch.bfloat16)
-    got = tca._geometry_arg(plan, ("test", 1))
+    got = tca.geometry_arg(plan)
     assert isinstance(got, ctypes.Array)
     assert list(got) == [64, 80, 4, plan["smem_bytes"], 4, 2]
-    assert tca._geometry_arg(plan, ("test", 1)) is got
+    assert tca.geometry_arg(plan) is got
 
 
 def test_cpu_cross_attention_counts_no_path():

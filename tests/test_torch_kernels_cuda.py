@@ -11,6 +11,7 @@ that has only PyTorch:
 import pytest
 import torch
 
+import chip_smoke
 from ldm_tf2_tpu_torch.ops import flash_attention as tfa
 from ldm_tf2_tpu_torch.ops import fused_ffn as tff
 from ldm_tf2_tpu_torch.ops import quant_conv as tqc
@@ -109,8 +110,8 @@ def test_flash_kernel_matches_plain_on_card(dtype, b, t, kv, h, s):
                                  (64, 1280), (100, 320),
                                  (100, 1280), (50, 384)])
 def test_ffn_kernel_matches_plain_on_card(dtype, m, d):
-    """bf16 d = 320, 640, 1280 take the tensor-core path; d = 384 the FMA
-    path, as float32 does."""
+    """bf16 takes the wgmma path at every width here (d = 384 too), float32
+    the FMA path."""
     _need_cuda()
     gen = torch.Generator(device="cuda").manual_seed(7)
     x = torch.randn(1, m, d, generator=gen, device="cuda")
@@ -122,6 +123,28 @@ def test_ffn_kernel_matches_plain_on_card(dtype, m, d):
     # f32: summation order only; bf16: rounding of y, u and the output
     tol = 1e-4 if dtype == torch.float32 else 6e-2
     assert float((got - ref).abs().max()) < tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,d", chip_smoke.FFN_SHAPES)
+def test_ffn_wgmma_at_every_model_shape_on_card(m, d):
+    """Every FFN of the sampling, serving and training paths (bf16) on the
+    wgmma path, within ``chip_smoke.FFN_TOL`` of the plain version in
+    float32, and two calls bit-equal (the split sums run in a fixed
+    order)."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randn(1, m, d, generator=gen, device="cuda").bfloat16()
+    args = _ffn_args(gen, d, torch.bfloat16)
+    before = dict(tff.fused_ffn.launches_by_path)
+    got, again = tff.fused_ffn(x, *args), tff.fused_ffn(x, *args)
+    assert _took(tff.fused_ffn, before) == {"wgmma": 2}
+    assert torch.equal(got, again)
+    ref = tff._plain_ffn(x.float(), *[p.float() for p in args])
+    tol_abs, tol_rel = chip_smoke.FFN_TOL["bfloat16"]
+    diff = got.float() - ref
+    assert float(diff.abs().max()) < tol_abs
+    assert float(diff.norm() / ref.norm()) < tol_rel
 
 
 @pytest.mark.cuda
@@ -183,6 +206,34 @@ def test_s8_conv_kernel_matches_plain_on_card(dtype, shape, cout, epilogue):
     exact = tqc._plain_s8_conv3x3(y8, one[0], w8, one[1], one[2], None, None,
                                   torch.float32)
     assert torch.equal(acc, exact)  # the integer sums
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,cout,epilogue,path", [
+    *((s_, c_, e_, "wgmma") for s_, c_, e_ in chip_smoke.SERVE_CHAINS),
+    ((3, 8, 8, 640), 1280, "t", "wgmma"),  # a ragged M: a tile past the batch
+    ((4, 8, 8, 96), 320, "residual", "wgmma"),  # Cin = 32 * 3: a zero-filled chunk
+])
+def test_s8_conv_paths_at_every_serve_shape_on_card(shape, cout, epilogue, path):
+    """Every int8 conv of the serving path on the wgmma path, bit-equal to
+    the plain version, and a Cin that is not a multiple of 128 or 64."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    b, h, w, cin = shape
+    y8 = torch.randint(-127, 128, shape, generator=g, device="cuda").to(torch.int8)
+    w8 = torch.randint(-127, 128, (cout, 3, 3, cin), generator=g, device="cuda").to(torch.int8)
+    sa = torch.rand(b, generator=g, device="cuda") * 0.01 + 1e-3
+    ws = torch.rand(cout, generator=g, device="cuda") * 0.01 + 1e-3
+    bias = torch.randn(cout, generator=g, device="cuda")
+    extra = {"time_add": torch.randn(b, cout, generator=g, device="cuda").bfloat16()} \
+        if epilogue == "t" else \
+        {"residual_add": torch.randn(b, h, w, cout, generator=g, device="cuda").bfloat16()}
+    before = dict(tqc.s8_conv3x3.launches_by_path)
+    got = tqc.s8_conv3x3(y8, sa, w8, ws, bias, out_dtype=torch.bfloat16, **extra)
+    assert _took(tqc.s8_conv3x3, before) == {path: 1}
+    want = tqc._plain_s8_conv3x3(y8, sa, w8, ws, bias, extra.get("time_add"),
+                                 extra.get("residual_add"), torch.bfloat16)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda

@@ -284,8 +284,8 @@ def test_server_answers_with_a_non_ddim_sampler(tmp_path, monkeypatch):
     ({"cache_interval": 2}, {}, "DeepCache .* item A1"),
     ({"sampler": "dpm_solver_pp_2m", "cache_interval": 2}, {}, "DeepCache .* item A1"),
     ({"init_image_path": "init.npy"}, {}, "img2img .* item A1"),
-    ({"mask_path": "mask.npy"}, {}, "inpainting .* item A1"),
-    ({}, {"tensor_parallel": True}, "item A6"),
+    ({"init_image_path": "init.npy", "mask_path": "mask.npy"}, {}, "inpainting .* item A1"),
+    ({}, {"tensor_parallel": True, "mesh": {"data": -1, "model": 2}}, "item A6"),
 ])
 def test_remaining_branches_still_name_their_items(sampling, tpu, what):
     config = _config(**sampling)
