@@ -30,9 +30,16 @@ final line is printed:
    bit-equal, the FFN's library yardstick (the unfused chain of PyTorch
    calls), and their device times summed over one U-Net eval's 16 FFNs
    (``FFN_EVAL``, at CFG batch 4 and 8) and 29 int8 convs
-   (``SERVE_EVAL_CHAINS``) against the bound; beside each timed row's wall
-   time, its device time per call from ``torch.profiler`` (``device_ms``,
-   and the library call's ``library_device_ms``);
+   (``SERVE_EVAL_CHAINS``) against the bound; the GN+SiLU+quantize (rows 8
+   and 9) at every ``SERVE_CHAINS`` input and the map the TPU streams, and
+   the fused GroupNorm (row 5) at every ``OPT_GN`` shape, each held to one
+   launch a call (the profiler's count), to its cluster plan's mode
+   (resident in shared memory at every serving shape, re-read at
+   ``STREAMED_MAP`` and ``OPT_GN_REREAD``) and to two calls bit-equal,
+   row 8's device time summed over one serve eval's 29 calls and row 5's
+   over one opt-in eval's 17 (counted by shape in that eval); beside each
+   timed row's wall time, its device time per call from ``torch.profiler``
+   (``device_ms``, and the library call's ``library_device_ms``);
 4. unet: one full-width U-Net eval (CFG batch 4, 32x32 latent, seeded
    weights) on the card against the same weights on the CPU in float32,
    plain, under ``tpu.attention_impl: xla`` (no flash launch) and in the
@@ -45,7 +52,8 @@ final line is printed:
 5b. opt-in main path: the same call with the JAX package's three opt-in
    switches on (GroupNorm, fused conv, packed cross), in turns with the
    default route, exact launch counts (``OPT_EVAL``, ``OPT_DECODE``),
-   every chain and cross-attention launch on wgmma, each chain weight
+   every chain and cross-attention launch on wgmma, every GroupNorm launch
+   resident but the decoder's last (re-read), each chain weight
    relaid for the wgmma conv once (72 in the first call, none after),
    latents and images against the default route's, a profiled window with
    its device busy time beside the default route's; a 10-step run with
@@ -58,7 +66,7 @@ final line is printed:
    north-star widths, batch 4, 50 steps, on four requests from an
    in-memory stream, with the launch counts read around it and held to
    what the north-star U-Net dispatches (``SERVE_EVAL``), every int8-P.V
-   launch on wgmma;
+   launch on wgmma, every GN+SiLU+quantize launch resident;
 7. train: the stage-2 trainer (``cli/run_ldm_trainer.train``) at the
    north-star widths, batch 8, 256^2, bf16 compute over float32 U-Net
    masters, frozen text encoder and autoencoder in bf16, U-Net and
@@ -158,6 +166,9 @@ SERVE_EVAL = {"int8_chains": 29, "whole_chains": 19, "self_attentions": 16,
 # 4; the serve eval's at CFG 8 are the last four): the weights of rows 11's
 # and 2's per-eval sums of device times
 SERVE_EVAL_CHAINS = [2, 5, 1, 5, 1, 1, 5, 1, 2, 1, 1, 1, 1, 2]
+# Row 9's map: beyond the TPU's one-pass VMEM slab (it streams there) and
+# beyond a cluster of 8 CTAs' shared memory (the port re-reads there)
+STREAMED_MAP = (8, 64, 64, 320)
 FFN_EVAL = [5, 5, 5, 1]
 
 # Tolerances against the plain version computed in float32 from the same
@@ -287,6 +298,8 @@ OPT_DECODE = {"gn_silu_conv3x3_fused": 28, "group_norm": 2, "cross_attention": 0
 # (the down path's 16, the middle block's 4, the up path's 24): the weights
 # of row 7's per-eval sum of device times
 OPT_EVAL_CHAINS = [2, 5, 1, 5, 1, 1, 5, 1, 4, 7, 3, 2, 1, 1, 1, 1, 1, 2]
+# The OPT_GN map beyond 8 CTAs' shared memory: row 5 re-reads part of it
+OPT_GN_REREAD = (2, 256, 256, 128)
 # rel-L2 against the plain version on the same inputs: float32 differs in
 # summation order; bfloat16 rounds the output (and the chain its normalized
 # input, the cross-attention its weights) at 2^-9, and an element whose
@@ -478,6 +491,24 @@ def paths_of(fn) -> dict:
     return out
 
 
+def _mode_wrappers():
+    """The wrappers that count launches by the GroupNorm cluster plan's
+    mode ("resident", "reread"): rows 8 and 9, and row 5."""
+    from ldm_tf2_tpu_torch.ops import group_norm as gn
+    from ldm_tf2_tpu_torch.ops import quant_conv as qc
+
+    return {"gn_silu_quant": qc.gn_silu_quant, "group_norm_fused": gn.group_norm_fused}
+
+
+def modes_of(fn) -> dict:
+    """The launches by mode of ``fn()``, per wrapper of ``_mode_wrappers``."""
+    wrappers = _mode_wrappers()
+    before = {k: dict(w.launches_by_path) for k, w in wrappers.items()}
+    fn()
+    return {k: {m: n - before[k][m] for m, n in w.launches_by_path.items()}
+            for k, w in wrappers.items()}
+
+
 def want_path(dtype_name: str, s: int) -> str:
     """The path a launch must take: wgmma for bf16 at the models' head dims,
     the FMA path for float32."""
@@ -639,37 +670,65 @@ def phase_int8_kernels(results, randn):
     for shape, cout, epilogue in chains:
         check(qc.use_int8_conv(shape, cout, 32, epilogue == "residual"),
               f"the int8 gate declines {shape} -> {cout}")
-    # stage 1 at every serving input shape, plus a map the TPU streams
-    gn_shapes = sorted({shape for shape, _, _ in chains}) + [(8, 64, 64, 320)]
+    # the arithmetic rows 8 and 5 rest on, over every float of its range
+    counts = qc.gn_silu_checks(torch.device("cuda"))
+    log(f"gn_silu_checks: reciprocal != __frcp_rn on [1, 2^126) {counts[0]}, expf "
+        f"decreasing steps on [-104, 0] {counts[1]}, negative z with |silu| >= the amax "
+        f"bound {counts[2]} (want 0, 0, 0)")
+    check(counts == [0, 0, 0], f"gn_silu_checks {counts}")
+    # stage 1 at every serving input shape, plus a map the TPU streams: one
+    # launch a call (the profiler's count), resident in the clusters' shared
+    # memory at every serving shape, re-read at the streamed map, two calls
+    # bit-equal
+    gn_shapes = sorted({shape for shape, _, _ in chains}) + [STREAMED_MAP]
+    gnq_rows = {}
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[-1]
         for shape in gn_shapes if dtype == torch.bfloat16 else gn_shapes[:1]:
             c = shape[-1]
             x = (randn(*shape) * 2 + 0.5).to(dtype)
             gamma, beta = randn(c, scale=0.5) + 1.0, randn(c, scale=0.5)
-            y8, sa = qc.gn_silu_quant(x, gamma, beta)
+            out = []
+            mode = modes_of(lambda: out.extend(qc.gn_silu_quant(x, gamma, beta)
+                                               for _ in range(2)))["gn_silu_quant"]
+            (y8, sa), (y8b, sab) = out
             r8, rsa = qc._plain_gn_silu_quant(x, gamma, beta, 32, 1e-5)
             torch.cuda.synchronize()
             sa_rel = float(((sa - rsa).abs() / rsa).max())
             diff = (y8.int() - r8.int()).abs()
             codes_max, flipped = int(diff.max()), float((diff > 0).float().mean())
-            ok = sa_rel <= 1e-6 and codes_max <= 1 and flipped <= 1e-3
+            same = bool(torch.equal(y8, y8b) and torch.equal(sa, sab))
+            want = "reread" if shape == STREAMED_MAP else "resident"
             ms = time_ms(lambda: qc.gn_silu_quant(x, gamma, beta))
             plain = time_ms(lambda: qc._plain_gn_silu_quant(x, gamma, beta, 32, 1e-5))
-            dev = device_ms(lambda: qc.gn_silu_quant(x, gamma, beta))
+            per_call = []
+            dev = device_ms(lambda: qc.gn_silu_quant(x, gamma, beta), launches=per_call)
+            ok = (sa_rel <= 1e-6 and codes_max <= 1 and flipped <= 1e-3 and same
+                  and mode == {**dict.fromkeys(mode, 0), want: 2} and per_call[0] == 1.0)
             n = x.numel()
             # x read, codes written; ~14 float32 operations an element
             bms, by = bound_ms(n * (x.element_size() + 1), 14.0 * n, "float32")
             # row 9: the map the TPU streams (beyond its VMEM slab)
-            key = "gn_silu_quant_stream" if shape == (8, 64, 64, 320) else "gn_silu_quant"
+            key = "gn_silu_quant_stream" if shape == STREAMED_MAP else "gn_silu_quant"
             results[key].append(dict(
                 shape=list(shape), dtype=name, max_abs_err=float(codes_max), ok=ok,
                 ms=ms, plain_ms=plain, library_ms=None, bound_ms=bms, bound_by=by,
-                device_ms=dev, library_device_ms=None))
+                device_ms=dev, library_device_ms=None, device_launches=per_call[0],
+                paths=mode, deterministic=same))
+            if dtype == torch.bfloat16:
+                gnq_rows[shape] = results[key][-1]
             log(f"gn_silu_quant {name} {list(shape)}: sa rel {sa_rel:.2e} (tol 1e-6), "
-                f"codes max diff {codes_max} (tol 1) on {flipped:.2e} of them (tol 1e-3) "
-                f"{'PASS' if ok else 'FAIL'}; ms {ms:.4f} plain {plain:.4f} "
-                f"bound {bms:.4f} ({by}); device {dev:.4f}")
+                f"codes max diff {codes_max} (tol 1) on {flipped:.2e} of them (tol 1e-3), "
+                f"two calls equal {same}, path {mode} (want {want}), {per_call[0]:g} "
+                f"launches a call (want 1) {'PASS' if ok else 'FAIL'}; ms {ms:.4f} plain "
+                f"{plain:.4f} bound {bms:.4f} ({by}); device {dev:.4f}")
+    # row 8 over one serve eval's 29 calls
+    EVAL_SUMS["gn_silu_quant"] = sums = {
+        k: sum(n * gnq_rows[shape][k] for n, (shape, _, _) in zip(SERVE_EVAL_CHAINS, chains))
+        for k in ("device_ms", "bound_ms")}
+    log(f"gn_silu_quant per U-Net eval at CFG batch 8 ({sum(SERVE_EVAL_CHAINS)} calls, "
+        f"SERVE_EVAL_CHAINS): device {sums['device_ms']:.4f} ms, bound "
+        f"{sums['bound_ms']:.4f} ms")
 
     gen = torch.Generator(device="cuda").manual_seed(99)
     for shape, cout, epilogue in chains:
@@ -865,9 +924,11 @@ def phase_ffn_int8_kernel(results, randn):
 
 
 # Device times summed over one U-Net eval's calls of a kernel, the library
-# call's and the bound, by row: 7 (``phase_opt_in_kernels``, bf16), 11 and
-# 2 (at CFG batch 4 and 8; ``phase_kernels``)
+# call's and the bound, by row: 7 (``phase_opt_in_kernels``, bf16), 11, 8
+# and 2 (at CFG batch 4 and 8; ``phase_kernels``), 5 (``phase_opt_in``)
 EVAL_SUMS: dict = {}
+# Row 5's bf16 rows by (shape, eps, SiLU), for its per-eval sum
+GN_ROWS: dict = {}
 
 
 def _one_path(took: dict) -> str:
@@ -900,12 +961,18 @@ def phase_opt_in_kernels(results, randn):
         ok = finite and rel < OPT_TOL[dtype]
         if "path" in extra:  # the one launch took the path its dtype must take
             ok = ok and extra["path"] == {"bfloat16": "wgmma", "float32": "fma"}[dtype]
+        if "want_mode" in extra:  # both calls in the plan's mode, bit-equal
+            mode = extra["mode"]
+            ok = (ok and mode == {**dict.fromkeys(mode, 0), extra["want_mode"]: 2}
+                  and extra["deterministic"])
         times = {k: (time_ms(f) if timed else None) for k, f in fns.items()}
         b2b = {k: (time_b2b_ms(fns[k]) if timed else None) for k in ("kernel", "library")}
         per_call = []  # the kernel's launches per call, from the profiler
         dev = {k: (device_ms(fns[k], launches=per_call if k == "kernel" else None)
                    if timed else None) for k in ("kernel", "library")}
-        if name == "group_stats" and per_call:  # row 6: one launch per call
+        if name in ("group_stats", "group_norm_fused"):  # rows 5 and 6: one launch a call
+            if not per_call:
+                device_ms(fns["kernel"], n=3, launches=per_call)
             ok = ok and per_call[0] == 1.0
         bms, by = bound_ms(nbytes, ops, ops_type)
         results[name].append(dict(
@@ -933,7 +1000,10 @@ def phase_opt_in_kernels(results, randn):
             x = (randn(*shape) * 2 + 0.5).to(dtype)
             gamma, beta = randn(c, scale=0.5) + 1.0, randn(c, scale=0.5)
             n, elem = x.numel(), x.element_size()
-            got = gn.group_norm_fused(x, gamma, beta, 32, eps, act)
+            out = []
+            mode = modes_of(lambda: out.extend(gn.group_norm_fused(x, gamma, beta, 32, eps, act)
+                                               for _ in range(2)))["group_norm_fused"]
+            got = out[0]
             want = gn._plain_group_norm_fused(x, gamma, beta, 32, eps, act)
             xn = x.permute(0, 3, 1, 2)  # channels-last NCHW view
             gd, bd = gamma.to(dtype), beta.to(dtype)
@@ -941,7 +1011,11 @@ def phase_opt_in_kernels(results, randn):
                 {"kernel": lambda: gn.group_norm_fused(x, gamma, beta, 32, eps, act),
                  "plain": lambda: gn._plain_group_norm_fused(x, gamma, beta, 32, eps, act),
                  "library": lambda: F.group_norm(xn, 32, gd, bd, eps)},
-                2 * n * elem + 8 * c, 12.0 * n, "float32", eps=eps, silu=act)
+                2 * n * elem + 8 * c, 12.0 * n, "float32", eps=eps, silu=act, mode=mode,
+                want_mode="reread" if shape == OPT_GN_REREAD else "resident",
+                deterministic=bool(torch.equal(out[0], out[1])))
+            if dtype == torch.bfloat16:
+                GN_ROWS[(shape, eps, act)] = results["group_norm_fused"][-1]
             if act:
                 continue  # the stats do not depend on the activation
             mean, rstd = gn.group_stats(x, 32, eps)
@@ -1346,27 +1420,32 @@ class _Count:
 PATH_TOTALS: dict = {}
 
 
-# The launches by path in the last path run (``_read``)
+# The launches by path in the last path run (``_read``), and by the
+# GroupNorm cluster plan's mode
 LAST_PATHS: dict = {}
+LAST_MODES: dict = {}
 
 
 def _reset(counters) -> None:
-    """Every count to 0 just before a path run, the counts by path too."""
+    """Every count to 0 just before a path run, the counts by path and mode
+    too."""
     for fn in counters.values():
         fn.launches = 0
-    for fn in _path_wrappers().values():
+    for fn in (*_path_wrappers().values(), *_mode_wrappers().values()):
         fn.launches_by_path = dict.fromkeys(fn.launches_by_path, 0)
 
 
 def _read(counters) -> dict:
     """The counts of one path run, its counters set to 0 just before it
     (``_reset``); also added to ``PATH_TOTALS``.  The launches by path go
-    to ``LAST_PATHS``."""
+    to ``LAST_PATHS``, by mode to ``LAST_MODES``."""
     got = {k: fn.launches for k, fn in counters.items()}
     for k, v in got.items():
         PATH_TOTALS[k] = PATH_TOTALS.get(k, 0) + v
     LAST_PATHS.clear()
     LAST_PATHS.update({k: dict(fn.launches_by_path) for k, fn in _path_wrappers().items()})
+    LAST_MODES.clear()
+    LAST_MODES.update({k: dict(fn.launches_by_path) for k, fn in _mode_wrappers().items()})
     return got
 
 
@@ -1473,6 +1552,12 @@ def phase_opt_in(card: str, run: dict):
         relayouts.append(chain.relayouts)
         paths = {k: dict(LAST_PATHS[k]) for k in ("gn_silu_conv3x3_fused", "cross_attention")}
         check_no_fma("opt-in main path")
+        # every GroupNorm resident but the decoder's last one at 256^2
+        gn_modes = dict(LAST_MODES["group_norm_fused"])
+        gn_want = launches["group_norm_fused"]
+        check(gn_modes == {"resident": gn_want - 1, "reread": 1},
+              f"opt-in GroupNorm launches by mode {gn_modes}, expected 1 reread "
+              f"({OPT_GN_REREAD}) of {gn_want}")
         _set_switches("auto", "auto", False)
         default_s = _counted_call(models, schedule, ids, shape, kwargs)[0]
         _set_switches("pallas", "pallas", True)
@@ -1508,6 +1593,7 @@ def phase_opt_in(card: str, run: dict):
                 for p in (profile, run["profile"])]
         log(f"opt-in U-Net eval at CFG batch {2 * shape[0]}: device busy {busy[0]} against "
             f"the default route's {busy[1]}")
+        eval_group_norms(models[1], shape)
 
         # GroupNorm "stats": the stats kernel, the normalize in PyTorch
         short = make_schedule(num_ddim_steps=10)
@@ -1528,7 +1614,46 @@ def phase_opt_in(card: str, run: dict):
         check(rel_s < OPT_ROUTE_TOL, f"stats route x0 {rel_s:.3e} from the default")
     finally:
         _set_switches("auto", "auto", False)
-    return launches, stats_launches, paths
+    return launches, stats_launches, {**paths, "group_norm_fused": gn_modes}
+
+
+def eval_group_norms(unet, shape) -> None:
+    """Row 5 over one opt-in U-Net eval: its GroupNorm calls counted by
+    (shape, eps, SiLU) in one eval at the CFG batch of a latent ``shape``
+    (the switches on), each count times the kernels phase's device time and
+    bound at that shape, into ``EVAL_SUMS``."""
+    import collections
+
+    import torch
+
+    from ldm_tf2_tpu_torch.ops import group_norm as gn
+
+    real, seen = gn._launch_fused, collections.Counter()
+
+    def counted(x, gamma, beta, num_groups, eps, activate):
+        seen[(tuple(x.shape), eps, activate)] += 1
+        return real(x, gamma, beta, num_groups, eps, activate)
+
+    b2 = 2 * shape[0]
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.randn((b2, *shape[1:]), generator=gen, device="cuda", dtype=unet.dtype)
+    ctx = torch.randn(b2, 77, 1280, generator=gen, device="cuda", dtype=unet.dtype) * 0.05
+    gn._launch_fused = counted  # the kernel's launcher, under group_norm_fused
+    try:
+        with torch.inference_mode():
+            unet(x, torch.full((b2,), 501.0, device="cuda"), ctx)
+    finally:
+        gn._launch_fused = real
+    check(sum(seen.values()) == OPT_EVAL["group_norm"] and all(k in GN_ROWS for k in seen),
+          f"one opt-in eval's GroupNorms {dict(seen)}: want {OPT_EVAL['group_norm']} at "
+          f"OPT_GN shapes")
+    EVAL_SUMS["group_norm_fused"] = sums = {
+        k: sum(n * GN_ROWS[key][k] for key, n in seen.items())
+        for k in ("device_ms", "library_device_ms", "bound_ms")}
+    log(f"group_norm_fused per opt-in U-Net eval at CFG batch {b2} "
+        f"({sum(seen.values())} calls by shape {dict(seen)}): device "
+        f"{sums['device_ms']:.4f} ms, F.group_norm {sums['library_device_ms']:.4f} ms, bound "
+        f"{sums['bound_ms']:.4f} ms")
 
 
 def phase_samplers(card: str, run: dict):
@@ -1683,6 +1808,9 @@ def phase_serve(card: str, models):
         f"memory {peak_gb:.2f} GB; launches over {calls} calls {launches}")
     check(launches == want, f"serve launch counts {launches}, expected {want}")
     check_no_fma("serve")
+    gnq = LAST_MODES["gn_silu_quant"]
+    check(gnq == {"resident": want["gn_silu_quant"], "reread": 0},
+          f"serve: GN+SiLU+quantize launches by mode {gnq}, want all resident")
     pv8 = LAST_PATHS["flash_attention_pv_int8"]
     check(pv8 == {**dict.fromkeys(pv8, 0), "wgmma": want["flash_attention_pv_int8"]},
           f"serve: int8-P.V launches by path {pv8}, want all "
@@ -1705,10 +1833,10 @@ def _kernel_group(name: str) -> str:
         return "gn_silu_conv3x3 kernels"
     if any(k in low for k in ("cross_wgmma", "cross_mma", "cross_fma")):
         return "cross_attention kernel"
-    if "gn_channel_stats" in low or "gn_normalize" in low:
+    if any(k in low for k in ("gn_channel_stats", "gn_normalize", "gn_cluster_norm")):
         return "GroupNorm stats / normalize kernels"
-    if any(k in low for k in ("gn_stats", "gn_amax", "gn_quant")):
-        return "gn_silu_quant kernels"
+    if "gn_silu_quant" in low:
+        return "gn_silu_quant kernel"
     if "ffn_" in low:
         return "fused_ffn kernels"
     if "fprop" in low or "conv" in low or "dgrad" in low:
@@ -2134,6 +2262,7 @@ def main() -> int:
     phase_samplers(card, run)
     serve = phase_serve(card, run["models"])
     by_path.update({k: dict(LAST_PATHS[k]) for k in ("flash_attention_pv_int8", "s8_conv3x3")})
+    by_path["gn_silu_quant"] = dict(LAST_MODES["gn_silu_quant"])
     launches.update({k: serve[k] for k in ("gn_silu_quant", "s8_conv3x3",
                                            "flash_attention_pv_int8")})
     del run
@@ -2188,7 +2317,7 @@ def main() -> int:
         if name in by_path:  # the launches above by path (wgmma, mma.sync, fma)
             kernels[-1]["launches_by_path"] = by_path[name]
         per_eval = {k: v for k, v in EVAL_SUMS.items() if k.split()[0] == name}
-        if per_eval:  # over one U-Net eval's calls (rows 2, 7, 11)
+        if per_eval:  # over one U-Net eval's calls (rows 2, 5, 7, 8, 11)
             kernels[-1]["per_eval"] = per_eval
         if name == "fused_ffn_int8":  # on no path; row 2 as the yardstick
             kernels[-1].update(kernels_phase_launches=ffn8_checked,

@@ -1,10 +1,13 @@
 """Device times of the port's bf16 FFN (row 2, ``fused_ffn``) at
-``chip_smoke.FFN_SHAPES`` and of its s8 3x3 conv (row 11, ``s8_conv3x3``)
-at ``chip_smoke.SERVE_CHAINS``: per call and per kernel launched, from
+``chip_smoke.FFN_SHAPES``, its s8 3x3 conv (row 11, ``s8_conv3x3``) at
+``chip_smoke.SERVE_CHAINS``, its GN+SiLU+quantize (rows 8 and 9,
+``gn_silu_quant``) at the distinct ``SERVE_CHAINS`` inputs and the map the
+TPU streams, and its fused GroupNorm (row 5, ``group_norm_fused``) at
+``chip_smoke.OPT_GN``: per call and per kernel launched, from
 ``torch.profiler`` through ``chip_smoke.device_ms``, on random inputs made
 from a seed.  Needs a CUDA card.  Run from the root of a checkout:
 
-    python3 kernel_times.py [ffn] [s8conv] [--rounds N]
+    python3 kernel_times.py [ffn] [s8conv] [gnq] [gn] [--rounds N]
 
 It prints one JSON line per shape and round, then the card's name and power
 limit.  To compare two trees on one card, copy this script into the root of
@@ -66,17 +69,52 @@ def s8conv_times(gen):
                    parts=parts)
 
 
+def gnq_times(gen):
+    import torch
+
+    from ldm_tf2_tpu_torch.ops.quant_conv import gn_silu_quant
+
+    shapes = sorted({shape for shape, _, _ in chip_smoke.SERVE_CHAINS}) + [(8, 64, 64, 320)]
+    for shape in shapes:
+        c = shape[-1]
+        x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5).bfloat16()
+        gamma = torch.randn(c, generator=gen, device="cuda") * 0.5 + 1.0
+        beta = torch.randn(c, generator=gen, device="cuda") * 0.5
+        per_call = []
+        ms = chip_smoke.device_ms(lambda: gn_silu_quant(x, gamma, beta), launches=per_call)
+        yield dict(kernel="gn_silu_quant", shape=list(shape), device_ms=ms,
+                   launches=per_call[0])
+
+
+def gn_times(gen):
+    import torch
+
+    from ldm_tf2_tpu_torch.ops.group_norm import group_norm_fused
+
+    for shape, eps, act in chip_smoke.OPT_GN:
+        c = shape[-1]
+        x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5).bfloat16()
+        gamma = torch.randn(c, generator=gen, device="cuda") * 0.5 + 1.0
+        beta = torch.randn(c, generator=gen, device="cuda") * 0.5
+        per_call = []
+        ms = chip_smoke.device_ms(lambda: group_norm_fused(x, gamma, beta, 32, eps, act),
+                                  launches=per_call)
+        yield dict(kernel="group_norm_fused", shape=list(shape), silu=act, device_ms=ms,
+                   launches=per_call[0])
+
+
 def main() -> int:
     import torch
 
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("kernels", nargs="*", choices=("ffn", "s8conv"), default=["ffn", "s8conv"])
+    p.add_argument("kernels", nargs="*", choices=("ffn", "s8conv", "gnq", "gn"),
+                   default=["ffn", "s8conv", "gnq", "gn"])
     p.add_argument("--rounds", type=int, default=1)
     args = p.parse_args()
     if not torch.cuda.is_available():
         print("kernel_times.py needs a CUDA card", file=sys.stderr)
         return 1
-    times = {"ffn": ffn_times, "s8conv": s8conv_times}
+    times = {"ffn": ffn_times, "s8conv": s8conv_times, "gnq": gnq_times, "gn": gn_times}
     for rnd in range(args.rounds):
         for name in args.kernels:
             for row in times[name](torch.Generator(device="cuda").manual_seed(1234)):

@@ -12,7 +12,9 @@ Counterpart of ``ldm_tf2_tpu.ops.group_norm``.  The switch
   (``jnp.mean(square(x - mean))``).
 * ``"pallas"``: ``group_norm_fused``, the kernel ``csrc/group_norm.cu``
   that replaces the TPU's ``_gn_kernel``: stats, normalize, affine
-  ``(x - mean) * (rstd * gamma) + beta`` and SiLU, variance NOT clamped.
+  ``(x - mean) * (rstd * gamma) + beta`` and SiLU, variance NOT clamped,
+  in one launch on thread-block clusters that read x once
+  (``csrc/gn_cluster.cuh``, geometry from ``quant_conv.gn_cluster_plan``).
 * ``"stats"``: ``group_stats`` (the same source's stats kernel, replacing
   ``_gn_stats_kernel``: per-channel mean and rstd = rsqrt(E[x^2] - mean^2
   + eps), unclamped) followed by the normalize in PyTorch, as the JAX
@@ -43,6 +45,9 @@ import math
 import torch
 
 from ldm_tf2_tpu_torch.ops import _build
+from ldm_tf2_tpu_torch.ops.quant_conv import (
+    GN_PATHS, check_clusters, gn_cluster_plan, gn_geometry,
+)
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _IMPLS = ("auto", "xla", "pallas", "stats")
@@ -71,7 +76,9 @@ def get_groupnorm_impl() -> str:
 def kernel_takes(shape, num_groups: int = 32) -> bool:
     """Whether the GroupNorm kernels take an input of ``shape`` [B, ...,
     C]: a batch, at least one spatial position and whole groups.  Both
-    kernels stream any number of positions (no on-chip slab to fit)."""
+    kernels take any number of positions: the stats kernel streams them,
+    the fused kernel keeps what its clusters' shared memory holds and reads
+    the rest again."""
     return (len(shape) >= 3 and shape[-1] % num_groups == 0
             and all(s > 0 for s in shape))
 
@@ -183,13 +190,6 @@ def _f32(t, device):
     return t.to(device=device, dtype=torch.float32).contiguous()
 
 
-def _entry(symbol: str, n_ptrs: int, n_after: int):
-    """A C entry of the GroupNorm library: ``n_ptrs`` pointers, (b, hw, c,
-    groups, chunks, gps, vec), eps, ``n_after`` more ints, the stream."""
-    return _build.entry("group_norm", symbol, [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 7
-                        + [ctypes.c_float] + [ctypes.c_int] * n_after + [ctypes.c_void_p])
-
-
 # The stats kernel's grid fills the card's 132 SMs about twice
 STATS_CTAS = 264
 
@@ -220,7 +220,8 @@ _WORKSPACES: dict = {}
 
 
 def stats_workspace(device, b: int, chunks: int, gps: int, num_groups: int):
-    """(partial, tickets) pointers for a stats launch: a float32 area for the
+    """(partial, tickets) pointers for a stats launch (rows 6 and 7's
+    statistics, ``csrc/gn_stats.cuh``): a float32 area for the
     chunks' group sums and one counter per (image, slice), kept per device
     between calls (the counters start at 0 and the kernel's last block of
     each (image, slice) sets its counter back to 0).  A grid of one chunk
@@ -268,7 +269,8 @@ def _launch_stats(x, num_groups, eps):
     x = x.contiguous()
     b, c = x.shape[0], x.shape[-1]
     hw, chunks, gps, vec, partial, tickets = stats_args(x, num_groups)
-    fn = _entry("ldm_group_stats", 4, 1)
+    fn = _build.entry("group_norm", "ldm_group_stats", [ctypes.c_void_p] * 4 + [
+        ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     out = torch.empty((2, b, c), dtype=torch.float32, device=x.device)  # mean, rstd
     err = fn(x.data_ptr(), out.data_ptr(), partial, tickets, b, hw, c, num_groups, chunks,
              gps, vec, float(eps), x.dtype == torch.bfloat16,
@@ -278,22 +280,43 @@ def _launch_stats(x, num_groups, eps):
     return out.unbind(0)
 
 
+_FUSED_PLANS: dict = {}
+
+
+def fused_plan(x, num_groups: int) -> dict:
+    """Row 5's ``gn_cluster_plan`` (a cluster per image and slice of whole
+    groups) for a CUDA ``x``, checked against the card once per shape,
+    dtype and device."""
+    key = (x.shape, x.dtype, x.get_device(), num_groups)
+    plan = _FUSED_PLANS.get(key)
+    if plan is None:
+        plan = gn_cluster_plan(tuple(x.shape), x.dtype, False, num_groups)
+        check_clusters("group_norm", "ldm_group_norm_clusters", plan, x.shape, x.dtype,
+                       x.shape[0], num_groups)
+        plan = _FUSED_PLANS[key] = dict(plan, geometry=gn_geometry(plan))
+    return plan
+
+
 def _launch_fused(x, gamma, beta, num_groups, eps, activate):
     if x.device.type != "cuda":
         raise ValueError(f"group_norm_fused takes CPU or CUDA tensors, got {x.device}")
     x = x.contiguous()
     b, c = x.shape[0], x.shape[-1]
+    plan = fused_plan(x, num_groups)
+    if plan["vec"] > 1 and x.data_ptr() % 16:  # a view into a row: 16-byte loads need a copy
+        x = x.clone()
     gamma, beta = _f32(gamma, x.device), _f32(beta, x.device)
-    hw, chunks, gps, vec, partial, tickets = stats_args(x, num_groups)
-    fn = _entry("ldm_group_norm", 7, 2)
+    fn = _build.entry("group_norm", "ldm_group_norm", [ctypes.c_void_p] * 4 + [
+        ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                             ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
     out = torch.empty_like(x)
-    stats = torch.empty(2 * b * c, dtype=torch.float32, device=x.device)  # mean, rstd * gamma
-    err = fn(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(),
-             stats.data_ptr(), partial, tickets, b, hw, c, num_groups, chunks, gps, vec,
-             float(eps), int(activate), int(x.dtype == torch.bfloat16),
+    err = fn(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(), b,
+             x.numel() // (b * c), c, num_groups, float(eps), int(activate),
+             int(x.dtype == torch.bfloat16), plan["geometry"],
              torch._C._cuda_getCurrentRawStream(x.get_device()))
     _build.check(err, "group_norm kernel launch")
     group_norm_fused.launches += 1
+    group_norm_fused.launches_by_path[plan["mode"]] += 1
     return out
 
 
@@ -362,8 +385,10 @@ def group_norm_fused(x, gamma, beta, num_groups: int = 32, eps: float = 1e-5,
     unclamped fast variance, ``(x - mean) * (rstd * gamma) + beta``.
 
     A CPU tensor takes the plain version; a CUDA tensor takes the kernel,
-    or raises.  Differentiable on both.  ``group_norm_fused.launches``
-    counts kernel calls."""
+    or raises: one launch on thread-block clusters (``fused_plan``).
+    Differentiable on both.  ``group_norm_fused.launches`` counts kernel
+    calls, ``launches_by_path`` them by the plan's mode ("resident" or
+    "reread")."""
     _check(x, gamma, beta, num_groups)
     if _build.needs_grad(x, gamma, beta):
         return _GroupNormFused.apply(x, gamma, beta, num_groups, eps, activate)
@@ -373,6 +398,7 @@ def group_norm_fused(x, gamma, beta, num_groups: int = 32, eps: float = 1e-5,
 
 
 group_norm_fused.launches = 0
+group_norm_fused.launches_by_path = dict.fromkeys(GN_PATHS, 0)
 
 
 def group_norm(x, gamma, beta, num_groups: int = 32, eps: float = 1e-5,

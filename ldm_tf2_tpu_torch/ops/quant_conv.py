@@ -7,7 +7,9 @@ Counterpart of ``ldm_tf2_tpu.ops.quant_conv`` (the serving mode
 * ``csrc/gn_silu_quant.cu`` (``gn_silu_quant``) replaces the TPU kernels
   ``_gn_silu_quant_kernel`` and ``_gn_silu_quant_stream_kernel``: f32 group
   statistics (fast variance), normalize, affine, SiLU, per-image scale
-  ``sa = max(amax, 1e-8) / 127`` and ``y8 = clip(round(y * (1 / sa)))``.
+  ``sa = max(amax, 1e-8) / 127`` and ``y8 = clip(round(y * (1 / sa)))``,
+  in one launch on a thread-block cluster per image whose geometry is
+  ``gn_cluster_plan``'s (shared with row 5's GroupNorm).
 * ``csrc/s8_conv3x3.cu`` (``s8_conv3x3``) replaces ``_batched_conv_kernel``:
   the s8 x s8 -> s32 3x3 SAME conv with the epilogue
   ``acc * (sa[b] * ws[co]) + b (+t) (+residual)`` in f32, cast to the
@@ -31,6 +33,7 @@ differentiated: both wrappers raise under grad.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 import torch.nn.functional as F
@@ -164,31 +167,163 @@ def _plain_gn_silu_quant(x, gamma, beta, num_groups, eps):
     return y8.to(torch.int8).reshape(b, h, w, c), sa.reshape(b)
 
 
+# The GroupNorm cluster kernels' launch geometry (``csrc/gn_cluster.cuh``:
+# rows 8 and 9 here, row 5 in ``ops/group_norm.py``)
+GN_THREADS = 512  # the most threads a CTA runs: rows 8 and 9
+GN_SMEM = 232448  # the most shared memory a CTA may have (227 KB): rows 8 and 9
+# Row 5's CTAs: two to an SM (the card holds 15 clusters of 8 one-CTA SMs; a
+# batch of 4 in 4 slices is 16)
+GN_PAIR_THREADS = 256
+GN_PAIR_SMEM = 115712  # (228 KB - 2 x 1 KB reserved) / 2
+GN_TAIL = 36  # floats after the sums: warp maxima, the amax slots, padding
+GN_CLUSTERS = (8, 4, 2, 1)  # the portable cluster sizes, largest first
+GN_CTAS = 128  # row 5's slices aim at about one CTA per SM
+GN_PATHS = ("resident", "reread")
+_ELEM = {torch.float32: 4, torch.bfloat16: 2}
+
+
+def _align16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def _slice_groups(b: int, cluster: int, num_groups: int, cg: int, unit: int) -> int:
+    """Row 5's groups per slice: the most (the longest contiguous runs of a
+    row) that still give ``GN_CTAS`` CTAs, else the fewest, among the
+    divisors of ``num_groups`` whose slice is a whole number of ``unit``
+    elements."""
+    fits = [d for d in range(num_groups, 0, -1) if num_groups % d == 0 and d * cg % unit == 0]
+    enough = [d for d in fits if b * (num_groups // d) * cluster >= GN_CTAS]
+    return enough[0] if enough else fits[-1]
+
+
+def gn_cluster_plan(shape, dtype, per_image: bool, num_groups: int = 32) -> dict:
+    """The launch geometry of the GroupNorm cluster kernels for an input of
+    ``shape`` [B, ..., C] and ``dtype``, a function of the two alone (so the
+    summation order is fixed per shape): ``per_image`` for rows 8 and 9
+    (one cluster holds a whole image: the amax couples its groups), else row
+    5 (a cluster holds an image's slice of ``gps`` whole groups).
+
+    * ``cluster``: R CTAs, the largest portable size (8, 4, 2, 1) that gives
+      every CTA at least one of the HW rows; ``rows`` per CTA;
+    * ``gps``: groups per slice (row 5: ``_slice_groups``), ``slices``;
+    * ``vec``: elements per load, 16 bytes where C and the slice's ``cw``
+      channels are a multiple of 16 bytes, else 1 (the C side also needs a
+      16-byte aligned base);
+    * ``cols`` vector columns x ``phases`` row phases of threads (a thread
+      owns one column and every ``phases``-th row), ``threads`` in whole
+      warps, at most ``GN_THREADS`` (row 5: ``GN_PAIR_THREADS``);
+    * ``smem``: the kept rows (``keep`` of ``rows``; 16-byte aligned), then
+      float32 partial sums (2 x cols x phases x vec), channel sums (2 x
+      cw), for rows 8 and 9 each channel's min and max of x (2 x cw), group
+      sums and statistics (4 x gps), ``GN_TAIL`` floats; ``mode``
+      "resident" where a CTA's rows fit ``GN_SMEM`` (row 5:
+      ``GN_PAIR_SMEM``), else "reread": the CTA keeps ``keep`` rows and
+      reads the rest again in each later pass.
+    ``grid`` is (R, slices, B) in clusters of (R, 1, 1)."""
+    b, c = shape[0], shape[-1]
+    hw = math.prod(shape[1:-1])
+    if c % num_groups or hw < 1:
+        raise ValueError(f"no GroupNorm cluster plan for {tuple(shape)} in {num_groups} groups")
+    elem, cg = _ELEM[dtype], c // num_groups
+    per16 = 16 // elem
+    cluster = next(r for r in GN_CLUSTERS if r <= hw and (r - 1) * -(-hw // r) < hw)
+    rows = -(-hw // cluster)
+    gps = num_groups if per_image else _slice_groups(
+        b, cluster, num_groups, cg, per16 if c % per16 == 0 else 1)
+    cw = gps * cg
+    vec = per16 if c % per16 == 0 and cw % per16 == 0 else 1
+    most, budget = (GN_THREADS, GN_SMEM) if per_image else (GN_PAIR_THREADS, GN_PAIR_SMEM)
+    cols = min(cw // vec, most)
+    phases = min(most // cols, rows)
+    fixed = 4 * (2 * cols * phases * vec + (4 if per_image else 2) * cw + 4 * gps + GN_TAIL)
+    keep = min(rows, (budget - fixed) // (cw * elem))
+    if _align16(keep * cw * elem) + fixed > budget:
+        keep -= 1
+    if keep < 0:
+        raise ValueError(f"no GroupNorm cluster plan for {tuple(shape)}: {fixed} bytes of "
+                         f"sums exceed a CTA's shared memory")
+    return dict(cluster=cluster, rows=rows, keep=keep, gps=gps, slices=num_groups // gps,
+                vec=vec, cols=cols, phases=phases, threads=-(-cols * phases // 32) * 32,
+                smem=_align16(keep * cw * elem) + fixed,
+                mode="resident" if keep == rows else "reread",
+                grid=(cluster, num_groups // gps, b))
+
+
+def gn_geometry(plan: dict):
+    """The C entries' geometry argument of a ``gn_cluster_plan``: {cluster,
+    rows, keep, gps, vec, cols, phases, threads, smem}."""
+    return _build.int_array(tuple(plan[k] for k in (
+        "cluster", "rows", "keep", "gps", "vec", "cols", "phases", "threads", "smem")))
+
+
+def check_clusters(lib: str, symbol: str, plan: dict, shape, dtype, *lead) -> None:
+    """Raise, naming the shape, where the card cannot hold one cluster of
+    the plan (``cudaOccupancyMaxActiveClusters`` is 0); ``lead``: the C
+    entry's arguments before (is_bf16, geometry, out)."""
+    fn = _build.entry(lib, symbol, [ctypes.c_int] * (len(lead) + 1) + [
+        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)])
+    out = ctypes.c_int(0)
+    _build.check(fn(*lead, int(dtype == torch.bfloat16), gn_geometry(plan), ctypes.byref(out)),
+                 f"{symbol} occupancy query")
+    if out.value < 1:
+        raise RuntimeError(
+            f"{lib}: the card holds no cluster of {plan['cluster']} CTAs x {plan['threads']} "
+            f"threads with {plan['smem']} bytes of shared memory, the plan for "
+            f"{tuple(shape)} {dtype}")
+
+
+def gn_silu_checks(device) -> list:
+    """The counts of ``csrc/gn_silu_quant.cu::silu_checks_kernel`` on a CUDA
+    ``device``: floats where the kernels' reciprocal differs from
+    ``__frcp_rn`` on [1, 2^126), steps of [-104, 0] where ``expf``
+    decreases, negative floats where |silu| reaches the bound the amax
+    relies on.  Each must be 0."""
+    fn = _build.entry("gn_silu_quant", "ldm_gn_silu_checks", [ctypes.c_void_p] * 2)
+    out = torch.empty(3, dtype=torch.int64, device=device)
+    _build.check(fn(out.data_ptr(), torch._C._cuda_getCurrentRawStream(out.get_device())),
+                 "gn_silu_quant checks launch")
+    return out.tolist()
+
+
+_GNQ_PLANS: dict = {}
+
+
+def _gnq_plan(x, num_groups: int) -> dict:
+    """``gn_cluster_plan`` of a CUDA ``x`` for rows 8 and 9, checked against
+    the card once per shape, dtype and device."""
+    key = (x.shape, x.dtype, x.get_device(), num_groups)
+    plan = _GNQ_PLANS.get(key)
+    if plan is None:
+        plan = gn_cluster_plan(tuple(x.shape), x.dtype, True, num_groups)
+        check_clusters("gn_silu_quant", "ldm_gn_silu_quant_clusters", plan, x.shape, x.dtype,
+                       x.shape[0])
+        plan = _GNQ_PLANS[key] = dict(plan, geometry=gn_geometry(plan))
+    return plan
+
+
 def _launch_gn_silu_quant(x, gamma, beta, num_groups, eps):
     if x.device.type != "cuda":
         raise ValueError(f"gn_silu_quant takes CPU or CUDA tensors, got {x.device}")
     x = x.contiguous()
     b, h, w, c = x.shape
-    lib = _build.load("gn_silu_quant")
-    fn = lib.ldm_gn_silu_quant
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
+    plan = _gnq_plan(x, num_groups)
+    if plan["vec"] > 1 and x.data_ptr() % 16:  # a view into a row: 16-byte loads need a copy
+        x = x.clone()
+    fn = _build.entry("gn_silu_quant", "ldm_gn_silu_quant", [ctypes.c_void_p] * 5 + [
+        ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                             ctypes.c_void_p])
     gamma = gamma.to(device=x.device, dtype=torch.float32).contiguous()
     beta = beta.to(device=x.device, dtype=torch.float32).contiguous()
     y8 = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     sa = torch.empty(b, dtype=torch.float32, device=x.device)
-    stats = torch.empty(b * num_groups * 2, dtype=torch.float32, device=x.device)
-    amax = torch.empty(b, dtype=torch.int32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
     err = fn(
-        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y8.data_ptr(),
-        sa.data_ptr(), stats.data_ptr(), amax.data_ptr(), b, h * w, c,
-        num_groups, float(eps), int(x.dtype == torch.bfloat16), stream,
+        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y8.data_ptr(), sa.data_ptr(), b,
+        h * w, c, num_groups, float(eps), int(x.dtype == torch.bfloat16), plan["geometry"],
+        torch._C._cuda_getCurrentRawStream(x.get_device()),
     )
     _build.check(err, "gn_silu_quant kernel launch")
     gn_silu_quant.launches += 1
+    gn_silu_quant.launches_by_path[plan["mode"]] += 1
     if _vmem_bytes(h * w, c) > _VMEM_BUDGET:  # where the TPU streams (row 9)
         gn_silu_quant.stream_launches += 1
     return y8, sa
@@ -200,10 +335,13 @@ def gn_silu_quant(x, gamma, beta, num_groups: int = 32, eps: float = 1e-5):
     ``y8 * sa[b] ~= silu(group_norm(x))``.
 
     A CPU tensor takes the plain version; a CUDA tensor takes the kernel,
-    or raises.  ``gn_silu_quant.launches`` counts kernel launches, and
-    ``gn_silu_quant.stream_launches`` those of them at a shape whose slab
-    does not fit the TPU kernel's VMEM, where the JAX package runs its
-    streamed kernel instead; one CUDA kernel takes both."""
+    or raises: one launch on a thread-block cluster per image
+    (``gn_cluster_plan``).  ``gn_silu_quant.launches`` counts kernel
+    launches, ``launches_by_path`` them by the plan's mode ("resident":
+    the image held in the cluster's shared memory; "reread": rows beyond it
+    read again), and ``stream_launches`` those at a shape whose slab does
+    not fit the TPU kernel's VMEM, where the JAX package runs its streamed
+    kernel instead; one CUDA kernel takes both."""
     if x.dim() != 4:
         raise ValueError(f"x must be [B, H, W, C], got {tuple(x.shape)}")
     if x.dtype not in _DTYPES:
@@ -221,6 +359,7 @@ def gn_silu_quant(x, gamma, beta, num_groups: int = 32, eps: float = 1e-5):
 
 gn_silu_quant.launches = 0
 gn_silu_quant.stream_launches = 0
+gn_silu_quant.launches_by_path = dict.fromkeys(GN_PATHS, 0)
 
 
 # ------------------------------------------------------------ s8 3x3 conv --

@@ -160,15 +160,76 @@ def test_gn_silu_quant_kernel_matches_plain_on_card(dtype, shape):
     gamma = torch.randn(c, generator=g, device="cuda") * 0.5 + 1.0
     beta = torch.randn(c, generator=g, device="cuda") * 0.5
     before = tqc.gn_silu_quant.launches, tqc.gn_silu_quant.stream_launches
+    modes = dict(tqc.gn_silu_quant.launches_by_path)
     y8, sa = tqc.gn_silu_quant(x, gamma, beta)
     streamed = shape == (2, 64, 64, 320)  # the map beyond the TPU's one-pass slab
     assert (tqc.gn_silu_quant.launches, tqc.gn_silu_quant.stream_launches) == (
         before[0] + 1, before[1] + streamed)
+    # the port re-reads where a cluster's shared memory cannot hold the image
+    mode = tqc.gn_cluster_plan(shape, dtype, True)["mode"]
+    assert mode == ("reread" if streamed else "resident")
+    assert tqc.gn_silu_quant.launches_by_path[mode] == modes[mode] + 1
     r8, rsa = tqc._plain_gn_silu_quant(x, gamma, beta, 32, 1e-5)
     # float32 sums in another order: the scale to an ulp or two, the codes
     # to one step where a value lies within that of a rounding midpoint
     assert float(((sa - rsa).abs() / rsa).max()) <= 1e-6
     diff = (y8.int() - r8.int()).abs()
+    assert int(diff.max()) <= 1 and float((diff > 0).float().mean()) <= 1e-3
+
+
+def _kernel_launches(fn, what):
+    """The kernels whose name holds ``what`` that one call of ``fn``
+    launches, from the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and what in e.name]
+    return names, out
+
+
+@pytest.mark.cuda
+def test_gn_silu_arithmetic_holds_on_every_float_on_card():
+    """The facts rows 8 and 5 rest on, counted over every float of their
+    range: the SiLU's reciprocal equals ``__frcp_rn`` on [1, 2^126), expf
+    never decreases on [-104, 0], |silu(z)| stays below the amax bound for
+    every z < 0."""
+    _need_cuda()
+    assert tqc.gn_silu_checks(torch.device("cuda")) == [0, 0, 0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,shape,groups,mode", [
+    (torch.bfloat16, (8, 32, 32, 640), 32, "resident"),   # the largest serving slab
+    (torch.bfloat16, (8, 8, 8, 2560), 32, "resident"),
+    (torch.bfloat16, (8, 64, 64, 320), 32, "reread"),     # row 9's map
+    (torch.float32, (8, 8, 8, 640), 32, "resident"),
+    (torch.bfloat16, (2, 5, 7, 96), 32, "resident"),
+    (torch.bfloat16, (2, 5, 7, 36), 4, "resident"),      # 2-byte loads: C * 2 % 16 != 0
+])
+def test_gn_silu_quant_is_one_deterministic_cluster_launch_on_card(dtype, shape, groups, mode):
+    """Rows 8 and 9 in one launch (the profiler's count) in the plan's mode,
+    the same bits on every call, within the plain version's rounding."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(3)
+    c = shape[-1]
+    x = (torch.randn(shape, generator=g, device="cuda") * 2 + 0.5).to(dtype)
+    gamma = torch.randn(c, generator=g, device="cuda") * 0.5 + 1.0
+    beta = torch.randn(c, generator=g, device="cuda") * 0.5
+    first = tqc.gn_silu_quant(x, gamma, beta, groups)
+    before = dict(tqc.gn_silu_quant.launches_by_path)
+    names, again = _kernel_launches(lambda: tqc.gn_silu_quant(x, gamma, beta, groups),
+                                    "gn_silu_quant")
+    assert len(names) == 1, names
+    assert tqc.gn_silu_quant.launches_by_path[mode] == before[mode] + 2
+    assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
+    r8, rsa = tqc._plain_gn_silu_quant(x, gamma, beta, groups, 1e-5)
+    assert float(((again[1] - rsa).abs() / rsa).max()) <= 1e-6
+    diff = (again[0].int() - r8.int()).abs()
     assert int(diff.max()) <= 1 and float((diff > 0).float().mean()) <= 1e-3
 
 
@@ -444,6 +505,63 @@ def test_group_norm_kernels_match_plain_on_card(dtype, shape, activate):
     assert _rel(y, tgn._plain_group_norm_fused(x, gamma, beta, 32, 1e-6, activate)) < tol
     want_mean, want_rstd = tgn._plain_group_stats(x, 32, 1e-6)
     assert _rel(mean, want_mean) < 1e-5 and _rel(rstd, want_rstd) < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,groups,activate", [
+    ((4, 32, 32, 320), 32, False), ((4, 16, 16, 640), 32, False), ((4, 4, 4, 1280), 32, True),
+    ((2, 32, 32, 512), 32, False), ((2, 256, 256, 128), 32, True), ((2, 5, 7, 96), 32, True),
+    ((2, 5, 7, 36), 4, False)])
+def test_group_norm_fused_is_one_deterministic_cluster_launch_on_card(dtype, shape, groups,
+                                                                      activate):
+    """Row 5 in one launch (the profiler's count) in the plan's mode (the
+    autoencoder's 256^2 map re-read), the same bits on every call, within
+    ``chip_smoke.OPT_TOL`` of the plain version."""
+    _need_cuda()
+    from ldm_tf2_tpu_torch.ops import group_norm as tgn
+
+    g = torch.Generator(device="cuda").manual_seed(22)
+    c = shape[-1]
+    x = (torch.randn(shape, generator=g, device="cuda") * 2 + 0.5).to(dtype)
+    gamma = torch.randn(c, generator=g, device="cuda") * 0.5 + 1.0
+    beta = torch.randn(c, generator=g, device="cuda") * 0.5
+    first = tgn.group_norm_fused(x, gamma, beta, groups, 1e-6, activate)
+    mode = tqc.gn_cluster_plan(shape, dtype, False, groups)["mode"]
+    assert mode == ("reread" if shape == (2, 256, 256, 128) else "resident")
+    before = dict(tgn.group_norm_fused.launches_by_path)
+    names, again = _kernel_launches(
+        lambda: tgn.group_norm_fused(x, gamma, beta, groups, 1e-6, activate), "gn_cluster_norm")
+    assert len(names) == 1, names
+    assert tgn.group_norm_fused.launches_by_path[mode] == before[mode] + 2
+    assert torch.equal(first, again)
+    want = tgn._plain_group_norm_fused(x, gamma, beta, groups, 1e-6, activate)
+    assert _rel(again, want) < chip_smoke.OPT_TOL[str(dtype).split(".")[-1]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("activate", [False, True])
+def test_group_norm_fused_gradients_on_card_equal_cpu(activate):
+    """Row 5 as an ``autograd.Function``: the card's forward is the cluster
+    kernel, its backward the recompute through ``_xla_group_norm``; x's,
+    gamma's and beta's gradients within 1e-4 rel-L2 of the CPU's in
+    float32."""
+    _need_cuda()
+    from ldm_tf2_tpu_torch.ops import group_norm as tgn
+
+    g = torch.Generator().manual_seed(23)
+    x = torch.randn(2, 16, 16, 128, generator=g) * 2 + 0.3
+    gamma, beta = torch.randn(128, generator=g) * 0.1 + 1.0, torch.randn(128, generator=g) * 0.1
+    dy = torch.randn(2, 16, 16, 128, generator=g)
+    grads = {}
+    for device in ("cpu", "cuda"):
+        args = [t.to(device).requires_grad_(True) for t in (x, gamma, beta)]
+        before = tgn.group_norm_fused.launches
+        out = tgn.group_norm_fused(*args, 32, 1e-5, activate)
+        grads[device] = torch.autograd.grad(out, args, dy.to(device))
+        assert tgn.group_norm_fused.launches - before == (device == "cuda")
+    for want, got in zip(grads["cpu"], grads["cuda"]):
+        assert float((got.cpu() - want).norm() / want.norm()) < 1e-4
 
 
 @pytest.mark.cuda
