@@ -203,6 +203,9 @@ BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 # also rounds the output's three operations.
 FFN8_SHAPES = [(8192, 320), (2048, 640), (512, 1280), (1000, 320)]
 FFN8_TOL = {"float32": 1e-3, "bfloat16": 5e-3}  # rel L2; max abs 0.1 both
+# At most this share of rows may differ from the plain version by more than
+# 1e-3 (a code flip; 0.30-1.17% measured on the H100 at these shapes)
+FFN8_FLIP_ROWS = 0.02
 # Row 10, the int8 ResBlock chain (rows 8 + 11 back to back) against the
 # plain chain: a GN+SiLU+quantize code may flip (at most 1e-3 of them, row 8's
 # bound), moving its 3x3 neighbourhood's outputs by one code step
@@ -313,13 +316,16 @@ OPT_ROUTE_TOL = 1e-1
 
 # Full-width U-Net, card vs CPU float32: float32 differs in summation order
 # through ~70 layers; bfloat16 stores weights and activations in 8 bits of
-# mantissa throughout.  In the int8 modes summation order also flips a code
+# mantissa throughout, which moves these weights' output by rel-L2 8.9e-3
+# (measured on the H100); the bound allows about 2x that for other weights
+# and machines, so a kernel fault that moves the output by a few times
+# bf16's own rounding fails.  In the int8 modes summation order also flips a code
 # where a value lies within float32 noise of a rounding midpoint; the flip
 # moves its 3x3 neighbourhood by a whole step, and later chains' rounding
 # turns that into more flips.  The card must still agree with the CPU at
 # least twice as closely as the int8 modes move the output (rel-L2 2.7e-3
 # on these weights), so that the check sees a missing or wrong int8 route.
-UNET_TOL = {"float32": 1e-3, "float32 xla": 1e-3, "bfloat16": 1e-1,
+UNET_TOL = {"float32": 1e-3, "float32 xla": 1e-3, "bfloat16": 2e-2,
             "int8 float32": 1.3e-3}  # rel L2
 
 NORTH_STAR = {
@@ -461,13 +467,13 @@ def errors(got, ref):
 
 def _path_wrappers():
     """The wrappers that count launches by path ("wgmma", "mma.sync",
-    "fma"): the flash kernels, the fused FFN, the s8 conv, the fused chain
-    and the cross-attention."""
+    "fma"): the flash kernels, the fused FFN, the s8 conv, the fused chain,
+    the cross-attention and the W8A8 FFN."""
     from ldm_tf2_tpu_torch.ops import cross_attention as ca
     from ldm_tf2_tpu_torch.ops import flash_attention as fa
     from ldm_tf2_tpu_torch.ops import fused_conv as fc
     from ldm_tf2_tpu_torch.ops import quant_conv as qc
-    from ldm_tf2_tpu_torch.ops.fused_ffn import fused_ffn
+    from ldm_tf2_tpu_torch.ops.fused_ffn import fused_ffn, fused_ffn_int8
 
     return {"flash_attention": fa.flash_attention,
             "flash_backward_dq": fa.flash_backward_dq,
@@ -475,7 +481,7 @@ def _path_wrappers():
             "flash_attention_pv_int8": fa.flash_attention_pv_int8,
             "fused_ffn": fused_ffn, "s8_conv3x3": qc.s8_conv3x3,
             "gn_silu_conv3x3_fused": fc.gn_silu_conv3x3_fused,
-            "cross_attention": ca.cross_attention}
+            "cross_attention": ca.cross_attention, "fused_ffn_int8": fused_ffn_int8}
 
 
 def paths_of(fn) -> dict:
@@ -874,16 +880,19 @@ def phase_int8_chain(results, randn, shape, cout, bias, extra, bf16_chain_ms,
 def phase_ffn_int8_kernel(results, randn):
     """Row 4, the W8A8 FFN, against its plain version on the card at the
     U-Net's FFN shapes (CFG batch 8) and one M that is not a multiple of
-    128: bf16 at every shape, float32 at the first; timed (bf16) beside the
-    plain version, its bound and row 2's bf16 fused FFN at the same shape.
-    The weights are quantized once per shape, outside the timing."""
+    128, in bf16 and float32: each call one launch on the wgmma path (a
+    thread-block cluster of ``ffn8_plan``'s size), two calls bit-equal,
+    within ``FFN8_TOL`` with at most ``FFN8_FLIP_ROWS`` of rows moved by a
+    code flip; timed in bf16 beside the plain version, its bound and row
+    2's bf16 fused FFN at the same shape.  The weights are quantized once
+    per shape, outside the timing."""
     import torch
 
     from ldm_tf2_tpu_torch.ops import fused_ffn as ff
 
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[-1]
-        for m, d in FFN8_SHAPES if dtype == torch.bfloat16 else FFN8_SHAPES[:1]:
+        for m, d in FFN8_SHAPES:
             f = 4 * d
             x = randn(1, m, d).to(dtype)
             lns, lnb = randn(d, scale=0.1) + 1.0, randn(d, scale=0.1)
@@ -892,35 +901,51 @@ def phase_ffn_int8_kernel(results, randn):
             b1v, b1g, b2 = (randn(n, scale=0.1).to(dtype) for n in (f, f, d))
             q = ff.quantize_ffn_weights(w1v, w1g, w2)
             args = (x, lns, lnb, q, b1v, b1g, b2)
+            before = ff.fused_ffn_int8.launches, dict(ff.fused_ffn_int8.launches_by_path)
             got = ff.fused_ffn_int8(*args)
+            took = {p: n - before[1][p] for p, n in ff.fused_ffn_int8.launches_by_path.items()
+                    if n - before[1][p]}
+            one = ff.fused_ffn_int8.launches - before[0] == 1 and took == {"wgmma": 1}
+            same = bool(torch.equal(got, ff.fused_ffn_int8(*args)))
             want = ff._plain_ffn_int8(*args)
             torch.cuda.synchronize()
             max_abs, rel = errors(got, want)
             row_err = (got.float() - want.float()).abs().amax(dim=-1)
             flipped = float((row_err > 1e-3).float().mean())
-            ok = (rel <= FFN8_TOL[name] and max_abs <= 0.1
-                  and bool(torch.isfinite(got.float()).all()))
+            cluster = ff.ffn8_plan(m, d, f, dtype)["cluster"]
+            ok = (one and same and rel <= FFN8_TOL[name] and max_abs <= 0.1
+                  and flipped <= FFN8_FLIP_ROWS and bool(torch.isfinite(got.float()).all()))
             timed = dtype == torch.bfloat16
             ms = time_ms(lambda: ff.fused_ffn_int8(*args)) if timed else None
             plain = time_ms(lambda: ff._plain_ffn_int8(*args), iters=3, warmup=1) \
                 if timed else None
             bf16 = time_ms(lambda: ff.fused_ffn(x, lns, lnb, w1v, b1v, w1g, b1g, w2, b2)) \
                 if timed else None
-            dev = device_ms(lambda: ff.fused_ffn_int8(*args)) if timed else None
+            per_call = []
+            dev = device_ms(lambda: ff.fused_ffn_int8(*args), launches=per_call) \
+                if timed else None
+            bf16_dev = device_ms(lambda: ff.fused_ffn(x, lns, lnb, w1v, b1v, w1g, b1g, w2,
+                                                      b2)) if timed else None
+            if timed:  # the profiler sees one kernel a call (it drops one now and then)
+                ok = ok and round(per_call[0]) == 1
             # x read, out written, 3 d x F int8 weights and their scales read
             nbytes = 2 * m * d * x.element_size() + 3 * d * f + 4 * (2 * f + d)
             bms, by = bound_ms(nbytes, 6.0 * m * d * f, "int8")
             results["fused_ffn_int8"].append(dict(
                 shape=[m, d], dtype=name, max_abs_err=max_abs, rel_l2=rel,
-                rows_flipped=flipped, ok=ok, ms=ms, plain_ms=plain, library_ms=None,
-                bf16_ffn_ms=bf16, bound_ms=bms, bound_by=by, device_ms=dev,
+                rows_flipped=flipped, one_launch=one, bit_equal=same, cluster=cluster, ok=ok,
+                ms=ms, plain_ms=plain, library_ms=None, bf16_ffn_ms=bf16,
+                bf16_ffn_device_ms=bf16_dev, bound_ms=bms, bound_by=by, device_ms=dev,
                 library_device_ms=None))
             times = "" if not timed else (
                 f"; ms {ms:.4f} plain {plain:.4f} row-2 bf16 FFN {bf16:.4f} "
-                f"bound {bms:.4f} ({by}); device {dev:.4f}")
-            log(f"fused_ffn_int8 {name} M {m} d {d}: rel_l2 {rel:.3e} (tol "
+                f"bound {bms:.4f} ({by}); device {dev:.4f} in {per_call[0]:g} launches, "
+                f"row-2 bf16 FFN {bf16_dev:.4f}")
+            log(f"fused_ffn_int8 {name} M {m} d {d}: one wgmma launch on a cluster of "
+                f"{cluster} {one}, two calls bit-equal {same}, rel_l2 {rel:.3e} (tol "
                 f"{FFN8_TOL[name]:g}) max_abs {max_abs:.3e} (tol 0.1), rows with a code "
-                f"flip {flipped:.2%} {'PASS' if ok else 'FAIL'}{times}")
+                f"flip {flipped:.2%} (at most {FFN8_FLIP_ROWS:.0%}) "
+                f"{'PASS' if ok else 'FAIL'}{times}")
 
 
 # Device times summed over one U-Net eval's calls of a kernel, the library
@@ -2247,6 +2272,7 @@ def main() -> int:
     from ldm_tf2_tpu_torch.ops.fused_ffn import fused_ffn_int8
 
     ffn8_checked = fused_ffn_int8.launches  # the kernels phase's own launches
+    ffn8_paths = dict(fused_ffn_int8.launches_by_path)
     phase_unet()
     phase_grad()
     launches, run = phase_main_path(card)
@@ -2321,7 +2347,11 @@ def main() -> int:
             kernels[-1]["per_eval"] = per_eval
         if name == "fused_ffn_int8":  # on no path; row 2 as the yardstick
             kernels[-1].update(kernels_phase_launches=ffn8_checked,
-                               bf16_ffn_ms=main_row["bf16_ffn_ms"])
+                               kernels_phase_launches_by_path=ffn8_paths,
+                               bf16_ffn_ms=main_row["bf16_ffn_ms"],
+                               bf16_ffn_device_ms=main_row["bf16_ffn_device_ms"],
+                               clusters={f"{r['shape'][0]}x{r['shape'][1]}": r["cluster"]
+                                         for r in rows})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -321,15 +321,130 @@ def _plain_ffn_int8(x, ln_scale, ln_bias, q: Int8FFNWeights, b1v, b1g, b2,
     return out.reshape(b, t, d)
 
 
+# The W8A8 kernel's geometry (``csrc/fused_ffn_int8.cu``): a cluster of
+# ``cluster`` CTAs owns a tile of FFN8_BM rows; a ring slot holds one
+# up-projection stage (value and gate boxes of 64 hidden rows x 128 k) or one
+# down-projection stage (FFN8_BN output rows x 128 k).
+FFN8_BM = 64
+FFN8_HB = 64  # hidden columns per up-projection tile
+FFN8_BN = 80  # output columns per down-projection tile
+FFN8_SLOT = 16384
+# sy, two partial row maxima, the published maxima, su; 12 down slots' barriers
+FFN8_SMALL = 5 * FFN8_BM * 4 + 16 * 12
+FFN8_MAX_SMEM = 232448  # 227 KB, the most a CTA may have
+FFN8_MAX_STAGES = 6
+FFN8_CLUSTERS = (1, 2, 4, 8, 16)  # 16 is non-portable: only where 8 does not fit
+FFN8_MIN_CTAS = 64  # the smallest cluster that gives the grid half the card's SMs
+
+def _align(n: int, to: int) -> int:
+    return -(-n // to) * to
+
+
+def _ffn8_layout(d: int, f: int, cluster: int, resident: bool) -> dict:
+    """The shared-memory layout of one CTA: 1024 bytes to align, ``stages``
+    ring slots (an even number, half for each warpgroup), y8 (64 rows of d
+    codes in chunks of 128; with the ring, the down-projection's slots
+    later), the u region (f32 u where ``resident``, and the warpgroups' s32
+    exchange of a down tile), ``FFN8_SMALL`` bytes of row scales and
+    maxima, 16 bytes of barriers a stage."""
+    tiles = -(-f // FFN8_HB)
+    tpr = -(-tiles // cluster)
+    y_bytes = FFN8_BM * _align(d, 128)
+    u_bytes = _align(max(tpr * FFN8_BM * FFN8_HB * 4 if resident else 0,
+                         FFN8_BM * FFN8_BN * 4), 1024)
+    fixed = 1024 + y_bytes + u_bytes + FFN8_SMALL
+    stages = min(FFN8_MAX_STAGES, (FFN8_MAX_SMEM - fixed) // (FFN8_SLOT + 16))
+    stages -= stages % 2  # half the slots serve each warpgroup
+    return dict(cluster=cluster, tpr=tpr, stages=stages, resident=resident,
+                y_bytes=y_bytes, u_bytes=u_bytes,
+                smem=fixed + stages * (FFN8_SLOT + 16))
+
+
+def ffn8_plan(m: int, d: int, f: int, dtype=torch.bfloat16) -> dict:
+    """The W8A8 FFN's launch geometry for ``m`` rows of width ``d`` and
+    hidden width ``f`` (``dtype``, bf16 or float32, changes nothing: both
+    run s8 products).  One launch on a grid of ``cluster`` x ``row_tiles``
+    CTAs in clusters of ``cluster``:
+
+    * ``row_tiles`` tiles of 64 rows, one per cluster;
+    * ``tiles`` hidden tiles of 64 columns (the last ragged where F % 64 ==
+      32), ``tpr`` a rank: rank r owns tiles [r tpr, (r + 1) tpr);
+    * ``out_tiles`` down-projection tiles of 80 output columns (the last
+      ragged), tile i finished by rank i % cluster, over ``k_chunks`` K
+      chunks of 128 hidden columns taken by the two warpgroups in turn;
+    * ``cluster``: among the portable sizes (1-8, never above ``tiles``)
+      whose CTAs hold u in shared memory with at least 2 ring slots (16,
+      non-portable, only where none does), the smallest that gives the
+      grid ``FFN8_MIN_CTAS`` CTAs, else the largest: more ranks add
+      cluster barriers and LN shares, and a rank's down work (its output
+      tiles over the whole of K) does not shrink with them (on the H100,
+      c = 2 ran `[8192,320]` in 0.120 ms against c = 4's 0.159, while at
+      `[1000,320]` c = 4 ran 0.033 against c = 2's 0.057).  Where no
+      cluster of 16 holds u, u goes to a device workspace (``resident``
+      False, "spill") at the largest cluster;
+    * ``smem``: ``_ffn8_layout``'s bytes, at most 227 KB."""
+    if d % 32 or f % 32 or not 0 < d <= MAX_WIDTH or m < 1:
+        raise ValueError(f"the int8 FFN kernel needs d % 32 == 0, d <= {MAX_WIDTH} "
+                         f"and F % 32 == 0, got d {d}, F {f}")
+    tiles = -(-f // FFN8_HB)
+    row_tiles = -(-m // FFN8_BM)
+    sizes = [c for c in FFN8_CLUSTERS if c <= tiles]
+    fit = [c for c in sizes if _ffn8_layout(d, f, c, True)["stages"] >= 2]
+    pool = [c for c in fit if c <= 8] or fit
+    plan = None
+    if pool:
+        c = next((c for c in pool if row_tiles * c >= FFN8_MIN_CTAS), pool[-1])
+        plan = _ffn8_layout(d, f, c, True)
+    else:
+        plan = _ffn8_layout(d, f, sizes[-1], False)
+        if plan["stages"] < 2:
+            raise ValueError(f"the int8 FFN kernel has no layout for d {d}, F {f}: "
+                             f"{plan['smem']} bytes of shared memory")
+    out_tiles = -(-d // FFN8_BN)
+    return dict(plan, path="wgmma", row_tiles=row_tiles, tiles=tiles, out_tiles=out_tiles,
+                k_chunks=-(-tiles // 2), grid=(plan["cluster"] * row_tiles,),
+                spill_floats=0 if plan["resident"] else
+                plan["cluster"] * row_tiles * plan["tpr"] * FFN8_BM * FFN8_HB)
+
+
+def ffn8_geometry(plan: dict):
+    """The C entry's geometry argument of an ``ffn8_plan``: {cluster, tiles
+    per rank, stages, resident, y8 bytes, u bytes, shared bytes}."""
+    return _build.int_array(tuple(int(plan[k]) for k in (
+        "cluster", "tpr", "stages", "resident", "y_bytes", "u_bytes", "smem")))
+
+
+_FFN8_PLANS: dict = {}
+
+
+def _ffn8_checked_plan(m, d, f, dtype, device) -> dict:
+    """``ffn8_plan``, checked against the card once per shape, dtype and
+    device: ``cudaOccupancyMaxActiveClusters`` must hold one cluster."""
+    key = (m, d, f, dtype, device)
+    plan = _FFN8_PLANS.get(key)
+    if plan is None:
+        plan = ffn8_plan(m, d, f, dtype)
+        geometry = ffn8_geometry(plan)
+        fn = _build.entry("fused_ffn_int8", "ldm_fused_ffn_int8_clusters", [
+            ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)])
+        out = ctypes.c_int(0)
+        is_bf16 = int(dtype == torch.bfloat16)
+        _build.check(fn(m, is_bf16, is_bf16, geometry, ctypes.byref(out)),
+                     "fused_ffn_int8 occupancy query")
+        if out.value < 1:
+            raise RuntimeError(
+                f"fused_ffn_int8: the card holds no cluster of {plan['cluster']} CTAs with "
+                f"{plan['smem']} bytes of shared memory, the plan for M {m}, d {d}, F {f}")
+        plan = _FFN8_PLANS[key] = dict(plan, geometry=geometry)
+    return plan
+
+
 def _launch_int8(x, ln_scale, ln_bias, q: Int8FFNWeights, b1v, b1g, b2, eps):
     if x.device.type != "cuda":
         raise ValueError(f"fused_ffn_int8 takes CPU or CUDA tensors, got {x.device}")
     b, t, d = x.shape
     f = q.w1v8.shape[0]
     m = b * t
-    if d % 32 or f % 32 or d > MAX_WIDTH:
-        raise ValueError(f"the int8 FFN kernel needs d % 32 == 0, d <= {MAX_WIDTH} "
-                         f"and F % 32 == 0, got d {d}, F {f}")
     if b2.dtype != x.dtype:
         raise TypeError(f"b2 is {b2.dtype}, x is {x.dtype}")
     for name, w in zip(q._fields, q):
@@ -338,30 +453,37 @@ def _launch_int8(x, ln_scale, ln_bias, q: Int8FFNWeights, b1v, b1g, b2, eps):
             raise TypeError(f"{name} is {w.dtype}, want {want}")
         if not w.is_contiguous() or w.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    plan = _ffn8_checked_plan(m, d, f, x.dtype, x.get_device())
     x = x.contiguous()
-    f32 = [a.to(device=x.device, dtype=torch.float32).contiguous()
-           for a in (ln_scale, ln_bias, b1v, b1g)]
-    lib = _build.load("fused_ffn_int8")
-    fn = lib.ldm_fused_ffn_int8
-    fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 3 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
+    if x.data_ptr() % 16:  # a view into a row: 16-byte loads need a copy
+        x = x.clone()
+    lns, lnb = (a.to(device=x.device, dtype=torch.float32).contiguous()
+                for a in (ln_scale, ln_bias))
+    lns, lnb = (a.clone() if a.data_ptr() % 16 else a for a in (lns, lnb))  # 16-byte loads
+    # b1v, b1g as they are in x's type, else in float32 (both exact; one
+    # launch a call where the biases come in x's type or float32)
+    bias_bf16 = x.dtype == torch.bfloat16 and b1v.dtype == b1g.dtype == torch.bfloat16
+    b1v, b1g = (a.contiguous() if bias_bf16 else a.to(torch.float32).contiguous()
+                for a in (b1v, b1g))
+    fn = _build.entry("fused_ffn_int8", "ldm_fused_ffn_int8", [ctypes.c_void_p] * 15 + [
+        ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                             ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
     out = torch.empty_like(x)
-    y8 = torch.empty((m, d), dtype=torch.int8, device=x.device)
-    u = torch.empty((m, f), dtype=torch.float32, device=x.device)
-    sy, su = (torch.empty(m, dtype=torch.float32, device=x.device) for _ in range(2))
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    u8 = torch.empty((m, f), dtype=torch.int8, device=x.device)  # the down-projection's A
+    spill = (torch.empty(plan["spill_floats"], dtype=torch.float32, device=x.device)
+             if plan["spill_floats"] else None)
     err = fn(
-        x.data_ptr(), f32[0].data_ptr(), f32[1].data_ptr(),
-        q.w1v8.data_ptr(), q.s1v.data_ptr(), f32[2].data_ptr(),
-        q.w1g8.data_ptr(), q.s1g.data_ptr(), f32[3].data_ptr(),
+        x.data_ptr(), lns.data_ptr(), lnb.data_ptr(),
+        q.w1v8.data_ptr(), q.s1v.data_ptr(), b1v.data_ptr(),
+        q.w1g8.data_ptr(), q.s1g.data_ptr(), b1g.data_ptr(),
         q.w28.data_ptr(), q.s2.data_ptr(), b2.contiguous().data_ptr(),
-        out.data_ptr(), y8.data_ptr(), sy.data_ptr(), u.data_ptr(), su.data_ptr(),
-        m, d, f, float(eps), int(x.dtype == torch.bfloat16), stream,
+        out.data_ptr(), u8.data_ptr(), None if spill is None else spill.data_ptr(),
+        m, d, f, float(eps), int(x.dtype == torch.bfloat16), int(bias_bf16), plan["geometry"],
+        torch._C._cuda_getCurrentRawStream(x.get_device()),
     )
     _build.check(err, "fused_ffn_int8 kernel launch")
     fused_ffn_int8.launches += 1
+    fused_ffn_int8.launches_by_path[plan["path"]] += 1
     return out
 
 
@@ -371,10 +493,14 @@ def fused_ffn_int8(x, ln_scale, ln_bias, q: Int8FFNWeights, b1v, b1g, b2,
     weights from ``quantize_ffn_weights``: per-row dynamic activation
     scales, per-column weight scales, s8 products, the polynomial GELU.
     x and b2 bf16 or float32; ln_scale, ln_bias, b1v, b1g are applied in
-    float32.  A CPU tensor takes the plain version; a CUDA tensor takes the
-    kernel, or raises.  A sampling-only building block, as in the JAX
-    package: it refuses differentiation and no path dispatches it.
-    ``fused_ffn_int8.launches`` counts kernel launches."""
+    float32 (on the card a call is one launch where ln_scale and ln_bias
+    are float32 and b1v, b1g float32 or x's type).  A CPU tensor takes the
+    plain version; a CUDA tensor takes the kernel, or raises.  A
+    sampling-only building block, as in the JAX package: it refuses
+    differentiation and no path dispatches it.
+    ``fused_ffn_int8.launches`` counts kernel launches, ``launches_by_path``
+    them by path (all "wgmma": one launch on thread-block clusters, its
+    geometry from ``ffn8_plan``)."""
     if x.dim() != 3 or x.dtype not in _DTYPES:
         raise ValueError(f"x must be [B, T, d] in {_DTYPES}, got {tuple(x.shape)} {x.dtype}")
     d = x.shape[-1]
@@ -395,3 +521,4 @@ def fused_ffn_int8(x, ln_scale, ln_bias, q: Int8FFNWeights, b1v, b1g, b2,
 
 
 fused_ffn_int8.launches = 0
+fused_ffn_int8.launches_by_path = dict.fromkeys(PATHS, 0)

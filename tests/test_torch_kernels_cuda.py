@@ -822,6 +822,70 @@ def test_int8_ffn_kernel_matches_plain_on_card(dtype, m, d):
     assert float((got - ref).abs().max()) < 0.1
 
 
+def _int8_ffn_on_card(dtype, m, d, f, seed):
+    """(the kernel's output, a second call's, the plain version's, the
+    launches by path of the first call) on inputs made from ``seed``."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device="cuda") * scale
+
+    x = randn(1, m, d).to(dtype)
+    lns, lnb = randn(d, scale=0.1) + 1.0, randn(d, scale=0.1)
+    w1v, w1g = (randn(d, f, scale=d**-0.5).to(dtype) for _ in range(2))
+    w2 = randn(f, d, scale=f**-0.5).to(dtype)
+    b1v, b1g, b2 = (randn(n, scale=0.1).to(dtype) for n in (f, f, d))
+    q = tff.quantize_ffn_weights(w1v, w1g, w2)
+    args = (x, lns, lnb, q, b1v, b1g, b2)
+    before = tff.fused_ffn_int8.launches, dict(tff.fused_ffn_int8.launches_by_path)
+    got = tff.fused_ffn_int8(*args)
+    assert tff.fused_ffn_int8.launches == before[0] + 1
+    took = _took(tff.fused_ffn_int8, before[1])
+    again = tff.fused_ffn_int8(*args)
+    want = tff._plain_ffn_int8(*args)
+    torch.cuda.synchronize()
+    return got.float(), again.float(), want.float(), took
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,d", chip_smoke.FFN8_SHAPES)
+def test_int8_ffn_is_one_deterministic_wgmma_launch_on_card(dtype, m, d):
+    """Row 4 at every ``FFN8_SHAPES`` shape: one launch on the wgmma path
+    (one thread-block cluster per 64 rows), two calls bit-equal, within
+    ``FFN8_TOL`` of the plain version, and at most ``FFN8_FLIP_ROWS`` of
+    rows moved by a code flip (the LayerNorm's summation order)."""
+    _need_cuda()
+    got, again, want, took = _int8_ffn_on_card(dtype, m, d, 4 * d, seed=31)
+    assert took == {"wgmma": 1}
+    assert torch.equal(got, again)
+    name = "float32" if dtype == torch.float32 else "bfloat16"
+    assert float((got - want).norm() / want.norm()) <= chip_smoke.FFN8_TOL[name]
+    assert float((got - want).abs().max()) <= 0.1
+    flipped = float(((got - want).abs().amax(dim=-1) > 1e-3).float().mean())
+    assert flipped <= chip_smoke.FFN8_FLIP_ROWS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,d,f", [(300, 96, 352), (130, 32, 32), (256, 1280, 8192),
+                                   (70, 1280, 1024)])
+def test_int8_ffn_odd_plans_on_card(dtype, m, d, f):
+    """The plan's other cases: a ragged last hidden tile (F % 64 == 32), one
+    CTA a cluster, u in the device workspace ("spill": F = 8192 at d =
+    1280 does not fit a cluster of 16), an F that is not 4d; each against
+    the plain version within ``FFN8_TOL``, two calls bit-equal."""
+    _need_cuda()
+    plan = tff.ffn8_plan(m, d, f, dtype)
+    assert plan["resident"] == (f != 8192)
+    got, again, want, took = _int8_ffn_on_card(dtype, m, d, f, seed=32)
+    assert took == {"wgmma": 1}
+    assert torch.equal(got, again)
+    name = "float32" if dtype == torch.float32 else "bfloat16"
+    assert float((got - want).norm() / want.norm()) <= chip_smoke.FFN8_TOL[name]
+    assert float((got - want).abs().max()) <= 0.1
+
+
 @pytest.mark.cuda
 def test_ae_train_step_on_card_equals_cpu():
     """One phase-2 AE train step (VQ, attention on, S = 128) in float32: each
