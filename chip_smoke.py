@@ -61,6 +61,15 @@ final line is printed:
 5c. samplers, switches on: PLMS, DPM-Solver++(2M) (karras), DDPM on a
    100-step timeline, the progressive DDIM loop, one ``serve()`` call with
    dpm_solver_pp_2m;
+5d. DeepCache, img2img and inpainting, switches off: the full-width
+   U-Net's shallow pass fed a fresh cache against its full pass
+   (``DEEPCACHE_TOL``, bit-equality printed) and a profiled shallow eval;
+   DDIM DeepCache (50 steps, interval 3) and plain DDIM in turns, interval
+   1 against the main path's images; DPM-Solver++(2M) DeepCache (20 karras
+   steps, interval 2, two levels); ``sample_img2img`` at strength 0.75 and
+   with a mask (the kept latent exactly the init latent); a DeepCache
+   ``serve()`` request; a DeepCache call in the int8 serving modes at
+   batch 4; each call's launches held to ``eval_counts``;
 6. serve: the JSONL server (``cli/serve_ldm.serve``) in the int8 serving
    modes (``tpu.quantize: int8``, ``quantize_attention: int8pv``) at the
    north-star widths, batch 4, 50 steps, on four requests from an
@@ -89,9 +98,9 @@ final line is printed:
    float32.  The kernels phase also checks row 4, the W8A8 FFN that no path
    dispatches (``FFN8_SHAPES``), and the whole int8 chain (row 10).
 
-The main path, opt-in, serve, LDM train and AE train phases also check
-that no bf16 launch of theirs took the FMA path and that every FFN and s8
-conv launch took wgmma.  The last lines are the
+The main path, opt-in, DeepCache / img2img, serve, LDM train and AE
+train phases also check that no bf16 launch of theirs took the FMA path
+and that every FFN and s8 conv launch took wgmma.  The last lines are the
 kernels JSON, the nvidia-smi line and ``{"ok": true, "device": {...}}``.
 """
 
@@ -327,6 +336,12 @@ OPT_ROUTE_TOL = 1e-1
 # on these weights), so that the check sees a missing or wrong int8 route.
 UNET_TOL = {"float32": 1e-3, "float32 xla": 1e-3, "bfloat16": 2e-2,
             "int8 float32": 1.3e-3}  # rel L2
+
+# DeepCache: a shallow pass fed a fresh cache runs the same kernels on the
+# same tensors as the full pass (bit-equal expected); a tenth of bf16's own
+# error on these weights (8.9e-3), and a wrong skip or block index moves the
+# output by about 1
+DEEPCACHE_TOL = 1e-3  # rel L2
 
 NORTH_STAR = {
     "cond_stage_model": dict(vocab_size=30522, encoder_stack_size=32,
@@ -1759,6 +1774,296 @@ def phase_samplers(card: str, run: dict):
         _set_switches("auto", "auto", False)
 
 
+def eval_counts(unet, batch2: int, side: int, cache_levels: int | None = None) -> dict:
+    """What one U-Net eval dispatches at CFG batch ``batch2`` and latent
+    side ``side`` (the shallow pass of ``cache_levels`` levels when given),
+    read off the model's blocks: its self-attentions (FFNs), those of 1024
+    or more tokens (int8 P.V in that mode), and its ResBlock chains that
+    the int8 gate (``use_int8_conv``) claims, of which those where the JAX
+    package runs its whole-chain kernel (row 10)."""
+    from ldm_tf2_tpu_torch.ops.flash_attention import PV_INT8_MIN_TOKENS
+    from ldm_tf2_tpu_torch.ops.quant_conv import use_fused_int8_chain, use_int8_conv
+
+    levels, per = len(unet.channel_mult), unet.num_blocks + 1
+    blocks = []  # (block, spatial side)
+    n_in = cache_levels * per - 1 if cache_levels else unet.num_input_blocks
+    for i in range(n_in):
+        block = getattr(unet, f"input_block_{i}")
+        if not block.use_downsample:
+            blocks.append((block, side >> (i // per)))
+    if not cache_levels:
+        blocks.append((unet.middle_block, side >> (levels - 1)))
+    first = (levels - cache_levels) * per if cache_levels else 0
+    for i in range(first, unet.num_output_blocks):
+        blocks.append((getattr(unet, f"output_block_{i}"), side >> (levels - 1 - i // per)))
+    count = dict.fromkeys(("self_attentions", "pv_int8", "int8_chains",
+                           "whole_chains"), 0)
+    for block, s in blocks:
+        residuals = ((block.residual1, block.residual2) if block is unet.middle_block
+                     else (block.residual,))
+        if block.spatial_transformer is not None:
+            count["self_attentions"] += 1
+            count["pv_int8"] += s * s >= PV_INT8_MIN_TOKENS
+        for res in residuals:
+            for conv, has_add in ((res.conv2d_1, False), (res.conv2d_2, True)):
+                cout, cin = conv.kernel.shape[:2]
+                if use_int8_conv((batch2, s, s, cin), cout, has_add=has_add):
+                    count["int8_chains"] += 1
+                    count["whole_chains"] += use_fused_int8_chain(s * s, s, cin, cout,
+                                                                  has_add)
+    count["ffn"] = count["self_attentions"]
+    return count
+
+
+def _deepcache_evals(steps: int, interval: int) -> tuple[int, int]:
+    """(full, shallow) U-Net evals of a DeepCache loop of ``steps`` steps:
+    a full eval every ``interval``-th step, the first included."""
+    full = -(-steps // interval)
+    return full, steps - full
+
+
+def phase_deepcache_img2img(card: str, run: dict):
+    """DeepCache, img2img and inpainting at the north star (256^2, batch 2,
+    bf16, default route), through the entry points: a full-width U-Net's
+    shallow pass fed a fresh cache against its full pass (cache_levels 1 and
+    3) and one profiled shallow eval; ``sample_txt2img`` with DDIM DeepCache
+    (50 steps, interval 3, one level), with interval 1 against the main
+    path's plain DDIM images, and with DPM-Solver++(2M) DeepCache (20
+    karras steps, interval 2, two levels); ``sample_img2img`` at strength
+    0.75 from a seeded uint8 image read by the CLI's loader, then with a
+    mask that keeps the left half; one ``serve()`` request with
+    cache_interval 3; one DDIM DeepCache call in the int8 serving modes at
+    batch 4.  Each call's launches are counted around it and held to what
+    its evals dispatch (``eval_counts``); DeepCache and plain DDIM are then
+    timed in turns."""
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ldm_tf2_tpu_torch import factory
+    from ldm_tf2_tpu_torch.cli import serve_ldm
+    from ldm_tf2_tpu_torch.cli.run_ldm_sampler import (
+        load_init_image, load_mask, sample_img2img, sample_txt2img,
+    )
+    from ldm_tf2_tpu_torch.configs.loader import validate
+    from ldm_tf2_tpu_torch.data.tokenizer import cfg_token_ids, load_tokenizer
+    from ldm_tf2_tpu_torch.diffusion.schedule import make_schedule
+
+    models, ids, shape, kwargs = run["models"], run["ids"], run["shape"], run["kwargs"]
+    unet, autoencoder = models[1], models[2]
+    config = run["config"]
+    schedule = factory.build_schedule(config)
+    steps = schedule.num_ddim_steps
+    counters = _counters()
+    b2, side = 2 * shape[0], shape[1]
+
+    def counted(fn, *args, **kw):
+        torch.cuda.synchronize()
+        _reset(counters)
+        start = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        return time.perf_counter() - start, _read(counters), out
+
+    def want_of(full: int, shallow: int, levels: int, encodes: int = 0) -> dict:
+        """A bf16 call's launches: its full and shallow evals, the decoder's
+        mid-block attention and ``encodes`` encoder ones."""
+        per = eval_counts(unet, b2, side, levels)
+        want = dict.fromkeys(counters, 0)
+        want.update(flash_attention=16 * full + per["self_attentions"] * shallow
+                    + 1 + encodes,
+                    fused_ffn=16 * full + per["ffn"] * shallow)
+        return want
+
+    # a full-width U-Net's shallow pass against its full pass
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn((b2, *shape[1:]), generator=gen, device="cuda", dtype=unet.dtype)
+    t = torch.full((b2,), 501.0, device="cuda")
+    ctx = torch.randn(b2, 77, 1280, generator=gen, device="cuda", dtype=unet.dtype) * 0.05
+    with torch.inference_mode():
+        full = unet(x, t, ctx)
+        for levels in (1, 3):
+            out, cache = unet(x, t, ctx, return_cache=True, cache_levels=levels)
+            shallow = unet(x, t, ctx, shallow_cache=cache, cache_levels=levels)
+            rel = errors(shallow, full)[1]
+            rel_out = errors(out, full)[1]
+            log(f"deepcache: full-width U-Net at CFG batch {b2}, cache_levels {levels}: "
+                f"cache {tuple(cache.shape)}; shallow vs full rel_l2 {rel:.3e} "
+                f"(bound {DEEPCACHE_TOL:g}), bit-equal {torch.equal(shallow, full)}; "
+                f"cache-returning pass vs full rel_l2 {rel_out:.3e}, bit-equal "
+                f"{torch.equal(out, full)}")
+            check(rel <= DEEPCACHE_TOL and rel_out <= DEEPCACHE_TOL,
+                  f"shallow pass at cache_levels {levels}: rel_l2 {rel:.3e}, "
+                  f"cache-returning pass {rel_out:.3e}")
+    shallow_profile = phase_profile(unet, shape, cache_levels=1)
+    busy = [("not measured" if p is None else
+             f"{p['busy_ms']:.2f} ms in {p['launches']:.0f} launches")
+            for p in (shallow_profile, run["profile"])]
+    log(f"deepcache: one shallow eval (cache_levels 1) at CFG batch {b2}: device busy "
+        f"{busy[0]} against a full eval's {busy[1]}")
+
+    # DDIM DeepCache, interval 3, one level; interval 1 against plain DDIM
+    sample_txt2img(*models, make_schedule(num_ddim_steps=2), ids, shape,
+                   cache_interval=2, **kwargs)  # warm-up
+    nf, ns = _deepcache_evals(steps, 3)
+    seconds, launches, (images, _) = counted(
+        sample_txt2img, *models, schedule, ids, shape, cache_interval=3,
+        cache_levels=1, **kwargs)
+    want = want_of(nf, ns, 1)
+    finite = bool(images.float().isfinite().all())
+    log(f"deepcache DDIM on {card}: {steps} steps, interval 3, cache_levels 1, batch "
+        f"{shape[0]}: {seconds:.3f} s per call ({nf} full, {ns} shallow evals); images "
+        f"finite {finite}; launches {launches}")
+    check(finite, "deepcache DDIM images not finite")
+    check(launches == want, f"deepcache DDIM launch counts {launches}, expected {want}")
+    check_no_fma("deepcache DDIM")
+    flash_paths = dict(LAST_PATHS["flash_attention"])
+    check(flash_paths["wgmma"] == want["flash_attention"],
+          f"deepcache DDIM flash launches by path {flash_paths}: want all on wgmma")
+    seconds1, launches1, (images1, _) = counted(
+        sample_txt2img, *models, schedule, ids, shape, cache_interval=1, **kwargs)
+    images1 = images1.float().cpu().numpy()
+    rel1 = float(np.linalg.norm(images1 - run["images"]) / np.linalg.norm(run["images"]))
+    equal1 = bool(np.array_equal(images1, run["images"]))
+    log(f"deepcache DDIM, interval 1: {seconds1:.3f} s; images vs the main path's plain "
+        f"DDIM (same seed) rel_l2 {rel1:.3e} (bound {DEEPCACHE_TOL:g}), bit-equal "
+        f"{equal1}; launches {launches1['flash_attention']} flash, "
+        f"{launches1['fused_ffn']} FFN")
+    check(rel1 <= DEEPCACHE_TOL, f"deepcache interval 1 vs plain DDIM rel_l2 {rel1:.3e}")
+    # the host's wall moves between calls: DeepCache and plain DDIM in turns
+    turns = [seconds, seconds1]
+    for interval in (3, 1):
+        turns.append(counted(sample_txt2img, *models, schedule, ids, shape,
+                             cache_interval=interval, **kwargs)[0])
+    log(f"deepcache DDIM on {card}, seconds per call in turns (interval 3, plain, "
+        f"interval 3, plain): {', '.join(f'{t:.3f}' for t in turns)}; plain / DeepCache "
+        f"{(turns[1] + turns[3]) / (turns[0] + turns[2]):.2f}x")
+
+    # DPM-Solver++(2M) DeepCache, 20 karras steps, interval 2, two levels
+    ldm = config["ldm"]
+    dpm = make_schedule(num_steps=ldm["num_steps"], beta_start=ldm["beta_start"],
+                        beta_end=ldm["beta_end"], num_ddim_steps=20,
+                        timestep_spacing="karras")
+    nf, ns = _deepcache_evals(20, 2)
+    seconds, launches, (images, _) = counted(
+        sample_txt2img, *models, dpm, ids, shape, sampler="dpm_solver_pp_2m",
+        cache_interval=2, cache_levels=2, **kwargs)
+    want = want_of(nf, ns, 2)
+    finite = bool(images.float().isfinite().all())
+    log(f"deepcache DPM-Solver++(2M) on {card}: 20 karras steps, interval 2, "
+        f"cache_levels 2: {seconds:.3f} s per call ({nf} full, {ns} shallow evals); "
+        f"images finite {finite}; launches {launches}")
+    check(finite, "deepcache DPM images not finite")
+    check(launches == want, f"deepcache DPM launch counts {launches}, expected {want}")
+    check_no_fma("deepcache DPM")
+
+    # img2img and inpainting, strength 0.75 of the 50-step schedule, KL
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        pixels = np.random.default_rng(11).integers(0, 256, (2, 256, 256, 3), np.uint8)
+        np.save(os.path.join(tmp, "init.npy"), pixels)
+        keep_left = np.ones((256, 256), np.float32)
+        keep_left[:, :128] = 0.0  # 1 = regenerate, 0 = keep
+        np.save(os.path.join(tmp, "mask.npy"), keep_left)
+        init_image = load_init_image(os.path.join(tmp, "init.npy"), config)
+        mask = torch.as_tensor(load_mask(os.path.join(tmp, "mask.npy"), shape),
+                               device="cuda")
+    t_enc = int(round(0.75 * steps))
+    i2i = {k: kwargs[k] for k in ("guidance_scale", "scale_factor", "seed", "device")}
+    with torch.inference_mode():
+        _, enc_launches, _ = counted(
+            autoencoder.encode, torch.as_tensor(init_image, device="cuda"))
+    enc_paths = dict(LAST_PATHS["flash_attention"])
+    log(f"img2img: the KL encoder's mid-block attention [{shape[0]}, 1024, 1, 512]: "
+        f"{enc_launches['flash_attention']} flash launch, by path {enc_paths}")
+    check(enc_launches["flash_attention"] == 1 and enc_paths["wgmma"] == 1,
+          f"encoder flash launches {enc_launches['flash_attention']} by path {enc_paths}")
+    want = want_of(t_enc, 0, 1, encodes=1)
+    results = {}
+    for name, m in (("img2img", None), ("inpainting", mask)):
+        seconds, launches, (images, x0, init_latent) = counted(
+            sample_img2img, *models, schedule, ids, init_image, mask=m, strength=0.75,
+            **i2i)
+        finite = bool(images.float().isfinite().all()) and tuple(images.shape) == (
+            2, 256, 256, 3)
+        log(f"{name} on {card}: strength 0.75, t_enc {t_enc} of {steps} steps, batch "
+            f"{shape[0]}: {seconds:.3f} s per call; images finite {finite}; launches "
+            f"{launches}")
+        check(finite, f"{name} images not finite or misshapen")
+        check(launches == want, f"{name} launch counts {launches}, expected {want}")
+        check_no_fma(name)
+        results[name] = (x0, init_latent)
+    x0, init_latent = results["inpainting"]
+    kept = torch.equal(x0[:, :, :16], init_latent[:, :, :16])
+    moved = float((x0[:, :, 16:].float() - init_latent[:, :, 16:].float()).abs().max())
+    log(f"inpainting: kept left half of x0 equal to the init latent {kept}; the "
+        f"regenerated half moved by max |d| {moved:.3f} (want > 0.1)")
+    check(kept and moved > 0.1, f"inpainting kept region equal {kept}, moved {moved}")
+
+    # the server with DeepCache: the warm-up call and one request
+    serve_config = json.loads(json.dumps(NORTH_STAR))
+    serve_config["ldm_sampling"].update(cache_interval=3,
+                                        vocab_dir=os.path.join(ROOT, "bert_model"))
+    serve_config = validate(serve_config)
+    out = io.StringIO()
+    with tempfile.TemporaryDirectory(dir=ROOT) as out_dir:
+        seconds, launches, _ = counted(
+            serve_ldm.serve, serve_config, io.StringIO(json.dumps(
+                {"prompt": "a lighthouse at dusk", "seed": 3, "out": "c"})), out,
+            output_dir=out_dir, device="cuda", models=models)
+        resp = json.loads(out.getvalue().splitlines()[0])
+        ok = resp["ok"] and np.load(resp["out"]).shape == (2, 256, 256, 3)
+    nf, ns = _deepcache_evals(steps, 3)
+    want = {k: 2 * v for k, v in want_of(nf, ns, 1).items()}
+    log(f"serve with cache_interval 3: warm-up and one request in {seconds:.3f} s, the "
+        f"request {resp.get('latency_s')} s {'PASS' if ok else 'FAIL'}; launches over 2 "
+        f"calls {launches}")
+    check(ok, f"serve with DeepCache: {resp}")
+    check(launches == want, f"serve DeepCache launch counts {launches}, expected {want}")
+
+    # DDIM DeepCache in the int8 serving modes at batch 4 (CFG 8)
+    int8_config = json.loads(json.dumps(serve_config))
+    int8_config["tpu"].update(quantize="int8", quantize_attention="int8pv")
+    shape4 = (4, *shape[1:])
+    ids4 = torch.as_tensor(cfg_token_ids(load_tokenizer(os.path.join(ROOT, "bert_model")),
+                                         NORTH_STAR["ldm_sampling"]["text_prompt"], 4, 77))
+    full8 = eval_counts(unet, 8, side)
+    check(full8 == SERVE_EVAL,
+          f"eval_counts of a full serve eval {full8}, SERVE_EVAL says {SERVE_EVAL}")
+    sh8 = eval_counts(unet, 8, side, 1)
+    factory.apply_serving_modes(int8_config, unet, autoencoder)
+    try:
+        sample_txt2img(*models, make_schedule(num_ddim_steps=2), ids4, shape4,
+                       cache_interval=2, **kwargs)  # warm-up
+        seconds, launches, (images, _) = counted(
+            sample_txt2img, *models, schedule, ids4, shape4, cache_interval=3,
+            cache_levels=1, **kwargs)
+    finally:
+        factory.apply_serving_modes(config, unet, autoencoder)
+    evals = dict(zip(("full", "shallow"), _deepcache_evals(steps, 3)))
+    per = {k: evals["full"] * full8[k] + evals["shallow"] * sh8[k] for k in full8}
+    want = dict.fromkeys(counters, 0)
+    want.update(gn_silu_quant=per["int8_chains"], s8_conv3x3=per["int8_chains"],
+                int8_chain=per["whole_chains"],
+                flash_attention_pv_int8=per["pv_int8"] + 1,
+                flash_attention=per["self_attentions"] - per["pv_int8"],
+                fused_ffn=per["ffn"])
+    finite = bool(images.float().isfinite().all())
+    log(f"deepcache DDIM, int8 + int8-P.V, batch 4 on {card}: {seconds:.3f} s per call "
+        f"({evals['full']} full, {evals['shallow']} shallow evals; a shallow eval's "
+        f"{sh8['int8_chains']} int8 chains, {sh8['whole_chains']} whole, "
+        f"{sh8['pv_int8']} int8-P.V); images finite {finite}; rows 8, 11, 13: "
+        f"{launches['gn_silu_quant']}, {launches['s8_conv3x3']}, "
+        f"{launches['flash_attention_pv_int8']}; launches {launches}")
+    check(finite, "int8 deepcache images not finite")
+    check(launches == want, f"int8 deepcache launch counts {launches}, expected {want}")
+    check(min(launches[k] for k in ("gn_silu_quant", "s8_conv3x3",
+                                    "flash_attention_pv_int8")) > 0,
+          "int8 deepcache: rows 8, 11 or 13 not launched")
+    check_no_fma("int8 deepcache")
+
+
 def phase_serve(card: str, models):
     """The JSONL server in the int8 serving modes at the north-star widths,
     driven through ``serve()`` with an in-memory stream: two requests of
@@ -2218,9 +2523,11 @@ def _profile_report(prof, n: int, what: str, wall_ms: float,
     return {"busy_ms": busy / n, "launches": launches}
 
 
-def phase_profile(unet, shape, evals: int = 3, what: str | None = None):
+def phase_profile(unet, shape, evals: int = 3, what: str | None = None,
+                  cache_levels: int | None = None):
     """Device time by kernel group over a few U-Net evals at the CFG batch
-    of a latent ``shape``, and the device's idle share of the window;
+    of a latent ``shape`` (shallow passes of ``cache_levels`` levels, fed a
+    fresh cache, when given), and the device's idle share of the window;
     returns ``_profile_report``'s busy time and launches per eval."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -2233,20 +2540,26 @@ def phase_profile(unet, shape, evals: int = 3, what: str | None = None):
     ctx = torch.randn(b2, 77, 1280, generator=gen, device="cuda",
                       dtype=unet.dtype) * 0.05
     with torch.inference_mode():
-        unet(x, t, ctx)
+        kw = {}
+        if cache_levels:
+            cache = unet(x, t, ctx, return_cache=True, cache_levels=cache_levels)[1]
+            kw = dict(shallow_cache=cache, cache_levels=cache_levels)
+        unet(x, t, ctx, **kw)
         torch.cuda.synchronize()
         start = time.perf_counter()
         for _ in range(evals):
-            unet(x, t, ctx)
+            unet(x, t, ctx, **kw)
         torch.cuda.synchronize()
         bare_ms = (time.perf_counter() - start) * 1e3
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             start = time.perf_counter()
             for _ in range(evals):
-                unet(x, t, ctx)
+                unet(x, t, ctx, **kw)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - start) * 1e3
     modes = what or ("int8 + int8-P.V" if unet.conv_quant else "bf16")
+    if cache_levels:
+        modes += f" shallow (cache_levels {cache_levels})"
     return _profile_report(prof, evals, f"{modes} U-Net eval at CFG batch {b2}", wall_ms,
                            bare_ms)
 
@@ -2286,6 +2599,7 @@ def main() -> int:
                                             "cross_attention")})
     launches["group_stats"] = stats["group_stats"]
     phase_samplers(card, run)
+    phase_deepcache_img2img(card, run)
     serve = phase_serve(card, run["models"])
     by_path.update({k: dict(LAST_PATHS[k]) for k in ("flash_attention_pv_int8", "s8_conv3x3")})
     by_path["gn_silu_quant"] = dict(LAST_MODES["gn_silu_quant"])

@@ -1,4 +1,4 @@
-"""Text-to-image sampling CLI of the PyTorch port.
+"""Text-to-image and image-to-image sampling CLI of the PyTorch port.
 
 One YAML and one weight blob in, ``images.npy`` out ([B, H, W, 3] uint8,
 per-image min-max normalized), like ``ldm_tf2_tpu.cli.run_ldm_sampler``:
@@ -12,15 +12,22 @@ The weights come from the single-blob artifact the JAX package exported
 the JAX CLI's table and checks: ``ddim`` (default), ``ddpm``, ``plms`` or
 ``dpm_solver_pp_2m``.  ``ldm_sampling.sample_save_progress`` (DDIM only)
 also writes ``sample_prog.npy`` and ``pred_x0_prog.npy`` ([B, records, H,
-W, 3] uint8, every 5th step decoded).  ``ldm_sampling.autoencoder_type:
+W, 3] uint8, every 5th step decoded).  ``ldm_sampling.cache_interval`` > 1
+samples with DeepCache (``cache_levels`` shallow levels stay fresh; DDIM
+or DPM-Solver++(2M), ``CACHE_LOOPS``).  ``ldm_sampling.init_image_path``
+(a ``.npy`` [B or 1, H, W, 3], uint8 or in [-1, 1]) samples image to
+image from ``strength`` of the DDIM schedule, and ``mask_path`` (a
+``.npy`` [H, W] or [B, H, W], 1 = regenerate, 0 = keep, resized to the
+latent grid as ``jax.image.resize(..., "nearest")`` does) inpaints; both
+with DDIM only (``sample_img2img``).  ``ldm_sampling.autoencoder_type:
 vq`` decodes with the VQ autoencoder, quantizing the latents first
-(``force_quantize``), as the JAX CLI does.  DeepCache, img2img and
-inpainting and a device mesh raise ``NotImplementedError`` naming their
-ROADMAP item.  The serving modes ``tpu.quantize: int8`` and
-``tpu.quantize_attention: int8pv`` apply here as in the JAX CLI, which
-honours both (``factory.apply_serving_modes``).  The pipeline itself is
-``sample_txt2img`` (``sample_txt2img_progressive`` with the progress
-records).
+(``force_quantize``), as the JAX CLI does.  The configurations the JAX CLI
+refuses raise its ``ValueError`` (``check_sampling``); a device mesh raises
+``NotImplementedError`` naming its ROADMAP item.  The serving modes
+``tpu.quantize: int8`` and ``tpu.quantize_attention: int8pv`` apply here as
+in the JAX CLI, which honours both (``factory.apply_serving_modes``).  The
+text-to-image pipeline is ``sample_txt2img`` (``sample_txt2img_progressive``
+with the progress records).
 """
 
 from __future__ import annotations
@@ -32,10 +39,12 @@ import torch
 
 from ldm_tf2_tpu_torch import factory
 from ldm_tf2_tpu_torch.diffusion.sampler import (
-    ddim_sample_loop, ddim_sample_loop_progressive, ddpm_sample_loop,
+    ddim_img2img_loop, ddim_sample_loop, ddim_sample_loop_deepcache,
+    ddim_sample_loop_progressive, ddpm_sample_loop,
 )
 from ldm_tf2_tpu_torch.diffusion.solvers import (
-    dpm_solver_pp_2m_sample_loop, plms_sample_loop,
+    dpm_solver_pp_2m_sample_loop, dpm_solver_pp_2m_sample_loop_deepcache,
+    plms_sample_loop,
 )
 from ldm_tf2_tpu_torch.models import AutoencoderVQ
 
@@ -45,6 +54,11 @@ SAMPLE_LOOPS = {
     "ddpm": ddpm_sample_loop,
     "plms": plms_sample_loop,
     "dpm_solver_pp_2m": dpm_solver_pp_2m_sample_loop,
+}
+# the samplers DeepCache composes with (cache_interval > 1)
+CACHE_LOOPS = {
+    "ddim": ddim_sample_loop_deepcache,
+    "dpm_solver_pp_2m": dpm_solver_pp_2m_sample_loop_deepcache,
 }
 
 
@@ -69,6 +83,33 @@ def sampler_name(sampling: dict) -> str:
     return name
 
 
+def check_sampling(sampling: dict) -> str:
+    """The JAX CLI's checks of ``ldm_sampling``, with its wording; returns
+    the sampler's name."""
+    sampler = sampler_name(sampling)
+    save_progress = bool(sampling.get("sample_save_progress", False))
+    cache_interval = int(sampling.get("cache_interval", 1))
+    init_image_path = sampling.get("init_image_path")
+    if save_progress and sampler != "ddim":
+        raise ValueError(
+            "ldm_sampling.sample_save_progress only supports sampler: ddim"
+        )
+    if cache_interval > 1 and save_progress:
+        raise ValueError(
+            "ldm_sampling.cache_interval > 1 does not support "
+            "sample_save_progress"
+        )
+    if init_image_path and (sampler != "ddim" or save_progress
+                            or cache_interval > 1):
+        raise ValueError(
+            "ldm_sampling.init_image_path requires sampler: ddim without "
+            "sample_save_progress or cache_interval"
+        )
+    if sampling.get("mask_path") and not init_image_path:
+        raise ValueError("ldm_sampling.mask_path requires init_image_path")
+    return sampler
+
+
 def decode_latents(autoencoder, z):
     """Images from latents (already divided by the scale factor): the VQ
     autoencoder quantizes them first, as the JAX CLIs decode with
@@ -82,18 +123,29 @@ def sample_txt2img(cond_model, unet, autoencoder, schedule, token_ids, shape,
                    *, sampler: str = "ddim", guidance_scale: float = 5.0,
                    guidance_rescale: float = 0.0, scale_factor: float = 0.18215,
                    seed: int = 0, init_noise=None, step_noises=None,
-                   return_trajectory: bool = False, device="cuda"):
+                   return_trajectory: bool = False, cache_interval: int = 1,
+                   cache_levels: int = 1, device="cuda"):
     """Text encode -> CFG sampling loop (``sampler``, a key of
     ``SAMPLE_LOOPS``) -> decode (``decode_latents``).
 
     token_ids: [2B, L] (unconditional rows first); shape: latent [B, h, w, c].
-    The models must already be on ``device``.  ``step_noises`` (DDIM and
-    DDPM) and ``return_trajectory`` (DDIM) are the loops' test hooks.
+    The models must already be on ``device``.  ``cache_interval`` > 1 runs
+    the sampler's DeepCache loop (``CACHE_LOOPS``) with ``cache_levels``
+    shallow levels.  ``step_noises`` (DDIM and DDPM) and
+    ``return_trajectory`` (DDIM, no DeepCache) are the loops' test hooks.
     Returns (images [B, H, W, 3] float, x0 latents), plus the [S, B, h, w, c]
     trajectory when asked.
     """
     device = factory.resolve_device(device)
     loop = SAMPLE_LOOPS[sampler]
+    if cache_interval > 1:
+        cached = CACHE_LOOPS[sampler]
+        loop = lambda model, *args, **kw: cached(
+            lambda x, t, c: model(x, t, c, return_cache=True,
+                                  cache_levels=cache_levels),
+            lambda x, t, c, cache: model(x, t, c, shallow_cache=cache,
+                                         cache_levels=cache_levels),
+            *args, cache_interval=cache_interval, **kw)
     hooks = {}
     if step_noises is not None:
         hooks["step_noises"] = step_noises
@@ -112,6 +164,40 @@ def sample_txt2img(cond_model, unet, autoencoder, schedule, token_ids, shape,
     if return_trajectory:
         return images, x0, traj
     return images, x0
+
+
+def sample_img2img(cond_model, unet, autoencoder, schedule, token_ids, init_image, *,
+                   mask=None, strength: float = 0.75, guidance_scale: float = 5.0,
+                   guidance_rescale: float = 0.0, scale_factor: float = 0.18215,
+                   seed: int = 0, enc_noise=None, init_noise=None, step_noises=None,
+                   keep_noises=None, device="cuda"):
+    """Text encode, image encode -> ``ddim_img2img_loop`` -> decode.
+
+    init_image: [B, H, W, 3] in [-1, 1]; mask: None or [B or 1, h, w, 1] at
+    the latent grid (1 = regenerate, 0 = keep).  The KL autoencoder's
+    posterior is sampled with ``enc_noise`` (else a draw from the seed's
+    generator); the VQ autoencoder's latents are taken before quantization,
+    as the JAX CLI does.  ``init_noise``, ``step_noises`` and
+    ``keep_noises`` are the loop's test hooks.  Returns (images [B, H, W, 3]
+    float, x0 latents, the init latents times ``scale_factor``)."""
+    device = factory.resolve_device(device)
+    with torch.inference_mode():
+        generator = torch.Generator(device=device).manual_seed(seed)
+        context = cond_model(torch.as_tensor(token_ids, device=device))
+        x = torch.as_tensor(init_image, device=device)
+        if isinstance(autoencoder, AutoencoderVQ):
+            z = autoencoder.encode(x, only_encode=True)
+        else:
+            z = autoencoder.encode(x).sample(generator, noise=enc_noise)
+        init_latent = z * scale_factor
+        x0 = ddim_img2img_loop(
+            unet, schedule, context, init_latent, generator, strength=strength,
+            guidance_scale=guidance_scale, mask=mask, init_noise=init_noise,
+            guidance_rescale=guidance_rescale, step_noises=step_noises,
+            keep_noises=keep_noises,
+        )
+        images = decode_latents(autoencoder, x0 / scale_factor)
+    return images, x0, init_latent
 
 
 def sample_txt2img_progressive(cond_model, unet, autoencoder, schedule, token_ids,
@@ -147,25 +233,65 @@ def _multi_device(config: dict) -> bool:
             or any(size not in (-1, 1) for size in mesh.values()))
 
 
-# Branches of the JAX CLIs not ported yet, as (test of (ldm_sampling,
-# config), what).  The first two apply to the server too.
-UNSUPPORTED_PIPELINE = (
-    (lambda s, c: s.get("cache_interval", 1) > 1,
-     "DeepCache cache_interval > 1 (ROADMAP queue A item A1)"),
-    (lambda s, c: _multi_device(c),
-     "a device mesh, sequence or tensor parallelism (ROADMAP queue A item A6)"),
-)
-_UNSUPPORTED = UNSUPPORTED_PIPELINE + (
-    (lambda s, c: s.get("init_image_path") or s.get("mask_path"),
-     "img2img / inpainting (ROADMAP queue A item A1)"),
-)
+def nearest_resize_indices(size_in: int, size_out: int) -> np.ndarray:
+    """The source index of each output index of ``jax.image.resize(...,
+    "nearest")``: ``floor((i + 0.5) * in / out)`` in float32, half-pixel
+    centres (8i + 4 at f8; ``F.interpolate(mode="nearest")`` picks 8i)."""
+    centres = np.arange(size_out, dtype=np.float32) + np.float32(0.5)
+    return np.floor(centres * np.float32(size_in) / np.float32(size_out)).astype(np.int64)
 
 
-def check_supported(config: dict, unsupported=_UNSUPPORTED) -> None:
-    sampling = config.get("ldm_sampling") or {}
-    for test, what in unsupported:
-        if test(sampling, config):
-            raise NotImplementedError(f"not ported yet: {what}")
+def load_init_image(path: str, config: dict) -> np.ndarray:
+    """The init image ``.npy`` as the JAX CLI loads it: a batch axis added
+    to a 3-D array, uint8 mapped to [-1, 1], a batch of 1 tiled to the
+    latent batch; a batch or size that does not give
+    ``ldm_sampling.latent_shape`` raises.  Returns float32 [B, H, W, 3]."""
+    sampling = config["ldm_sampling"]
+    shape = tuple(sampling["latent_shape"])
+    image = np.load(path)
+    if image.ndim == 3:
+        image = image[None]
+    if image.dtype == np.uint8:
+        image = image.astype(np.float32) / 127.5 - 1.0
+    if image.shape[0] == 1 and shape[0] > 1:
+        image = np.tile(image, (shape[0], 1, 1, 1))
+    if image.shape[0] != shape[0]:
+        raise ValueError(
+            f"init image batch {image.shape[0]} != latent batch {shape[0]}"
+        )
+    # the AE downsamples by 2^(levels-1); the encoded latent must land
+    # exactly on ldm_sampling.latent_shape
+    ae_key = ("autoencoder_kl" if sampling.get("autoencoder_type", "kl") == "kl"
+              else "autoencoder_vq")
+    factor = 2 ** (len(config[ae_key]["multipliers"]) - 1)
+    want_hw = (shape[1] * factor, shape[2] * factor)
+    if image.shape[1:3] != want_hw:
+        raise ValueError(
+            f"init image is {image.shape[1:3]}, but latent_shape {shape[1:3]} "
+            f"with the f{factor} autoencoder needs {want_hw}"
+        )
+    return np.asarray(image, np.float32)
+
+
+def load_mask(path: str, latent_shape) -> np.ndarray:
+    """The mask ``.npy`` ([H, W] or [B, H, W], 1 = regenerate) resized to the
+    latent grid as the JAX CLI resizes it: float32 [B, h, w, 1]."""
+    m = np.load(path).astype(np.float32)
+    if m.ndim == 2:
+        m = m[None]
+    rows = nearest_resize_indices(m.shape[1], latent_shape[1])
+    cols = nearest_resize_indices(m.shape[2], latent_shape[2])
+    return m[:, rows][:, :, cols][..., None]
+
+
+def check_supported(config: dict) -> None:
+    """The branch of the JAX CLIs (the server's too) not ported yet: a
+    device mesh."""
+    if _multi_device(config):
+        raise NotImplementedError(
+            "not ported yet: a device mesh, sequence or tensor parallelism "
+            "(ROADMAP queue A item A6)"
+        )
 
 
 def main(argv=None) -> None:
@@ -183,16 +309,20 @@ def main(argv=None) -> None:
 
     config = load_config(args.config_path)
     sampling = config["ldm_sampling"]
-    sampler = sampler_name(sampling)
+    sampler = check_sampling(sampling)
     save_progress = bool(sampling.get("sample_save_progress", False))
-    if save_progress and sampler != "ddim":
-        raise ValueError(
-            "ldm_sampling.sample_save_progress only supports sampler: ddim"
-        )
+    init_image_path = sampling.get("init_image_path")
     check_supported(config)
     device = factory.resolve_device(args.device)
     factory.set_float32_precision()
     factory.apply_tpu_settings(config)
+    shape = tuple(sampling["latent_shape"])
+    init_image = mask = None
+    if init_image_path:
+        init_image = load_init_image(init_image_path, config)
+        if sampling.get("mask_path"):
+            mask = torch.as_tensor(load_mask(sampling["mask_path"], shape),
+                                   device=device)
 
     print("[INFO] Building models and loading the params blob...")
     blob = read_blob(args.params_blob)
@@ -206,7 +336,6 @@ def main(argv=None) -> None:
     factory.apply_serving_modes(config, unet, autoencoder)
     schedule = factory.build_schedule(config)
 
-    shape = tuple(sampling["latent_shape"])
     token_ids = cfg_token_ids(
         load_tokenizer(sampling["vocab_dir"]), sampling["text_prompt"],
         shape[0], config["cond_stage_model"]["max_seq_len"],
@@ -224,9 +353,15 @@ def main(argv=None) -> None:
     if save_progress:
         images, _, sample_prog, pred_x0_prog = sample_txt2img_progressive(
             cond_model, unet, autoencoder, schedule, token_ids, shape, **kwargs)
+    elif init_image is not None:
+        images, _, _ = sample_img2img(
+            cond_model, unet, autoencoder, schedule, token_ids, init_image,
+            mask=mask, strength=float(sampling.get("strength", 0.75)), **kwargs)
     else:
-        images, _ = sample_txt2img(cond_model, unet, autoencoder, schedule,
-                                   token_ids, shape, sampler=sampler, **kwargs)
+        images, _ = sample_txt2img(
+            cond_model, unet, autoencoder, schedule, token_ids, shape,
+            sampler=sampler, cache_interval=int(sampling.get("cache_interval", 1)),
+            cache_levels=int(sampling.get("cache_levels", 1)), **kwargs)
     as_uint8 = lambda t: tensor_to_image(t.float().cpu().numpy())
     print("[INFO] Saving generated images to 'images.npy'...")
     np.save("images.npy", as_uint8(images))

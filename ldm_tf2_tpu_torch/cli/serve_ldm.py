@@ -31,10 +31,13 @@ the sampler CLI's table (``ddim``, ``ddpm``, ``plms``,
 modes ``tpu.quantize: int8`` and ``tpu.quantize_attention: int8pv`` apply
 (``factory.apply_serving_modes``).  ``ldm_sampling.autoencoder_type: vq``
 decodes through the VQ autoencoder with ``force_quantize``, as the JAX
-server does.  DeepCache and a device mesh raise ``NotImplementedError``
-naming their ROADMAP item.  The
-JAX server's ``--aot_cache`` has no counterpart: PyTorch runs eagerly and
-compiles no pipeline executable to cache.
+server does.  ``ldm_sampling.cache_interval`` > 1 serves through the
+DeepCache loops (``cache_levels`` shallow levels; DDIM or
+DPM-Solver++(2M), else the JAX server's ``ValueError``).  As in the JAX
+server there is no image to image.  A device mesh raises
+``NotImplementedError`` naming its ROADMAP item.  The JAX server's
+``--aot_cache`` has no counterpart: PyTorch runs eagerly and compiles no
+pipeline executable to cache.
 """
 
 from __future__ import annotations
@@ -50,8 +53,7 @@ import torch
 
 from ldm_tf2_tpu_torch import factory
 from ldm_tf2_tpu_torch.cli.run_ldm_sampler import (
-    UNSUPPORTED_PIPELINE, check_supported, sample_txt2img, sampler_name,
-    tensor_to_image,
+    CACHE_LOOPS, check_supported, sample_txt2img, sampler_name, tensor_to_image,
 )
 
 
@@ -72,7 +74,14 @@ def build_server(config: dict, params_blob_path: str = "", device="cuda",
 
     sampling = config["ldm_sampling"]
     sampler = sampler_name(sampling)
-    check_supported(config, UNSUPPORTED_PIPELINE)
+    cache_interval = int(sampling.get("cache_interval", 1))
+    cache_levels = int(sampling.get("cache_levels", 1))
+    if cache_interval > 1 and sampler not in CACHE_LOOPS:
+        raise ValueError(
+            "ldm_sampling.cache_interval > 1 requires sampler: ddim or "
+            f"dpm_solver_pp_2m, got {sampler!r}"
+        )
+    check_supported(config)
     device = factory.resolve_device(device)
     factory.set_float32_precision()
     factory.apply_tpu_settings(config)
@@ -116,7 +125,8 @@ def build_server(config: dict, params_blob_path: str = "", device="cuda",
         images, _ = sample_txt2img(
             cond_model, unet, autoencoder, schedule, token_ids, shape,
             sampler=sampler, guidance_scale=guidance,
-            guidance_rescale=guidance_rescale,
+            guidance_rescale=guidance_rescale, cache_interval=cache_interval,
+            cache_levels=cache_levels,
             scale_factor=config["ldm"]["scale_factor"], seed=int(seed),
             device=device,
         )

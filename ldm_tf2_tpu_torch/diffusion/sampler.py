@@ -2,6 +2,7 @@
 
 Counterpart of ``ldm_tf2_tpu.diffusion.sampler`` (``apply_cfg``,
 ``ddim_step``, ``ddim_update``, ``ddim_sample_loop``,
+``ddim_sample_loop_deepcache``, ``ddim_img2img_loop``,
 ``ddim_sample_loop_progressive``, ``ddpm_step``, ``ddpm_sample_loop``).
 The JAX package's ``lax.scan`` becomes a Python loop, and its PRNG key an
 explicit ``torch.Generator``; every loop also takes the noise it would draw
@@ -17,6 +18,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ldm_tf2_tpu_torch.diffusion.losses import q_sample
 from ldm_tf2_tpu_torch.diffusion.schedule import DiffusionSchedule
 
 # An epsilon model: (xt_doubled [2B,H,W,C], t [2B], context [2B,S,D]) -> eps.
@@ -118,6 +120,113 @@ def ddim_sample_loop(eps_model: EpsModel, schedule: DiffusionSchedule,
             traj.append(xt)
     if return_trajectory:
         return xt, torch.stack(traj)
+    return xt
+
+
+def deepcache_model(eps_model_full, eps_model_shallow, cache_interval: int) -> EpsModel:
+    """DeepCache's steps as one eps model for a loop that calls its model
+    once a step, in loop order: the full U-Net (which also returns the
+    deep boundary feature) at every ``cache_interval``-th call, counting
+    from the first, and the shallow levels against the last full call's
+    feature in between.  That is the JAX package's groups: one full step at
+    each group's base index and ``interval - 1`` shallow steps, the tail
+    group (``S % interval`` steps) based at ``tail - 1``.
+
+    eps_model_full: (xt2 [2B], t [2B], context) -> (eps [2B], cache);
+    eps_model_shallow: (xt2, t, context, cache) -> eps."""
+    interval = max(int(cache_interval), 1)
+    step, cache = 0, None
+
+    def eps_model(x, t, context):
+        nonlocal step, cache
+        if step % interval == 0:
+            eps, cache = eps_model_full(x, t, context)
+        else:
+            eps = eps_model_shallow(x, t, context, cache)
+        step += 1
+        return eps
+
+    return eps_model
+
+
+def ddim_sample_loop_deepcache(eps_model_full, eps_model_shallow,
+                               schedule: DiffusionSchedule, context, shape,
+                               generator: torch.Generator | None = None,
+                               guidance_scale: float = 5.0, cache_interval: int = 2,
+                               clip_denoised: bool = False, init_noise=None,
+                               guidance_rescale: float = 0.0, step_noises=None):
+    """The DDIM loop with deep-feature caching (DeepCache, Ma et al. 2023):
+    ``ddim_sample_loop``'s steps and draws, the U-Net calls scheduled by
+    ``deepcache_model``.  ``cache_interval=1`` runs the full U-Net at every
+    step and is ``ddim_sample_loop`` itself.  step_noises: [S, B, h, w, c]
+    in loop order, as for ``ddim_sample_loop``.  Returns x0 [B, h, w, c]."""
+    return ddim_sample_loop(
+        deepcache_model(eps_model_full, eps_model_shallow, cache_interval),
+        schedule, context, shape, generator, guidance_scale, clip_denoised,
+        init_noise, guidance_rescale, step_noises)
+
+
+def ddim_img2img_loop(eps_model: EpsModel, schedule: DiffusionSchedule, context,
+                      init_latent, generator: torch.Generator | None = None,
+                      strength: float = 0.75, guidance_scale: float = 5.0,
+                      clip_denoised: bool = False, mask=None, init_noise=None,
+                      guidance_rescale: float = 0.0, step_noises=None,
+                      keep_noises=None):
+    """SDEdit-style image-to-image and latent inpainting.
+
+    Diffuses ``init_latent`` ([B, h, w, c], already times the scale factor)
+    forward to DDIM step ``t_enc = round(strength * S)`` (Python's round,
+    half to even) with ``q_sample`` on the full-timeline tables, then runs
+    the DDIM steps ``t_enc - 1 .. 0``; ``t_enc == 0`` returns
+    ``init_latent`` with no model call.  With ``mask`` (broadcastable to
+    the latent, 1 = regenerate, 0 = keep) the kept region is re-imposed
+    after every step at that step's noise level, from fresh forward noise,
+    and replaced by ``init_latent`` itself at the end.
+
+    Test hooks: ``init_noise`` (the forward noise), ``step_noises`` ([t_enc,
+    B, h, w, c], the eta noise in loop order) and ``keep_noises`` (the
+    same layout, the blend's draws); else each is drawn from
+    ``generator``.  Returns x0 [B, h, w, c]."""
+    num_steps = len(schedule.ddim_steps)
+    if not 0.0 <= strength <= 1.0:
+        raise ValueError(f"strength must be in [0, 1], got {strength}")
+    t_enc = int(round(float(strength) * num_steps))
+    if t_enc == 0:
+        return init_latent
+    device, dtype = init_latent.device, init_latent.dtype
+    if init_noise is None:
+        noise0 = torch.randn(init_latent.shape, generator=generator, device=device,
+                             dtype=dtype)
+    else:
+        noise0 = init_noise.to(device=device, dtype=dtype)
+    table = lambda a: torch.as_tensor(a, device=device)
+    t_start = torch.full((init_latent.shape[0],), int(schedule.ddim_steps[t_enc - 1]),
+                         dtype=torch.long, device=device)
+    xt = q_sample(table(schedule.sqrt_alphas_cumprod),
+                  table(schedule.sqrt_one_minus_alphas_cumprod), init_latent,
+                  t_start, noise0)
+    if mask is not None:  # in the sample's dtype: never upcasts a bf16 sample
+        mask = mask.to(device=device, dtype=dtype)
+    for n, index in enumerate(range(t_enc - 1, -1, -1)):
+        noise = None if step_noises is None else step_noises[n].to(device)
+        xt, _ = ddim_step(eps_model, schedule, xt, context, index, generator,
+                          guidance_scale, clip_denoised, guidance_rescale, noise)
+        if mask is None:
+            continue
+        # the coefficients in the sample's dtype before the sqrt, as the
+        # JAX package casts acp_prev first
+        acp_prev = torch.tensor(float(schedule.ddim_alphas_cumprod_prev[index]),
+                                dtype=dtype)
+        c0 = torch.sqrt(acp_prev).item()
+        c1 = torch.sqrt(torch.clamp(1.0 - acp_prev, min=0.0)).item()
+        if keep_noises is None:
+            keep_noise = torch.randn(xt.shape, generator=generator, device=device,
+                                     dtype=dtype)
+        else:
+            keep_noise = keep_noises[n].to(device=device, dtype=dtype)
+        xt = mask * xt + (1.0 - mask) * (c0 * init_latent + c1 * keep_noise)
+    if mask is not None:  # the kept region is the init latent itself
+        xt = mask * xt + (1.0 - mask) * init_latent
     return xt
 
 

@@ -1,9 +1,11 @@
 """Multistep ODE solvers for the reverse process: PLMS and DPM-Solver++(2M).
 
 Counterpart of ``ldm_tf2_tpu.diffusion.solvers`` (``plms_sample_loop``,
-``dpm_solver_pp_2m_sample_loop``).  Both are deterministic, one U-Net call
-per step over the DDIM timestep sub-sequence, with classifier-free guidance
-on the doubled [2B] batch as in ``sampler.ddim_step``.  The JAX package's
+``dpm_solver_pp_2m_sample_loop``,
+``dpm_solver_pp_2m_sample_loop_deepcache``).  All are deterministic, one
+U-Net call per step over the DDIM timestep sub-sequence, with
+classifier-free guidance on the doubled [2B] batch as in
+``sampler.ddim_step``.  The JAX package's
 ``lax.scan`` carry becomes Python state; its schedule arithmetic, done in
 float32 on the device there, is done in float32 numpy on the host here and
 applied as Python numbers.
@@ -14,7 +16,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ldm_tf2_tpu_torch.diffusion.sampler import EpsModel, _initial, apply_cfg
+from ldm_tf2_tpu_torch.diffusion.sampler import (
+    EpsModel, _initial, apply_cfg, deepcache_model,
+)
 from ldm_tf2_tpu_torch.diffusion.schedule import DiffusionSchedule
 
 
@@ -105,3 +109,23 @@ def dpm_solver_pp_2m_sample_loop(eps_model: EpsModel, schedule: DiffusionSchedul
               - float(alpha_p[index] * np.expm1(-h)) * d)
         x0_last, h_last = x0, h
     return xt
+
+
+def dpm_solver_pp_2m_sample_loop_deepcache(eps_model_full, eps_model_shallow,
+                                           schedule: DiffusionSchedule, context,
+                                           shape,
+                                           generator: torch.Generator | None = None,
+                                           guidance_scale: float = 5.0,
+                                           cache_interval: int = 2,
+                                           clip_denoised: bool = False,
+                                           init_noise=None,
+                                           guidance_rescale: float = 0.0):
+    """DPM-Solver++(2M) with DeepCache: ``dpm_solver_pp_2m_sample_loop``'s
+    transition, its (x0_last, h_last) history running through full and
+    shallow steps alike, the U-Net calls scheduled by
+    ``sampler.deepcache_model``.  No per-step noise is drawn;
+    ``cache_interval=1`` is the plain loop.  Returns x0 [B, h, w, c]."""
+    return dpm_solver_pp_2m_sample_loop(
+        deepcache_model(eps_model_full, eps_model_shallow, cache_interval),
+        schedule, context, shape, generator, guidance_scale, clip_denoised,
+        init_noise, guidance_rescale)

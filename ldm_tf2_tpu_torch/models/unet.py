@@ -19,8 +19,16 @@ single-tile kernel (``ops.cross_attention``) under the JAX package's
 opt-in switch ``ops.attention.set_packed_cross``.  The ResBlock chains and
 the GroupNorms take the opt-in kernels of ``ops.fused_conv`` and
 ``ops.group_norm`` under those modules' switches.  Every kernel is
-differentiable.  DeepCache (``shallow_cache``/``return_cache``) is not
-ported yet.
+differentiable.
+
+DeepCache (``forward(..., return_cache=True, cache_levels=k)`` and
+``forward(..., shallow_cache=cache, cache_levels=k)``), as in the JAX
+package: a full pass can also return ``h`` just before the first output
+block of the ``k`` shallowest levels, and a shallow pass runs only those
+levels' input blocks (without the last one's downsample), then their output
+blocks from that cached tensor; the middle block and everything deeper are
+skipped.  A shallow pass fed a fresh cache runs the same blocks on the same
+tensors as the full pass.
 
 Training mode (``forward(..., training=True, generator=g)``) applies the
 JAX package's dropout, each mask drawn from ``g`` in forward order: a
@@ -404,24 +412,48 @@ class UNet(nn.Module):
                 m.pv_int8 = self.attention_pv_int8
 
     def forward(self, x, time, context=None, *, training: bool = False,
-                generator: torch.Generator | None = None):
+                generator: torch.Generator | None = None, shallow_cache=None,
+                return_cache: bool = False, cache_levels: int = 1):
         """x: [B, H, W, C] latents (NHWC); time: [B]; context: [B, S, D].
-        Returns [B, H, W, out_channels] predicted noise.  ``training`` with
-        a nonzero ``dropout_rate`` draws the dropout masks from
-        ``generator``."""
+        Returns [B, H, W, out_channels] predicted noise; with
+        ``return_cache``, ``(noise, cache)``.  ``training`` with a nonzero
+        ``dropout_rate`` draws the dropout masks from ``generator``.
+        ``shallow_cache`` (a cache from a ``return_cache`` pass) runs the
+        shallow pass of the ``cache_levels`` outermost levels (1 ..
+        levels - 1)."""
+        levels = len(self.channel_mult)
+        shallow = shallow_cache is not None
+        if (shallow or return_cache) and not 1 <= cache_levels <= levels - 1:
+            raise ValueError(
+                f"cache_levels must be in [1, {levels - 1}], got {cache_levels}"
+            )
+        if shallow and return_cache:
+            raise ValueError("a shallow pass cannot produce a cache")
         if training and self.dropout_rate > 0.0 and generator is None:
             raise ValueError("training with dropout needs a generator")
         gen = generator if training else None
+        per_level = self.num_blocks + 1  # residual blocks and a resample
+        # the first output block of the cache_levels outermost levels
+        boundary = (levels - cache_levels) * per_level
         h = self.conv_in(x.to(self.dtype))
         t = get_time_embedding(time, self.model_channels).to(self.dtype)
         t = self.time_dense2(F.silu(self.time_dense1(t)))
         context = None if context is None else context.to(self.dtype)
         hiddens = [h]
-        for i in range(self.num_input_blocks):
+        # a shallow pass stops before the downsample of level cache_levels-1
+        n_in = cache_levels * per_level - 1 if shallow else self.num_input_blocks
+        for i in range(n_in):
             h = getattr(self, f"input_block_{i}")(h, t, context, gen)
             hiddens.append(h)
-        h = self.middle_block(h, t, context, gen)
-        for i in range(self.num_output_blocks):
+        if shallow:
+            h = shallow_cache.to(self.dtype)
+        else:
+            h = self.middle_block(h, t, context, gen)
+        cache = None
+        for i in range(boundary if shallow else 0, self.num_output_blocks):
+            if return_cache and i == boundary:
+                cache = h
             h = torch.cat([h, hiddens.pop()], dim=-1)
             h = getattr(self, f"output_block_{i}")(h, t, context, gen)
-        return self.conv_out(self.group_norm(h))
+        out = self.conv_out(self.group_norm(h))
+        return (out, cache) if return_cache else out

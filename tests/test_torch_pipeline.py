@@ -209,13 +209,15 @@ tpu: {{compute_dtype: float32}}
 
 
 def test_cli_refuses_unported_branches():
+    """Only the mesh is left unported; DeepCache and img2img pass the check."""
     config = {"ldm_sampling": {"init_image_path": "init.npy"},
               "tpu": {"quantize": "none", "quantize_attention": "none",
                       "sequence_parallel": False, "tensor_parallel": False}}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.check_supported(config)
+    cli.check_supported(config)
     config["ldm_sampling"] = {"cache_interval": 2}
-    with pytest.raises(NotImplementedError, match="DeepCache"):
+    cli.check_supported(config)
+    config["tpu"]["sequence_parallel"] = True
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A item A6"):
         cli.check_supported(config)
 
 

@@ -280,19 +280,27 @@ def test_server_answers_with_a_non_ddim_sampler(tmp_path, monkeypatch):
                                   cli.tensor_to_image(images.numpy()))
 
 
-@pytest.mark.parametrize("sampling,tpu,what", [
-    ({"cache_interval": 2}, {}, "DeepCache .* item A1"),
-    ({"sampler": "dpm_solver_pp_2m", "cache_interval": 2}, {}, "DeepCache .* item A1"),
-    ({"init_image_path": "init.npy"}, {}, "img2img .* item A1"),
-    ({"init_image_path": "init.npy", "mask_path": "mask.npy"}, {}, "inpainting .* item A1"),
-    ({}, {"tensor_parallel": True, "mesh": {"data": -1, "model": 2}}, "item A6"),
+@pytest.mark.parametrize("sampling,tpu,error,what", [
+    ({"cache_interval": 2, "sample_save_progress": True}, {}, ValueError,
+     "cache_interval > 1 does not support sample_save_progress"),
+    ({"sampler": "dpm_solver_pp_2m", "init_image_path": "init.npy"}, {}, ValueError,
+     "init_image_path requires sampler: ddim"),
+    ({"init_image_path": "init.npy", "sample_save_progress": True}, {}, ValueError,
+     "init_image_path requires sampler: ddim"),
+    ({"init_image_path": "init.npy", "mask_path": "mask.npy", "cache_interval": 2}, {},
+     ValueError, "init_image_path requires sampler: ddim"),
+    ({}, {"tensor_parallel": True, "mesh": {"data": -1, "model": 2}},
+     NotImplementedError, "item A6"),
 ])
-def test_remaining_branches_still_name_their_items(sampling, tpu, what):
+def test_remaining_branches_still_name_their_items(sampling, tpu, error, what):
+    """The configurations the JAX CLI refuses raise its ValueError; the mesh
+    is still refused, naming its ROADMAP item, by the CLI and the server."""
     config = _config(**sampling)
     config["tpu"].update(tpu)
     config = validate(config)
-    with pytest.raises(NotImplementedError, match=what):
+    with pytest.raises(error, match=what):
+        cli.check_sampling(config["ldm_sampling"])
         cli.check_supported(config)
-    if "init_image_path" not in sampling and "mask_path" not in sampling:
+    if error is NotImplementedError:
         with pytest.raises(NotImplementedError, match=what):
             serve_ldm.build_server(config, device="cpu", models=())

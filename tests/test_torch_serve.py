@@ -164,13 +164,33 @@ def test_per_slot_guidance_matches_jax():
 
 
 def test_server_refuses_unported_branches():
-    for sampling, tpu, what in (({"sampler": "plms", "cache_interval": 3}, {}, "item A1"),
-                                ({"cache_interval": 2}, {}, "DeepCache"),
-                                ({}, {"mesh": {"data": -1, "model": 2}}, "mesh")):
-        config = _config(**tpu)
-        config["ldm_sampling"].update(sampling)
-        with pytest.raises(NotImplementedError, match=what):
-            serve_ldm.build_server(config, device="cpu", models=())
+    """A cache with a sampler DeepCache does not compose with raises the JAX
+    server's ValueError, a mesh is still refused, and a DDIM DeepCache
+    config serves through ``sample_txt2img``'s DeepCache loop."""
+    config = _config()
+    config["ldm_sampling"].update(sampler="plms", cache_interval=3)
+    with pytest.raises(ValueError, match="cache_interval > 1 requires sampler: ddim "
+                                         "or dpm_solver_pp_2m, got 'plms'"):
+        serve_ldm.build_server(config, device="cpu", models=())
+    with pytest.raises(NotImplementedError, match="mesh.* item A6"):
+        serve_ldm.build_server(_config(mesh={"data": -1, "model": 2}), device="cpu",
+                               models=())
+    config = _config()
+    config["ldm_sampling"].update(cache_interval=2)
+    models = _models(config)
+    run_batch, _, batch = serve_ldm.build_server(config, device="cpu", models=models)
+    images = run_batch(["a red fox"] * batch, [""] * batch, [5.0] * batch, 4)
+    ids = packed_cfg_token_ids(load_tokenizer(VOCAB), ["a red fox"] * batch,
+                               [""] * batch, 8)
+    schedule = factory.build_schedule(config)
+    want, x0 = sample_txt2img(*models, schedule, torch.as_tensor(ids), (2, 8, 8, 4),
+                              guidance_scale=torch.full((2, 1, 1, 1), 5.0), seed=4,
+                              cache_interval=2, device="cpu")
+    _, x0_plain = sample_txt2img(*models, schedule, torch.as_tensor(ids), (2, 8, 8, 4),
+                                 guidance_scale=torch.full((2, 1, 1, 1), 5.0), seed=4,
+                                 device="cpu")
+    np.testing.assert_array_equal(images, tensor_to_image(want.numpy()))
+    assert not torch.equal(x0, x0_plain)  # the second step ran the shallow pass
 
 
 def test_loader_validates_serving_modes():
