@@ -70,6 +70,19 @@ final line is printed:
    with a mask (the kept latent exactly the init latent); a DeepCache
    ``serve()`` request; a DeepCache call in the int8 serving modes at
    batch 4; each call's launches held to ``eval_counts``;
+5e. convert, export, eval (``phase_convert_export_eval``): a CompVis
+   checkpoint with every key of ``tests/goldens/compvis_key_manifest.json``
+   (1,498,849,707 seeded model parameters) saved with ``torch.save``, the
+   converter CLI's ``--validate_only`` and its conversion from the file
+   into one blob (``convert_checkpoint``), the sampler CLI on that blob (50
+   CFG DDIM steps, launches counted: flash 801, FFN 800, every bf16 launch
+   on wgmma; images bit-equal to the trees that conversion returned,
+   loaded in memory), ``export_pretrained --which serving
+   --dtype bfloat16`` and the sampler on the bf16 blob (bit-equal to the
+   float32 blob under ``tpu.weights_dtype: bfloat16``), each blob's size
+   and read time, then ``run_eval.evaluate``'s VGG-FID against a second
+   seeded batch, the VGG and synthetic-weight Inception pool3 features
+   card vs CPU (``FEATURES_TOL``) and each extractor's img/s;
 6. serve: the JSONL server (``cli/serve_ldm.serve``) in the int8 serving
    modes (``tpu.quantize: int8``, ``quantize_attention: int8pv``) at the
    north-star widths, batch 4, 50 steps, on four requests from an
@@ -2064,6 +2077,253 @@ def phase_deepcache_img2img(card: str, run: dict):
     check_no_fma("int8 deepcache")
 
 
+# The convert / export / eval phase's checks: the VGG and Inception
+# features on the card (float32, TF32 off, cuDNN) against the CPU's, as
+# rel L2; measured 1e-6 or below on CPU/CPU orderings, so 1e-4 leaves room
+# for the card's summation order while a wrong layer moves them by ~1
+FEATURES_TOL = 1e-4
+FID_SELF_TOL = 1e-6  # FID of a set against itself
+
+
+def _fabricate_compvis(manifest: dict, seed: int):
+    """A CompVis ``state_dict`` at the key manifest's full width: every
+    model key N(0, 1) * 0.05 drawn on the card from one seeded generator in
+    the manifest's order (``factory.randomize_``'s convention), as views of
+    one host tensor; every ignored key (schedule buffers, EMA shadows) at
+    its shape, zeros viewed from one shared buffer, so the file holds their
+    bytes once."""
+    import torch
+
+    keys = manifest["model_keys"]
+    sizes = [max(1, int(torch.Size(shape).numel())) for shape in keys.values()]
+    flat = torch.empty(sum(sizes), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    offset = 0
+    for size in sizes:
+        flat[offset:offset + size].normal_(generator=gen).mul_(0.05)
+        offset += size
+    host = flat.cpu()
+    del flat
+    sd, offset = {}, 0
+    for (key, shape), size in zip(keys.items(), sizes):
+        sd[key] = host[offset:offset + size].view(shape)
+        offset += size
+    ignored = manifest["ignored_keys"]
+    zeros = torch.zeros(max(int(torch.Size(s).numel()) for s in ignored.values()))
+    for key, shape in ignored.items():
+        sd[key] = zeros[:int(torch.Size(shape).numel())].view(shape)
+    return sd, int(host.numel())
+
+
+def phase_convert_export_eval(card: str) -> dict:
+    """The chain from a full-width CompVis checkpoint to a scored sample,
+    through the port's entry points: (a) a checkpoint with every key of
+    ``tests/goldens/compvis_key_manifest.json`` (seeded weights) saved with
+    ``torch.save``, ``cli/convert_ckpt_pytorch`` with ``--validate_only``,
+    then its ``convert_checkpoint`` from the file into one blob; (b)
+    ``cli/run_ldm_sampler.main`` on that blob, 50 CFG DDIM steps at the
+    north star, its launches counted around it (rows 1 and 2 at the main
+    path's counts, every bf16 launch on wgmma), the images bit-equal to
+    sampling with the trees the conversion returned loaded in memory;
+    (c) ``cli/export_pretrained --which serving --dtype bfloat16`` and the
+    sampler on the bf16 blob with ``tpu.weights_dtype`` null, bit-equal to
+    (b) (float32 blob, ``weights_dtype: bfloat16``), each blob's size and
+    read time; (d) ``cli/run_eval.evaluate``: the VGG-FID of (b)'s images
+    against a second seeded batch (seeded LPIPS weights from an ``lpips``
+    blob), the VGG and synthetic-weight Inception pool3 features card vs
+    CPU, FID of a set against itself, and each extractor's img/s.
+    Returns the sampler call's launches."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from ldm_tf2_tpu_torch import factory
+    from ldm_tf2_tpu_torch.checkpoints.blob import export_blob, read_blob
+    from ldm_tf2_tpu_torch.checkpoints.bridge import load_params, params_to_jax
+    from ldm_tf2_tpu_torch.cli import convert_ckpt_pytorch as convert_cli
+    from ldm_tf2_tpu_torch.cli import export_pretrained, run_eval, run_ldm_sampler
+    from ldm_tf2_tpu_torch.cli.run_ldm_sampler import sample_txt2img
+    from ldm_tf2_tpu_torch.configs.loader import validate
+    from ldm_tf2_tpu_torch.data.tokenizer import cfg_token_ids, load_tokenizer
+    from ldm_tf2_tpu_torch.eval import fid, inception
+
+    phase_start = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="convert_phase_")
+    free_gb = shutil.disk_usage(work).free / 1e9
+    log(f"convert: work dir {work}, {free_gb:.1f} GB free")
+    raw = json.loads(json.dumps(NORTH_STAR))
+    raw["ldm_sampling"]["vocab_dir"] = os.path.join(ROOT, "bert_model")
+    config_path = os.path.join(work, "north_star.yaml")
+    with open(config_path, "w") as f:
+        yaml.safe_dump(raw, f)
+    null_weights = json.loads(json.dumps(raw))
+    null_weights["tpu"]["weights_dtype"] = None
+    null_config_path = os.path.join(work, "north_star_f32_weights.yaml")
+    with open(null_config_path, "w") as f:
+        yaml.safe_dump(null_weights, f)
+    config = validate(json.loads(json.dumps(raw)))
+    cwd = os.getcwd()
+    try:
+        # (a) the checkpoint, validated and converted by the CLI
+        with open(convert_cli.default_manifest_path()) as f:
+            manifest = json.load(f)
+        start = time.perf_counter()
+        sd, n_params = _fabricate_compvis(manifest, seed=31)
+        check(n_params == manifest["total_model_params"],
+              f"fabricated {n_params} params, manifest {manifest['total_model_params']}")
+        ckpt = os.path.join(work, "txt2img-f8-large.ckpt")
+        fabricate_s = time.perf_counter() - start
+        torch.save({"state_dict": sd}, ckpt)
+        ckpt_gb = os.path.getsize(ckpt) / 1e9
+        save_s = time.perf_counter() - start - fabricate_s
+        log(f"convert: fabricated {n_params:,} model params + "
+            f"{len(manifest['ignored_keys'])} ignored keys in {fabricate_s:.1f} s, "
+            f"saved {ckpt_gb:.2f} GB in {save_s:.1f} s")
+        start = time.perf_counter()
+        rc = convert_cli.main(["--pytorch_ckpt_path", ckpt, "--validate_only"])
+        validate_s = time.perf_counter() - start
+        check(rc == 0, f"--validate_only said no-go (rc {rc})")
+        del sd
+        start = time.perf_counter()
+        trees = convert_cli.convert_checkpoint(ckpt, config, os.path.join(work, "f32"))
+        convert_s = time.perf_counter() - start
+        os.remove(ckpt)
+        f32_blob = os.path.join(work, "f32", "params")
+        f32_gb = os.path.getsize(f32_blob + ".bin") / 1e9
+        log(f"convert on {card}: --validate_only {validate_s:.1f} s (GO); conversion "
+            f"(load, convert, verify against the port's models, write the blob and "
+            f"the checksum manifest) {convert_s:.1f} s, blob {f32_gb:.3f} GB, "
+            f"{f32_gb / convert_s:.2f} GB/s")
+
+        # (b) the sampler CLI on the blob, counted
+        counters = _counters()
+        os.chdir(work)
+        torch.cuda.synchronize()
+        _reset(counters)
+        start = time.perf_counter()
+        images = run_ldm_sampler.main(["--config_path", config_path,
+                                       "--params_blob", f32_blob, "--seed", "0"])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - start
+        launches = _read(counters)
+        steps = config["ldm"]["num_ddim_steps"]
+        want = {k: 0 for k in launches}
+        want.update({"flash_attention": 16 * steps + 1, "fused_ffn": 16 * steps})
+        check(launches == want, f"sampler CLI launches {launches}, expected {want}")
+        check_no_fma("convert: sampler CLI")
+        saved = np.load(os.path.join(work, "images.npy"))
+        check(saved.shape == (2, 256, 256, 3) and saved.dtype == np.uint8,
+              f"images.npy {saved.shape} {saved.dtype}")
+        check(bool(torch.isfinite(images).all()), "sampled images are not finite")
+        log(f"convert: sampler CLI on the blob {cli_s:.3f} s (blob read, models "
+            f"built and loaded, {steps} steps, decode); launches {launches}")
+
+        start = time.perf_counter()
+        models = [load_params(build(config, device="cuda"), trees[name]) for build, name in (
+            (factory.build_cond_model, "cond_stage_model"), (factory.build_unet, "unet"),
+            (factory.build_autoencoder, "autoencoder"))]
+        del trees
+        torch.cuda.synchronize()
+        log(f"convert: the converted trees built and loaded in memory "
+            f"{time.perf_counter() - start:.1f} s")
+        sampling = config["ldm_sampling"]
+        shape = tuple(sampling["latent_shape"])
+        ids = torch.as_tensor(cfg_token_ids(
+            load_tokenizer(sampling["vocab_dir"]), sampling["text_prompt"], shape[0],
+            config["cond_stage_model"]["max_seq_len"]), dtype=torch.long)
+        kwargs = dict(guidance_scale=float(sampling["guidance_scale"]),
+                      guidance_rescale=float(sampling["guidance_rescale"]),
+                      scale_factor=config["ldm"]["scale_factor"], device="cuda")
+        schedule = factory.build_schedule(config)
+        in_memory, _ = sample_txt2img(*models, schedule, ids, shape, seed=0, **kwargs)
+        check(torch.equal(images, in_memory),
+              f"blob vs in-memory: {errors(images, in_memory)} (max abs, rel L2)")
+        log("convert: sampling from the blob is bit-equal to the converted trees "
+            "loaded in memory")
+
+        # (c) the bf16 serving blob
+        start = time.perf_counter()
+        export_pretrained.main(["--config_path", config_path, "--which", "serving",
+                                "--params_blob", f32_blob, "--dtype", "bfloat16",
+                                "--out_dir", os.path.join(work, "bf16")])
+        export_s = time.perf_counter() - start
+        bf16_blob = os.path.join(work, "bf16", "params")
+        bf16_gb = os.path.getsize(bf16_blob + ".bin") / 1e9
+        reads = {}
+        for name, path, gb in (("float32", f32_blob, f32_gb), ("bf16", bf16_blob, bf16_gb)):
+            start = time.perf_counter()
+            read_blob(path)
+            reads[name] = time.perf_counter() - start
+            log(f"convert on {card}: {name} blob {gb:.3f} GB read in {reads[name]:.2f} s, "
+                f"{gb / reads[name]:.2f} GB/s")
+        log(f"convert: export --which serving --dtype bfloat16 {export_s:.1f} s "
+            f"({f32_gb:.3f} -> {bf16_gb:.3f} GB)")
+        _reset(counters)
+        from_bf16 = run_ldm_sampler.main(["--config_path", null_config_path,
+                                          "--params_blob", bf16_blob, "--seed", "0"])
+        torch.cuda.synchronize()
+        bf16_launches = _read(counters)
+        check(bf16_launches == want, f"bf16 blob launches {bf16_launches}, expected {want}")
+        check_no_fma("convert: sampler CLI on the bf16 blob")
+        check(torch.equal(from_bf16, images),
+              f"bf16 blob vs float32 blob with weights_dtype bfloat16: "
+              f"{errors(from_bf16, images)}")
+        log("convert: the bf16 blob (weights_dtype null) samples bit-equal to the "
+            "float32 blob with tpu.weights_dtype: bfloat16")
+
+        # (d) the score
+        lpips = factory.randomize_(factory.build_lpips(config, "cuda").float(), 41)
+        lpips_blob = os.path.join(work, "lpips")
+        export_blob(lpips_blob, {"lpips": params_to_jax(lpips)})
+        del lpips
+        lpips_state = read_blob(lpips_blob)["lpips"]
+        second, _ = sample_txt2img(*models, schedule, ids, shape, seed=1, **kwargs)
+        generated = images.float().cpu().numpy()
+        real = second.float().cpu().numpy()
+        start = time.perf_counter()
+        result = run_eval.evaluate(generated, real, "vgg", lpips_state, device="cuda")
+        log(f"convert: run_eval {json.dumps(result)} ({time.perf_counter() - start:.2f} s)")
+        check(result["num_generated"] == 2 and np.isfinite(result["fid"]),
+              f"run_eval result {result}")
+        both = np.concatenate([generated, real])
+        vgg_card = fid.vgg_feature_extractor(lpips_state, "cuda")
+        on_card = vgg_card(both)
+        on_cpu = fid.vgg_feature_extractor(lpips_state, "cpu")(both)
+        _, vgg_rel = errors(torch.from_numpy(on_card), torch.from_numpy(on_cpu))
+        self_fid = fid.fid_from_features(on_card, on_card)
+        check(vgg_rel < FEATURES_TOL, f"VGG features card vs CPU rel L2 {vgg_rel:.3e}")
+        check(self_fid < FID_SELF_TOL, f"FID of a set against itself {self_fid:.3e}")
+        sd_inc = inception.make_synthetic_inception_state_dict(seed=3)
+        inc_card = inception.extractor_from_state_dict(sd_inc, device="cuda")
+        inc_on_card = inc_card(both)
+        inc_on_cpu = inception.extractor_from_state_dict(sd_inc, device="cpu")(both)
+        _, inc_rel = errors(torch.from_numpy(inc_on_card), torch.from_numpy(inc_on_cpu))
+        check(inc_rel < FEATURES_TOL, f"Inception pool3 card vs CPU rel L2 {inc_rel:.3e}")
+        check(fid.fid_from_features(inc_on_card, inc_on_card) < FID_SELF_TOL,
+              "Inception FID of a set against itself")
+        batch = np.random.default_rng(0).uniform(-1, 1, (32, 256, 256, 3)).astype(np.float32)
+        rates = {}
+        for name, extract in (("VGG", vgg_card), ("Inception", inc_card)):
+            extract(batch[:16])
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            extract(batch)
+            torch.cuda.synchronize()
+            rates[name] = len(batch) / (time.perf_counter() - start)
+        log(f"convert on {card}: VGG features card vs CPU rel L2 {vgg_rel:.3e}, Inception "
+            f"pool3 {inc_rel:.3e} (bound {FEATURES_TOL:g}); FID(x, x) {self_fid:.3e}; "
+            f"extractors at 256^2, batch 16, float32: VGG {rates['VGG']:.1f} img/s, "
+            f"Inception (resize to 299 included) {rates['Inception']:.1f} img/s")
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"convert: phase {time.perf_counter() - phase_start:.1f} s")
+    return launches
+
+
 def phase_serve(card: str, models):
     """The JSONL server in the int8 serving modes at the north-star widths,
     driven through ``serve()`` with an in-memory stream: two requests of
@@ -2600,6 +2860,7 @@ def main() -> int:
     launches["group_stats"] = stats["group_stats"]
     phase_samplers(card, run)
     phase_deepcache_img2img(card, run)
+    convert_launches = phase_convert_export_eval(card)
     serve = phase_serve(card, run["models"])
     by_path.update({k: dict(LAST_PATHS[k]) for k in ("flash_attention_pv_int8", "s8_conv3x3")})
     by_path["gn_silu_quant"] = dict(LAST_MODES["gn_silu_quant"])
@@ -2656,6 +2917,8 @@ def main() -> int:
         })
         if name in by_path:  # the launches above by path (wgmma, mma.sync, fma)
             kernels[-1]["launches_by_path"] = by_path[name]
+        if convert_launches[name]:  # the sampler CLI on the converted blob
+            kernels[-1]["converted_blob_launches"] = convert_launches[name]
         per_eval = {k: v for k, v in EVAL_SUMS.items() if k.split()[0] == name}
         if per_eval:  # over one U-Net eval's calls (rows 2, 5, 7, 8, 11)
             kernels[-1]["per_eval"] = per_eval

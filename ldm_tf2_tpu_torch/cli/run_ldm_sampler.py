@@ -294,7 +294,9 @@ def check_supported(config: dict) -> None:
         )
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> torch.Tensor:
+    """Run the CLI; returns the decoded images (also saved as uint8 to
+    ``images.npy`` in the working directory)."""
     from ldm_tf2_tpu_torch.checkpoints.bridge import load_params, read_blob
     from ldm_tf2_tpu_torch.configs.loader import load_config
     from ldm_tf2_tpu_torch.data.tokenizer import cfg_token_ids, load_tokenizer
@@ -370,6 +372,7 @@ def main(argv=None) -> None:
         np.save("sample_prog.npy", as_uint8(sample_prog))
         print("[INFO] Saving progressive pred_x0 to 'pred_x0_prog.npy'...")
         np.save("pred_x0_prog.npy", as_uint8(pred_x0_prog))
+    return images
 
 
 if __name__ == "__main__":

@@ -1,5 +1,10 @@
-"""Host-side input pipeline of the trainers (the port's own copy of the
-Python path of ``ldm_tf2_tpu.data.dataset``).
+"""TFRecord writers and the host-side input pipeline of the trainers (the
+port's own copy of the Python path of ``ldm_tf2_tpu.data.dataset``).
+
+``convert_images_to_tfrecord`` and ``convert_coco_captions_to_tfrecord``
+write the JAX package's round-robin-sharded Example records (same shard
+names, same record order, byte for byte), the captions tokenized by the
+port's own ``BertTokenizer``, truncated and padded to ``max_length``.
 
 ``create_dataset`` keeps the JAX package's transform chain: filename
 shuffle + repeat -> per-file record shuffle buffer -> JPEG decode ->
@@ -18,6 +23,7 @@ from __future__ import annotations
 
 import glob
 import io
+import json
 import os
 import queue
 import random
@@ -26,12 +32,75 @@ from typing import Iterator, Sequence
 
 import numpy as np
 
-from ldm_tf2_tpu_torch.data.example_proto import decode_example
-from ldm_tf2_tpu_torch.data.tfrecord import TFRecordReader
+from ldm_tf2_tpu_torch.data.example_proto import decode_example, encode_example
+from ldm_tf2_tpu_torch.data.tfrecord import TFRecordReader, TFRecordWriter
 
 BUFFER_SIZE = 1024
 PREFETCH = 2  # batches staged ahead of the consumer
 NUM_WORKERS = 8  # decode threads
+
+
+def _image_example(image_path: str, caption: Sequence[int] | None = None) -> bytes:
+    with open(image_path, "rb") as f:
+        image_bytes = f.read()
+    features: dict[str, object] = {"image": image_bytes}
+    if caption is not None:
+        features["caption"] = list(caption)
+    return encode_example(features)
+
+
+def convert_images_to_tfrecord(
+    filenames: Sequence[str], out_path: str, num_shards: int = 100
+) -> None:
+    """Round-robin shard raw JPEG bytes into ``num_shards`` TFRecord files
+    ``images_<i>-<num_shards>.tfrecord``."""
+    os.makedirs(out_path, exist_ok=True)
+    writers = [
+        TFRecordWriter(
+            os.path.join(out_path, f"images_{i:02d}-{num_shards:02d}.tfrecord")
+        )
+        for i in range(num_shards)
+    ]
+    for shard, path in enumerate(filenames):
+        writers[shard % num_shards].write(_image_example(path))
+    for w in writers:
+        w.close()
+
+
+def convert_coco_captions_to_tfrecord(
+    root_path: str,
+    part: str,
+    ann_filename: str,
+    tokenizer,
+    out_path: str,
+    max_length: int = 77,
+    num_shards: int = 20,
+) -> None:
+    """COCO captions -> ``num_shards`` TFRecord files
+    ``coco_caption_<i>-<num_shards>.tfrecord``, each record the image's
+    bytes and its caption's ids ([CLS] ... [SEP], truncated and padded to
+    ``max_length``) from the port's ``BertTokenizer``."""
+    with open(os.path.join(root_path, "annotations", ann_filename)) as f:
+        raw = json.load(f)
+    image_dict = {image["id"]: image for image in raw["images"]}
+
+    os.makedirs(out_path, exist_ok=True)
+    writers = [
+        TFRecordWriter(
+            os.path.join(
+                out_path, f"coco_caption_{i:02d}-{num_shards:02d}.tfrecord"
+            )
+        )
+        for i in range(num_shards)
+    ]
+    for shard, ann in enumerate(raw["annotations"]):
+        image_path = os.path.join(
+            root_path, part, image_dict[ann["image_id"]]["file_name"]
+        )
+        ids = tokenizer.encode(ann["caption"], max_length)
+        writers[shard % num_shards].write(_image_example(image_path, ids))
+    for w in writers:
+        w.close()
 
 
 def _decode_jpeg(data: bytes) -> np.ndarray:

@@ -43,7 +43,18 @@ ids = cfg_token_ids(load_tokenizer(sys.argv[1]), "a red fox", 1)
 images, _ = sample_txt2img(*models, factory.build_schedule(config),
                            torch.as_tensor(ids), (1, 8, 8, 4), device="cpu")
 assert tensor_to_image(images.numpy()).shape == (1, 16, 16, 3)
+import ldm_tf2_tpu_torch.checkpoints.blob
+import ldm_tf2_tpu_torch.checkpoints.convert_lpips
+import ldm_tf2_tpu_torch.checkpoints.convert_pytorch
 import ldm_tf2_tpu_torch.checkpoints.manager
+import ldm_tf2_tpu_torch.cli.convert_ckpt_pytorch
+import ldm_tf2_tpu_torch.cli.export_pretrained
+import ldm_tf2_tpu_torch.cli.run_eval
+import ldm_tf2_tpu_torch.cli.run_quality_eval
+import ldm_tf2_tpu_torch.cli.run_tfrecord_converters
+import ldm_tf2_tpu_torch.eval.fid
+import ldm_tf2_tpu_torch.eval.inception
+import ldm_tf2_tpu_torch.utils.profiling
 import ldm_tf2_tpu_torch.cli.run_autoencoder_trainer
 import ldm_tf2_tpu_torch.cli.run_ldm_trainer
 import ldm_tf2_tpu_torch.cli.serve_ldm
@@ -93,6 +104,10 @@ def _sources():
 # treats each character, so it alone may import transformers and
 # tokenizers; no module of the port imports the generator (checked below).
 TABLE_GENERATOR = os.path.join(PKG, "data", "make_bert_chars.py")
+# The CLIP score needs pretrained CLIP weights in transformers' format: it
+# imports transformers inside clip_score, after its weights gate, and
+# nothing else in the module does (checked below).
+CLIP_SCORE = os.path.join(PKG, "eval", "fid.py")
 
 
 def test_sources_import_nothing_foreign_and_use_no_library_attention():
@@ -107,10 +122,15 @@ def test_sources_import_nothing_foreign_and_use_no_library_attention():
         for line in text.splitlines():
             if path == TABLE_GENERATOR and generator_only.match(line):
                 continue
+            if path == CLIP_SCORE and line == "    from transformers import CLIPModel, CLIPProcessor":
+                continue
             assert not foreign.match(line), f"{path}: {line}"
         if path != TABLE_GENERATOR:
             assert not re.search(r"^\s*(import|from)\s.*make_bert_chars", text, re.M), (
                 f"{path} imports the table generator")
+        if path == CLIP_SCORE:
+            body = text[text.index("def clip_score("):]
+            assert body.index("clip_weights_path is None") < body.index("from transformers")
         if path.endswith("chip_smoke.py"):
             continue  # times SDPA as a yardstick only, never on the path
         for word in banned:

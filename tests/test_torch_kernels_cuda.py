@@ -944,3 +944,98 @@ def test_ae_train_step_on_card_equals_cpu():
     for k, want in out["cpu"][3].items():  # relative, or to 1e-3 for a loss near 0
         bound = 1e-4 * max(abs(float(want)), 1e-3)
         assert abs(float(out["cuda"][3][k]) - float(want)) <= bound, k
+
+
+@pytest.mark.cuda
+def test_vgg_and_inception_features_on_card_equal_cpu():
+    """The FID extractors in float32 (TF32 off) on the card against the
+    CPU: seeded LPIPS VGG16 and synthetic-weight Inception pool3, to
+    ``chip_smoke.FEATURES_TOL`` rel L2; FID of a set against itself ~0."""
+    _need_cuda()
+    import numpy as np
+
+    from ldm_tf2_tpu_torch import factory
+    from ldm_tf2_tpu_torch.checkpoints.bridge import params_to_jax
+    from ldm_tf2_tpu_torch.eval import fid, inception
+
+    lpips = factory.randomize_(factory.build_lpips({"tpu": {"compute_dtype": "float32"}}), 0)
+    tree = params_to_jax(lpips)
+    images = np.random.default_rng(0).uniform(-1, 1, (3, 64, 64, 3)).astype(np.float32)
+    card = fid.vgg_feature_extractor(tree, "cuda", batch_size=2)(images)
+    cpu = fid.vgg_feature_extractor(tree, "cpu", batch_size=2)(images)
+    assert np.linalg.norm(card - cpu) / np.linalg.norm(cpu) < chip_smoke.FEATURES_TOL
+    assert fid.fid_from_features(card, card) < chip_smoke.FID_SELF_TOL
+    sd = inception.make_synthetic_inception_state_dict(seed=3)
+    big = np.random.default_rng(1).uniform(-1, 1, (2, 320, 320, 3)).astype(np.float32)
+    card = inception.extractor_from_state_dict(sd, device="cuda")(big)
+    cpu = inception.extractor_from_state_dict(sd, device="cpu")(big)
+    assert card.shape == (2, 2048)
+    assert np.linalg.norm(card - cpu) / np.linalg.norm(cpu) < chip_smoke.FEATURES_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blob_dtype", ["float32", "bfloat16"])
+def test_blob_to_sampler_round_trip_on_card(tmp_path, monkeypatch, blob_dtype):
+    """A port-written blob sampled by the sampler CLI on the card equals
+    sampling the same weights in memory, bit for bit: the float32 blob
+    under the north star's ``tpu.weights_dtype: bfloat16``, and the bf16
+    blob from ``export_pretrained --dtype bfloat16`` with ``weights_dtype``
+    null (north-star widths, cut to 2 encoder layers, one block and two
+    levels in the U-Net and the autoencoder, 4 steps)."""
+    _need_cuda()
+    import json
+    import os
+
+    import yaml
+
+    from ldm_tf2_tpu_torch import factory
+    from ldm_tf2_tpu_torch.checkpoints.blob import export_blob
+    from ldm_tf2_tpu_torch.checkpoints.bridge import params_to_jax
+    from ldm_tf2_tpu_torch.cli import export_pretrained, run_ldm_sampler
+    from ldm_tf2_tpu_torch.cli.run_ldm_sampler import sample_txt2img
+    from ldm_tf2_tpu_torch.configs.loader import validate
+    from ldm_tf2_tpu_torch.data.tokenizer import cfg_token_ids, load_tokenizer
+
+    raw = json.loads(json.dumps(chip_smoke.NORTH_STAR))
+    raw["cond_stage_model"]["encoder_stack_size"] = 2
+    raw["unet"].update(num_blocks=1, channel_mult=[1, 2])
+    raw["autoencoder_kl"].update(num_blocks=1, multipliers=[1, 2])
+    raw["ldm"]["num_ddim_steps"] = 4
+    raw["ldm_sampling"]["vocab_dir"] = os.path.join(chip_smoke.ROOT, "bert_model")
+    config = validate(json.loads(json.dumps(raw)))
+    builds = (factory.build_cond_model, factory.build_unet, factory.build_autoencoder)
+    f32_models = [factory.randomize_(build(config, device="cuda").float(), seed)
+                  for seed, build in enumerate(builds, 1)]
+    blob = str(tmp_path / "f32")
+    export_blob(blob, {name: params_to_jax(m) for name, m in zip(
+        ("cond_stage_model", "unet", "autoencoder"), f32_models)})
+    config_path = tmp_path / "config.yaml"
+    if blob_dtype == "bfloat16":
+        export_pretrained.main(["--config_path", _yaml(tmp_path, raw), "--which", "serving",
+                                "--params_blob", blob, "--dtype", "bfloat16",
+                                "--out_dir", str(tmp_path / "bf16")])
+        blob = str(tmp_path / "bf16" / "params")
+        raw["tpu"]["weights_dtype"] = None
+    config_path.write_text(yaml.safe_dump(raw))
+    monkeypatch.chdir(tmp_path)
+    got = run_ldm_sampler.main(["--config_path", str(config_path), "--params_blob", blob])
+    models = [m.to(torch.bfloat16) for m in f32_models]  # the load's cast
+    sampling = config["ldm_sampling"]
+    shape = tuple(sampling["latent_shape"])
+    ids = cfg_token_ids(load_tokenizer(sampling["vocab_dir"]), sampling["text_prompt"],
+                        shape[0], 77)
+    want, _ = sample_txt2img(*models, factory.build_schedule(config),
+                             torch.as_tensor(ids, dtype=torch.long), shape,
+                             guidance_scale=float(sampling["guidance_scale"]),
+                             guidance_rescale=0.0, scale_factor=config["ldm"]["scale_factor"],
+                             seed=0, device="cuda")
+    assert torch.isfinite(got).all() and got.shape == (2, 64, 64, 3)
+    assert torch.equal(got, want)
+
+
+def _yaml(tmp_path, raw):
+    import yaml
+
+    path = tmp_path / "source.yaml"
+    path.write_text(yaml.safe_dump(raw))
+    return str(path)
