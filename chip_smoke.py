@@ -94,7 +94,17 @@ final line is printed:
    masters, frozen text encoder and autoencoder in bf16, U-Net and
    condition dropout 0.1, EMA on, in-memory batches: 2 warm-up steps, then
    5 timed steps with the launch counts read around them (``TRAIN_STEP``),
-   then 2 steps under the profiler.  Before it, the kernels phase checks
+   then 2 steps under the profiler; then (7b) one step under each remat
+   policy (``tpu.remat`` false, true, full, blocks, dots) from the same
+   state, the loss equal to the plain step's, the update and the gradient
+   within ``GRAD_TOL`` per group, each policy's peak memory and s/step
+   (``phase_remat``); the indexed loader's resume through ``train`` with
+   ``deterministic_data`` (``phase_resume``: 4 steps unbroken against 2 +
+   2 resumed from a checkpoint, the batches bit-equal); and the
+   data-parallel code at world 1 in an NCCL group of one process, the LDM
+   step, the AE GAN step and a CFG sampler call each bit-equal to the
+   plain run, then two ranks against one process when the machine has two
+   cards (``phase_data_parallel``).  Before it, the kernels phase checks
    the flash backward kernels at the training path's shapes, and a gradient
    phase holds a north-star-width U-Net's parameter gradients on the card
    to the CPU's in float32, with the opt-in switches off and on;
@@ -2436,6 +2446,36 @@ def _kernel_group(name: str) -> str:
     return "elementwise / norm / copy"
 
 
+def _train_config(batch: int, size: int, **training) -> dict:
+    """The stage-2 trainer's config at the north star: bf16 compute over
+    float32 U-Net masters, frozen models in bf16, EMA on, in-memory data."""
+    from ldm_tf2_tpu_torch.configs.loader import validate
+
+    config = json.loads(json.dumps(NORTH_STAR))
+    config["tpu"] = dict(compute_dtype="bfloat16", frozen_weights_dtype="bfloat16",
+                         log_per_iterations=1)
+    config["ldm_training"] = dict(
+        root_path=None, params=dict(batch_size=batch, image_size=size),
+        autoencoder_type="kl", ckpt_path=None, num_iterations=2,
+        train_cond_model=False, condition_dropout_rate=0.1, ema_decay=0.9999)
+    config["ldm_training"].update(training)
+    config["latent_diffusion_optimizer"] = dict(learning_rate=5e-5)
+    return validate(config)
+
+
+def _train_models(config, device):
+    """(text encoder, U-Net, KL autoencoder) at the north star from fixed
+    seeds: the same weights in every process."""
+    from ldm_tf2_tpu_torch import factory
+
+    return (
+        factory.randomize_(factory.build_cond_model(config, device, "frozen_weights_dtype"), 51),
+        factory.build_trainable_unet(config, device, seed=52),
+        factory.randomize_(factory.build_autoencoder(config, "kl", device,
+                                                     "frozen_weights_dtype"), 53),
+    )
+
+
 def phase_train(card: str):
     """The stage-2 trainer at the north star through ``train()``: 2 warm-up
     steps, 5 timed steps with the launch counts read around them, 2 steps
@@ -2445,27 +2485,12 @@ def phase_train(card: str):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from ldm_tf2_tpu_torch import factory
     from ldm_tf2_tpu_torch.cli.run_ldm_trainer import train
-    from ldm_tf2_tpu_torch.configs.loader import validate
 
     batch, size = 8, 256
-    config = json.loads(json.dumps(NORTH_STAR))
-    config["tpu"] = dict(compute_dtype="bfloat16", frozen_weights_dtype="bfloat16",
-                         log_per_iterations=1)
-    config["ldm_training"] = dict(
-        root_path=None, params=dict(batch_size=batch, image_size=size),
-        autoencoder_type="kl", ckpt_path=None, num_iterations=2,
-        train_cond_model=False, condition_dropout_rate=0.1, ema_decay=0.9999)
-    config["latent_diffusion_optimizer"] = dict(learning_rate=5e-5)
-    config = validate(config)
+    config = _train_config(batch, size)
     start = time.perf_counter()
-    models = (
-        factory.randomize_(factory.build_cond_model(config, "cuda", "frozen_weights_dtype"), 51),
-        factory.build_trainable_unet(config, "cuda", seed=52),
-        factory.randomize_(factory.build_autoencoder(config, "kl", "cuda",
-                                                     "frozen_weights_dtype"), 53),
-    )
+    models = _train_models(config, "cuda")
     frozen = [p.detach().clone() for m in (models[0], models[2]) for p in m.parameters()]
     unet0 = [p.detach().clone() for p in models[1].parameters()]
     torch.cuda.synchronize()
@@ -2521,7 +2546,435 @@ def phase_train(card: str):
           "or stayed where they should move")
     _profile_report(prof, 2, f"train step at batch {batch}", prof_seconds * 1e3,
                     bare_ms=2 * s_per_step * 1e3)
-    return launches
+    return launches, models
+
+
+# Remat, resume and data-parallel phase: the remat policies of the LDM step
+# and what each recomputes per step (the U-Net's 16 self-attention and 16
+# FFN forwards once more; the autoencoder's attention is not in a segment)
+REMAT_POLICIES = (False, True, "full", "blocks", "dots")
+REMAT_EXTRA = {"flash_attention": 16, "fused_ffn": 16}
+# Two ranks at batch 4 against one process at batch 8: bf16 rounding moves
+# with the batch a kernel sees (the bf16 bound of the U-Net check, rel L2)
+DP_TOL = 2e-2
+# Step 4 of a resumed run (rel): the phase runs cuDNN deterministic, so it
+# is expected bit-equal (printed); a kernel that sums in another order from
+# run to run would move it by rounding only
+RESUME_STEP4_TOL = 1e-3
+
+
+def _group_rel(got: dict, want: dict, base: dict | None = None) -> dict:
+    """rel L2 per ``_grad_group`` of ``got`` against ``want`` (of their
+    differences from ``base`` when given), each tensor moved to the card."""
+    import torch
+
+    sums: dict[str, list] = {}
+    on_card = lambda t: t.to("cuda", torch.float32)
+    for name, w in want.items():
+        g, w = on_card(got[name]), on_card(w)
+        if base is not None:
+            b = on_card(base[name])
+            g, w = g - b, w - b
+        acc = sums.setdefault(_grad_group(name), [0.0, 0.0])
+        acc[0] += float((g - w).square().sum())
+        acc[1] += float(w.square().sum())
+    return {k: (d / max(n, 1e-30)) ** 0.5 for k, (d, n) in sums.items()}
+
+
+def _ldm_steps(models, config, batch_images, batch_ids, policy, n: int, s0: dict,
+               mesh=None):
+    """``n`` LDM steps from the U-Net state ``s0`` with a fresh optimizer
+    (EMA on): (losses, U-Net params after step 1, mu after step 1 (0.1 x
+    the gradient), both copied to the host, seconds of steps 2..n, memory
+    in GB: the most allocated before a step (``static``), the peak of a
+    step's forward and backward (read as the optimizer starts) and of a
+    whole step)."""
+    import torch
+
+    from ldm_tf2_tpu_torch import factory
+    from ldm_tf2_tpu_torch.data.tokenizer import null_condition_ids
+    from ldm_tf2_tpu_torch.training import ldm_trainer as lt
+
+    cond, unet, ae = models
+    unet.load_state_dict(s0)
+    opt = lt.make_optimizer(**config["latent_diffusion_optimizer"])
+    step = lt.make_ldm_train_step(
+        unet, cond, ae, factory.build_schedule(config), opt,
+        condition_dropout_rate=0.1, null_token_ids=null_condition_ids(1, 77)[0],
+        remat_unet=policy, ema_decay=0.9999, seed=83, mesh=mesh)
+    state = lt.init_ldm_train_state(unet, cond, opt, ema_decay=0.9999)
+    losses, seconds = [], []
+    first = mu = None
+    memory = dict.fromkeys(("static", "fwd_bwd", "step"), 0.0)
+    gb = lambda b: b / 1e9
+    apply = opt.step_
+
+    def step_(*args, **kw):  # the forward and backward's peak, as AdamW starts
+        memory["fwd_bwd"] = max(memory["fwd_bwd"], gb(torch.cuda.max_memory_allocated()))
+        return apply(*args, **kw)
+
+    opt.step_ = step_
+    for i in range(n):
+        torch.cuda.synchronize()
+        memory["static"] = max(memory["static"], gb(torch.cuda.memory_allocated()))
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, m = step(state, batch_images, batch_ids)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        memory["step"] = max(memory["step"], gb(torch.cuda.max_memory_allocated()))
+        if i:
+            seconds.append(time.perf_counter() - t0)
+        else:
+            first = {k: p.detach().cpu() for k, p in unet.named_parameters()}
+            mu = {k[len("unet."):]: v.cpu() for k, v in state.opt_state["mu"].items()}
+    return losses, first, mu, seconds, memory
+
+
+def _write_jpeg_records(directory: str, n: int, seed: int) -> None:
+    """``n`` Example records (a random JPEG 200-320 px a side, a caption of
+    77 ids) in 4 TFRecord files, with the port's writers."""
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    from ldm_tf2_tpu_torch.data.example_proto import encode_example
+    from ldm_tf2_tpu_torch.data.tfrecord import TFRecordWriter
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(directory, exist_ok=True)
+    writers = [TFRecordWriter(os.path.join(directory, f"part_{i}.tfrecord"))
+               for i in range(4)]
+    for i in range(n):
+        h, w = (int(x) for x in rng.integers(200, 320, 2))
+        buf = io.BytesIO()
+        Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)).save(buf, "JPEG")
+        ids = [101] + [int(x) for x in rng.integers(1000, 30000, 19)] + [102]
+        writers[i % 4].write(encode_example({"image": buf.getvalue(), "caption": ids}))
+    for w in writers:
+        w.close()
+
+
+def phase_remat(card: str, models) -> None:
+    """One LDM step at the north star (batch 8, 256^2, bf16 over float32
+    masters, dropout 0.1, EMA on) from the same U-Net state and draws under
+    each remat policy: the loss equal to the plain step's, the update and
+    the gradient (Adam's first moment) within ``GRAD_TOL`` per group, the
+    launches per step (the recomputed forwards included) on ``wgmma``; two
+    more steps timed; each policy's peak memory, of a whole step and of its
+    forward and backward (AdamW's temporaries over the gradients can set
+    the first)."""
+    import numpy as np
+    import torch
+
+    config = _train_config(8, 256)
+    unet = models[1]
+    s0 = {k: v.detach().cpu().clone() for k, v in unet.state_dict().items()}
+    rng = np.random.default_rng(81)
+    images = torch.as_tensor(rng.uniform(-1, 1, (8, 256, 256, 3)),
+                             dtype=torch.bfloat16, device="cuda")
+    ids = torch.as_tensor(rng.integers(1000, 30000, (8, 77)), device="cuda")
+    counters = _counters()
+    plain = None
+    report = []
+    for policy in REMAT_POLICIES:
+        torch.cuda.empty_cache()
+        _reset(counters)
+        losses, first, mu, seconds, memory = _ldm_steps(models, config, images, ids,
+                                                        policy, 3, s0)
+        launches = _read(counters)
+        check_no_fma(f"remat {policy}")
+        want = {k: 3 * (v + (REMAT_EXTRA.get(k, 0) if policy else 0))
+                for k, v in TRAIN_STEP.items()}
+        check(launches == want, f"remat {policy}: launches {launches}, expected {want}")
+        s_step = statistics.mean(seconds)
+        if plain is None:
+            plain = (losses[0], first, mu)
+            line = "the reference"
+        else:
+            upd = _group_rel(first, plain[1], s0)
+            grad = _group_rel(mu, plain[2])
+            ok = losses[0] == plain[0] and all(v < GRAD_TOL for v in (*upd.values(),
+                                                                        *grad.values()))
+            line = (f"loss {'bit-equal' if losses[0] == plain[0] else 'DIFFERS'} "
+                    f"({losses[0]!r} vs {plain[0]!r}); update rel L2 per group "
+                    + ", ".join(f"{g} {r:.2e}" for g, r in upd.items())
+                    + "; gradient rel L2 per group "
+                    + ", ".join(f"{g} {r:.2e}" for g, r in grad.items())
+                    + f" (bound {GRAD_TOL:g}) {'PASS' if ok else 'FAIL'}")
+            check(ok, f"remat {policy} differs from the plain step: {line}")
+        report.append((policy, memory, s_step))
+        log(f"remat {policy} on {card}: batch 8, 256^2, peak memory {memory['step']:.2f} GB "
+            f"a step, {memory['fwd_bwd']:.2f} GB in its forward and backward, "
+            f"{memory['static']:.2f} GB between steps; steps 2-3 {s_step:.4f} s/step "
+            f"({', '.join(f'{x:.4f}' for x in seconds)}); launches over 3 steps "
+            f"{launches}; {line}")
+        del first, mu
+    unet.load_state_dict(s0)
+    log("remat summary (peak a step / forward and backward / between steps; s/step): "
+        + "; ".join(f"{p}: {m['step']:.2f} / {m['fwd_bwd']:.2f} / {m['static']:.2f} GB, "
+                    f"{s:.4f} s" for p, m, s in report))
+
+
+def phase_resume(card: str, models) -> None:
+    """``run_ldm_trainer.train`` on the indexed loader (``deterministic_data``)
+    at the north star, cuDNN deterministic: 4 unbroken steps, then 2 steps
+    saving a checkpoint and a fresh ``train()`` that resumes at step 2:
+    steps 3-4's batches bit-equal, step 3's loss bit-equal, step 4's within
+    ``RESUME_STEP4_TOL`` (printed: whether it is bit-equal too)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ldm_tf2_tpu_torch.cli.run_ldm_trainer import train
+    from ldm_tf2_tpu_torch.data import indexed
+
+    start = time.perf_counter()
+    unet = models[1]
+    s0 = {k: v.detach().cpu().clone() for k, v in unet.state_dict().items()}
+    tmp = tempfile.mkdtemp(prefix="ldm_resume_")
+    seen: list = []
+    original = indexed.create_indexed_dataset
+
+    def teed(*args, **kw):  # what the trainer's loader yields, kept
+        for b in original(*args, **kw):
+            seen.append((b[0].copy(), b[1].copy()))
+            yield b
+
+    def run(ckpt, num_iterations):
+        config = _train_config(8, 256, root_path=os.path.join(tmp, "records"),
+                               ckpt_path=ckpt, num_iterations=num_iterations,
+                               ema_decay=None)
+        config["ldm_training"]["params"]["flip"] = True
+        config["tpu"].update(deterministic_data=True, persist_per_iterations=2)
+        config["latent_diffusion_optimizer"]["mu_dtype"] = "bfloat16"
+        seen.clear()
+        _, records = train(config, device="cuda", seed=85, models=models)
+        return {r["step"]: r["loss"] for r in records}, list(seen)
+
+    try:
+        _write_jpeg_records(os.path.join(tmp, "records"), 40, 84)
+        indexed.create_indexed_dataset = teed
+        with _DeterministicCudnn():
+            unet.load_state_dict(s0)
+            unbroken, batches = run(None, 4)
+            unet.load_state_dict(s0)
+            first, _ = run(os.path.join(tmp, "ckpt"), 2)
+            resumed, resumed_batches = run(os.path.join(tmp, "ckpt"), 4)
+    finally:
+        indexed.create_indexed_dataset = original
+        shutil.rmtree(tmp, ignore_errors=True)
+        unet.load_state_dict(s0)
+    same_batches = len(resumed_batches) >= 2 and all(
+        np.array_equal(a[k], b[k]) for a, b in zip(resumed_batches[:2], batches[2:4])
+        for k in (0, 1))
+    step4 = abs(resumed[4] - unbroken[4]) / abs(unbroken[4])
+    ok = (sorted(unbroken) == [1, 2, 3, 4] and sorted(resumed) == [3, 4]
+          and first == {1: unbroken[1], 2: unbroken[2]} and same_batches
+          and resumed[3] == unbroken[3] and step4 < RESUME_STEP4_TOL
+          and all(np.isfinite(list(unbroken.values()))))
+    log(f"resume on {card}: indexed loader, 40 records, batch 8, 256^2, flips on; "
+        f"unbroken losses {unbroken}; first run {first}; resumed at step 2: {resumed}; "
+        f"steps 3-4 batches bit-equal {same_batches}, step 3 loss bit-equal "
+        f"{resumed[3] == unbroken[3]}, step 4 rel {step4:.2e} (bound "
+        f"{RESUME_STEP4_TOL:g}, bit-equal {resumed[4] == unbroken[4]}); "
+        f"{time.perf_counter() - start:.1f} s {'PASS' if ok else 'FAIL'}")
+    check(ok, "the resumed run differs from the unbroken one")
+
+
+class _DeterministicCudnn:
+    """cuDNN's deterministic algorithms inside the block (its weight
+    gradients otherwise may sum in another order from run to run)."""
+
+    def __enter__(self):
+        import torch
+
+        self.flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = self.flags
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_data_parallel(card: str, models) -> None:
+    """The data-parallel code at world 1: an NCCL process group of this one
+    process (``tcp://`` on localhost), in which the LDM steps (3), the AE GAN
+    step (KL at the north star's width, batch 3, 256^2) and a CFG DDIM
+    sampler call (eta 1, 10 steps) run through the all-reduces, the global
+    batch statistics and the gather, each bit-equal to the plain run, with
+    cuDNN deterministic for both; then two ranks on two cards against one
+    process, when the machine has them."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from ldm_tf2_tpu_torch import factory
+    from ldm_tf2_tpu_torch.cli.run_ldm_sampler import rank_rows, sample_txt2img
+    from ldm_tf2_tpu_torch.configs.loader import validate
+    from ldm_tf2_tpu_torch.parallel import create_mesh, gather_rows
+    from ldm_tf2_tpu_torch.training import ae_trainer as at
+
+    config = _train_config(8, 256)
+    unet = models[1]
+    s0 = {k: v.detach().cpu().clone() for k, v in unet.state_dict().items()}
+    rng = np.random.default_rng(91)
+    images = torch.as_tensor(rng.uniform(-1, 1, (8, 256, 256, 3)),
+                             dtype=torch.bfloat16, device="cuda")
+    ids = torch.as_tensor(rng.integers(1000, 30000, (8, 77)), device="cuda")
+    ae_config = _ae_config("kl")
+    ae_models = _ae_models(ae_config, "cuda", 92)
+    ae_s0 = [{k: v.detach().clone() for k, v in m.state_dict().items()}
+             for m in ae_models[:2]]
+    ae_images = torch.as_tensor(rng.uniform(-1, 1, (3, 256, 256, 3)),
+                                dtype=torch.float32, device="cuda")
+    sample_config = json.loads(json.dumps(NORTH_STAR))
+    sample_config["ldm"].update(eta=1.0, num_ddim_steps=10)
+    schedule = factory.build_schedule(validate(sample_config))
+    tokens = torch.as_tensor(rng.integers(1000, 30000, (4, 77)))
+
+    def ae_step(mesh):
+        for m, s in zip(ae_models, ae_s0):
+            m.load_state_dict(s)
+        ae, disc, lpips = ae_models
+        ae.requires_grad_(True).train()
+        disc.requires_grad_(True).train()
+        lpips.requires_grad_(False)
+        trainer = ae_config["autoencoder_kl_trainer"]
+        ae_opt, d_opt = at.make_adam(), at.make_adam()
+        _, step2 = at.make_ae_train_steps(
+            ae, disc, lpips, ae_opt, d_opt, lpips_weight=trainer["lpips_weight"],
+            regularization_weight=trainer["kl_weight"],
+            discriminator_weight=trainer["discriminator_weight"], seed=93, mesh=mesh)
+        state = at.init_ae_train_state(ae, disc, ae_opt, d_opt)
+        _, metrics = step2(state, ae_images)
+        return ({k: float(v) for k, v in metrics.items()},
+                [{k: v.detach().clone() for k, v in m.state_dict().items()}
+                 for m in (ae, disc)])
+
+    def sample(mesh):
+        ids_, b = (tokens, 2) if mesh is None else rank_rows(tokens, 2, mesh)
+        out, _ = sample_txt2img(*models, schedule, ids_, (b, 32, 32, 4), seed=94,
+                                device="cuda", mesh=mesh)
+        return gather_rows(out, mesh)
+
+    start = time.perf_counter()
+    try:
+        with _DeterministicCudnn():
+            plain = {"ldm": _ldm_steps(models, config, images, ids, False, 3, s0),
+                     "ae": ae_step(None), "sample": sample(None)}
+            dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
+                                    rank=0, world_size=1)
+            try:
+                mesh = create_mesh()
+                got = {"ldm": _ldm_steps(models, config, images, ids, False, 3, s0, mesh),
+                       "ae": ae_step(mesh), "sample": sample(mesh)}
+            finally:
+                dist.destroy_process_group()
+    finally:
+        unet.load_state_dict(s0)
+    same_ldm = (got["ldm"][0] == plain["ldm"][0] and all(
+        torch.equal(got["ldm"][1][k], v) for k, v in plain["ldm"][1].items()))
+    same_ae = got["ae"][0] == plain["ae"][0] and all(
+        torch.equal(g[k], v) for g, w in zip(got["ae"][1], plain["ae"][1])
+        for k, v in w.items())
+    same_sample = torch.equal(got["sample"], plain["sample"])
+    ok = same_ldm and same_ae and same_sample and bool(torch.isfinite(got["sample"]).all())
+    log(f"data parallel on {card}: world 1 (NCCL): LDM step losses {got['ldm'][0]} "
+        f"bit-equal {same_ldm} (steps 2-3 {statistics.mean(got['ldm'][3]):.4f} s/step, "
+        f"plain {statistics.mean(plain['ldm'][3]):.4f}; peak memory "
+        f"{got['ldm'][4]['step']:.2f} GB, plain {plain['ldm'][4]['step']:.2f}); AE GAN "
+        f"step {got['ae'][0]} bit-equal {same_ae}; "
+        f"CFG DDIM sampler call (batch 2, 10 steps, eta 1) bit-equal {same_sample}; "
+        f"{time.perf_counter() - start:.1f} s {'PASS' if ok else 'FAIL'}")
+    check(ok, "the data-parallel code at world 1 differs from the plain run")
+    del ae_models, ae_s0
+    torch.cuda.empty_cache()
+    if torch.cuda.device_count() < 2:
+        log(f"data parallel, two ranks: skipped, this machine has "
+            f"{torch.cuda.device_count()} card (two ranks need two)")
+        return
+    phase_two_ranks(card, s0)
+
+
+def _two_ranks_main(rank: int, world: int, port: int, out: str) -> None:
+    """One rank of ``phase_two_ranks``: the north-star models on
+    ``cuda:<rank>``; rank 0 first takes the one-process step at batch 8,
+    then both take the data-parallel step at batch 4 each."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from ldm_tf2_tpu_torch.parallel import create_mesh, shard_batch
+
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    try:
+        config = _train_config(8, 256)
+        models = _train_models(config, f"cuda:{rank}")
+        models[1].requires_grad_(True)
+        s0 = {k: v.detach().cpu().clone() for k, v in models[1].state_dict().items()}
+        rng = np.random.default_rng(95)
+        images = torch.as_tensor(rng.uniform(-1, 1, (8, 256, 256, 3)),
+                                 dtype=torch.bfloat16, device="cuda")
+        ids = torch.as_tensor(rng.integers(1000, 30000, (8, 77)), device="cuda")
+        if rank == 0:
+            ref = _ldm_steps(models, config, images, ids, False, 2, s0)
+        dist.barrier(device_ids=[rank])
+        mesh = create_mesh()
+        got = _ldm_steps(models, config, shard_batch(images, mesh),
+                         shard_batch(ids, mesh), False, 2, s0, mesh)
+        if rank == 0:
+            result = {"world": mesh.world, "losses": got[0], "ref_losses": ref[0],
+                      "update": _group_rel(got[1], ref[1], s0),
+                      "grad": _group_rel(got[2], ref[2]),
+                      "seconds": got[3], "ref_seconds": ref[3]}
+            with open(out, "w") as f:
+                json.dump(result, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_two_ranks(card: str, s0=None) -> None:
+    """Two ranks on two cards (per-rank batch 4) against one process at
+    batch 8: losses and per-group gradients (Adam's first moment after
+    step 1) within ``DP_TOL``; the updates printed."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    del s0
+    out = os.path.join(tempfile.mkdtemp(prefix="ldm_dp_"), "result.json")
+    start = time.perf_counter()
+    mp.start_processes(_two_ranks_main, args=(2, _free_port(), out), nprocs=2,
+                       join=True, start_method="spawn")
+    with open(out) as f:
+        r = json.load(f)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(r["losses"], r["ref_losses"]))
+    ok = loss_rel < DP_TOL and all(v < DP_TOL for v in r["grad"].values())
+    log(f"data parallel, two ranks on {card}: world {r['world']}, batch 4 per rank "
+        f"against one process at batch 8: losses {r['losses']} vs {r['ref_losses']} "
+        f"(rel {loss_rel:.2e}); gradient rel L2 per group "
+        + ", ".join(f"{g} {v:.2e}" for g, v in r["grad"].items())
+        + "; update rel L2 per group "
+        + ", ".join(f"{g} {v:.2e}" for g, v in r["update"].items())
+        + f" (bound {DP_TOL:g} on losses and gradients); 2nd step {r['seconds'][0]:.4f} s "
+        f"per rank vs {r['ref_seconds'][0]:.4f} s for one process; "
+        f"{time.perf_counter() - start:.1f} s {'PASS' if ok else 'FAIL'}")
+    check(ok, f"two ranks differ from one process: {r}")
 
 
 def _ae_config(ae_type: str, compute: str = "bfloat16", image_size: int = 256,
@@ -2868,8 +3321,13 @@ def main() -> int:
                                            "flash_attention_pv_int8")})
     del run
     torch.cuda.empty_cache()
-    train_launches = phase_train(card)
+    train_launches, train_models = phase_train(card)
     by_path.update({k: dict(LAST_PATHS[k]) for k in ("flash_backward_dq", "flash_backward_dkv")})
+    phase_remat(card, train_models)
+    phase_resume(card, train_models)
+    phase_data_parallel(card, train_models)
+    del train_models
+    torch.cuda.empty_cache()
     launches.update({k: train_launches[k] for k in ("flash_backward_dq",
                                                     "flash_backward_dkv")})
     phase_ae_grad()

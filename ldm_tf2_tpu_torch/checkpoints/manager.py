@@ -3,7 +3,9 @@
 one ``torch.save`` file per step, ``<directory>/ckpt-<step>.pt``, written
 to a temporary name and renamed, so a file that exists is whole.  The
 newest ``max_to_keep`` files are kept; ``restore_latest`` loads the newest.
-The Orbax layout of the JAX package is not read or written.
+The Orbax layout of the JAX package is not read or written.  In a
+data-parallel run (``mesh``) rank 0 writes, every rank waits for it at a
+barrier, and every rank restores the same newest file.
 """
 
 from __future__ import annotations
@@ -13,13 +15,16 @@ import re
 
 import torch
 
+from ldm_tf2_tpu_torch.parallel import barrier
+
 _NAME = re.compile(r"^ckpt-(\d+)\.pt$")
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, max_to_keep: int = 3):
+    def __init__(self, directory: str, max_to_keep: int = 3, mesh=None):
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
+        self.mesh = mesh
 
     def steps(self) -> list[int]:
         if not os.path.isdir(self.directory):
@@ -33,13 +38,15 @@ class CheckpointManager:
     def save(self, step: int, state: dict) -> str:
         """Write ``state`` (nested dicts of tensors and numbers) as the
         checkpoint of ``step``; drop the oldest beyond ``max_to_keep``."""
-        os.makedirs(self.directory, exist_ok=True)
         path = self.path(step)
-        tmp = f"{path}.tmp{os.getpid()}"
-        torch.save(state, tmp)
-        os.replace(tmp, path)
-        for old in self.steps()[:-self.max_to_keep]:
-            os.remove(self.path(old))
+        if self.mesh is None or self.mesh.rank == 0:
+            os.makedirs(self.directory, exist_ok=True)
+            tmp = f"{path}.tmp{os.getpid()}"
+            torch.save(state, tmp)
+            os.replace(tmp, path)
+            for old in self.steps()[:-self.max_to_keep]:
+                os.remove(self.path(old))
+        barrier(self.mesh)
         return path
 
     def restore_latest(self, map_location=None) -> tuple[int, dict] | None:

@@ -7,6 +7,9 @@ per-image min-max normalized), like ``ldm_tf2_tpu.cli.run_ldm_sampler``:
         --config_path ldm_tf2_tpu/configs/all_in_one_config.yaml \\
         --params_blob <path without .bin/.json> [--seed 0] [--device cuda]
 
+or, data-parallel over N cards, ``torchrun --nproc_per_node N -m
+ldm_tf2_tpu_torch.cli.run_ldm_sampler ...``.
+
 The weights come from the single-blob artifact the JAX package exported
 (``checkpoints/blob.py``).  ``ldm_sampling.sampler`` picks the loop, with
 the JAX CLI's table and checks: ``ddim`` (default), ``ddpm``, ``plms`` or
@@ -22,8 +25,15 @@ latent grid as ``jax.image.resize(..., "nearest")`` does) inpaints; both
 with DDIM only (``sample_img2img``).  ``ldm_sampling.autoencoder_type:
 vq`` decodes with the VQ autoencoder, quantizing the latents first
 (``force_quantize``), as the JAX CLI does.  The configurations the JAX CLI
-refuses raise its ``ValueError`` (``check_sampling``); a device mesh raises
-``NotImplementedError`` naming its ROADMAP item.  The serving modes
+refuses raise its ``ValueError`` (``check_sampling``).  Under ``torchrun``
+the ranks are the ``data`` axis of ``tpu.mesh`` (JAX CLI's data-parallel
+sampling): when the latent batch B divides by it, rank r samples latent
+rows ``[r b, (r + 1) b)`` (b = B / data), with the token rows ``r b ...``
+of both halves of the CFG batch, the initial latent and every step's noise
+drawn at the global shape and sliced (``sample_*(..., mesh=...)``), and
+rank 0 gathers the images in rank order and writes them; otherwise rank 0
+samples on one device.  A ``model`` axis, tensor and sequence parallelism
+raise ``NotImplementedError`` naming ROADMAP item A6b.  The serving modes
 ``tpu.quantize: int8`` and ``tpu.quantize_attention: int8pv`` apply here as
 in the JAX CLI, which honours both (``factory.apply_serving_modes``).  The
 text-to-image pipeline is ``sample_txt2img`` (``sample_txt2img_progressive``
@@ -47,6 +57,10 @@ from ldm_tf2_tpu_torch.diffusion.solvers import (
     plms_sample_loop,
 )
 from ldm_tf2_tpu_torch.models import AutoencoderVQ
+from ldm_tf2_tpu_torch.parallel import RowSlice
+# the branches of the JAX CLIs not ported yet: a ``model`` mesh axis,
+# sequence or tensor parallelism
+from ldm_tf2_tpu_torch.parallel import check_data_parallel as check_supported
 
 # ldm_sampling.sampler -> loop, the JAX CLIs' table
 SAMPLE_LOOPS = {
@@ -124,7 +138,7 @@ def sample_txt2img(cond_model, unet, autoencoder, schedule, token_ids, shape,
                    guidance_rescale: float = 0.0, scale_factor: float = 0.18215,
                    seed: int = 0, init_noise=None, step_noises=None,
                    return_trajectory: bool = False, cache_interval: int = 1,
-                   cache_levels: int = 1, device="cuda"):
+                   cache_levels: int = 1, device="cuda", mesh=None):
     """Text encode -> CFG sampling loop (``sampler``, a key of
     ``SAMPLE_LOOPS``) -> decode (``decode_latents``).
 
@@ -133,8 +147,10 @@ def sample_txt2img(cond_model, unet, autoencoder, schedule, token_ids, shape,
     the sampler's DeepCache loop (``CACHE_LOOPS``) with ``cache_levels``
     shallow levels.  ``step_noises`` (DDIM and DDPM) and
     ``return_trajectory`` (DDIM, no DeepCache) are the loops' test hooks.
-    Returns (images [B, H, W, 3] float, x0 latents), plus the [S, B, h, w, c]
-    trajectory when asked.
+    ``mesh`` (a data-parallel rank's): token_ids and shape are this rank's
+    share (``rank_rows``) and every draw is this rank's rows of the global
+    batch's draw.  Returns (images [B, H, W, 3] float, x0 latents), plus the
+    [S, B, h, w, c] trajectory when asked.
     """
     device = factory.resolve_device(device)
     loop = SAMPLE_LOOPS[sampler]
@@ -152,7 +168,7 @@ def sample_txt2img(cond_model, unet, autoencoder, schedule, token_ids, shape,
     if return_trajectory:
         hooks["return_trajectory"] = True
     with torch.inference_mode():
-        generator = torch.Generator(device=device).manual_seed(seed)
+        generator = _generator(device, seed, mesh)
         context = cond_model(torch.as_tensor(token_ids, device=device))
         out = loop(
             unet, schedule, context, shape, generator,
@@ -170,7 +186,7 @@ def sample_img2img(cond_model, unet, autoencoder, schedule, token_ids, init_imag
                    mask=None, strength: float = 0.75, guidance_scale: float = 5.0,
                    guidance_rescale: float = 0.0, scale_factor: float = 0.18215,
                    seed: int = 0, enc_noise=None, init_noise=None, step_noises=None,
-                   keep_noises=None, device="cuda"):
+                   keep_noises=None, device="cuda", mesh=None):
     """Text encode, image encode -> ``ddim_img2img_loop`` -> decode.
 
     init_image: [B, H, W, 3] in [-1, 1]; mask: None or [B or 1, h, w, 1] at
@@ -178,11 +194,13 @@ def sample_img2img(cond_model, unet, autoencoder, schedule, token_ids, init_imag
     posterior is sampled with ``enc_noise`` (else a draw from the seed's
     generator); the VQ autoencoder's latents are taken before quantization,
     as the JAX CLI does.  ``init_noise``, ``step_noises`` and
-    ``keep_noises`` are the loop's test hooks.  Returns (images [B, H, W, 3]
-    float, x0 latents, the init latents times ``scale_factor``)."""
+    ``keep_noises`` are the loop's test hooks.  ``mesh``: as in
+    ``sample_txt2img``, init_image and mask this rank's rows.  Returns
+    (images [B, H, W, 3] float, x0 latents, the init latents times
+    ``scale_factor``)."""
     device = factory.resolve_device(device)
     with torch.inference_mode():
-        generator = torch.Generator(device=device).manual_seed(seed)
+        generator = _generator(device, seed, mesh)
         context = cond_model(torch.as_tensor(token_ids, device=device))
         x = torch.as_tensor(init_image, device=device)
         if isinstance(autoencoder, AutoencoderVQ):
@@ -204,14 +222,15 @@ def sample_txt2img_progressive(cond_model, unet, autoencoder, schedule, token_id
                                shape, *, guidance_scale: float = 5.0,
                                guidance_rescale: float = 0.0,
                                scale_factor: float = 0.18215, seed: int = 0,
-                               init_noise=None, step_noises=None, device="cuda"):
+                               init_noise=None, step_noises=None, device="cuda",
+                               mesh=None):
     """``sample_txt2img`` with DDIM's progress records
     (``ddim_sample_loop_progressive``, every 5th step), decoded in one
     autoencoder call.  Returns (images [B, H, W, 3], x0, sample_progress and
     pred_x0_progress images [B, records, H, W, 3])."""
     device = factory.resolve_device(device)
     with torch.inference_mode():
-        generator = torch.Generator(device=device).manual_seed(seed)
+        generator = _generator(device, seed, mesh)
         context = cond_model(torch.as_tensor(token_ids, device=device))
         x0, sample_prog, pred_x0_prog = ddim_sample_loop_progressive(
             unet, schedule, context, shape, generator,
@@ -227,10 +246,22 @@ def sample_txt2img_progressive(cond_model, unet, autoencoder, schedule, token_id
             images[:, 1 + records:])
 
 
-def _multi_device(config: dict) -> bool:
-    mesh = config["tpu"].get("mesh") or {}
-    return (config["tpu"]["sequence_parallel"] or config["tpu"]["tensor_parallel"]
-            or any(size not in (-1, 1) for size in mesh.values()))
+def _generator(device, seed: int, mesh):
+    """The call's generator; on a data-parallel rank, its rows of the
+    global batch's draws."""
+    generator = torch.Generator(device=device).manual_seed(seed)
+    if mesh is not None and mesh.distributed:
+        return RowSlice(generator, mesh.rank, mesh.world)
+    return generator
+
+
+def rank_rows(token_ids, batch: int, mesh):
+    """This rank's share of a CFG call of latent batch ``batch`` (the
+    ``[uncond B; cond B]`` token rows): rows ``r b .. (r + 1) b`` of both
+    halves, b = batch / world."""
+    b = batch // mesh.world
+    rows = slice(mesh.rank * b, (mesh.rank + 1) * b)
+    return torch.cat([token_ids[:batch][rows], token_ids[batch:][rows]]), b
 
 
 def nearest_resize_indices(size_in: int, size_out: int) -> np.ndarray:
@@ -284,22 +315,17 @@ def load_mask(path: str, latent_shape) -> np.ndarray:
     return m[:, rows][:, :, cols][..., None]
 
 
-def check_supported(config: dict) -> None:
-    """The branch of the JAX CLIs (the server's too) not ported yet: a
-    device mesh."""
-    if _multi_device(config):
-        raise NotImplementedError(
-            "not ported yet: a device mesh, sequence or tensor parallelism "
-            "(ROADMAP queue A item A6)"
-        )
-
-
-def main(argv=None) -> torch.Tensor:
+def main(argv=None) -> torch.Tensor | None:
     """Run the CLI; returns the decoded images (also saved as uint8 to
-    ``images.npy`` in the working directory)."""
+    ``images.npy`` in the working directory by rank 0), every rank's rows
+    gathered; None on the other ranks when the batch does not divide by the
+    ``data`` axis and rank 0 samples alone."""
     from ldm_tf2_tpu_torch.checkpoints.bridge import load_params, read_blob
     from ldm_tf2_tpu_torch.configs.loader import load_config
     from ldm_tf2_tpu_torch.data.tokenizer import cfg_token_ids, load_tokenizer
+    from ldm_tf2_tpu_torch.parallel import (
+        create_mesh, gather_rows, maybe_initialize_distributed,
+    )
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--config_path", required=True)
@@ -315,10 +341,22 @@ def main(argv=None) -> torch.Tensor:
     save_progress = bool(sampling.get("sample_save_progress", False))
     init_image_path = sampling.get("init_image_path")
     check_supported(config)
-    device = factory.resolve_device(args.device)
+    device = factory.resolve_device(maybe_initialize_distributed(args.device))
+    mesh = create_mesh(config["tpu"].get("mesh"))
+    say = print if mesh.rank == 0 else (lambda *a: None)
     factory.set_float32_precision()
     factory.apply_tpu_settings(config)
     shape = tuple(sampling["latent_shape"])
+    n_data = mesh.shape["data"]
+    if shape[0] % n_data == 0:
+        say(f"[INFO] Sampling data-parallel over mesh {dict(mesh.shape)}.")
+    else:
+        if n_data > 1:
+            say(f"[INFO] Batch {shape[0]} not divisible by data axis {n_data}; "
+                "sampling on a single device.")
+        if mesh.rank:
+            return None
+        mesh = None
     init_image = mask = None
     if init_image_path:
         init_image = load_init_image(init_image_path, config)
@@ -326,7 +364,7 @@ def main(argv=None) -> torch.Tensor:
             mask = torch.as_tensor(load_mask(sampling["mask_path"], shape),
                                    device=device)
 
-    print("[INFO] Building models and loading the params blob...")
+    say("[INFO] Building models and loading the params blob...")
     blob = read_blob(args.params_blob)
     cond_model = load_params(factory.build_cond_model(config, device),
                              blob["cond_stage_model"])
@@ -343,15 +381,23 @@ def main(argv=None) -> torch.Tensor:
         shape[0], config["cond_stage_model"]["max_seq_len"],
         negative_prompt=sampling.get("negative_prompt", ""),
     )
-    print(f"[INFO] Sampling: {sampler}, {schedule.num_ddim_steps} steps, eta "
-          f"{schedule.eta}, guidance {sampling['guidance_scale']} on {device}...")
+    say(f"[INFO] Sampling: {sampler}, {schedule.num_ddim_steps} steps, eta "
+        f"{schedule.eta}, guidance {sampling['guidance_scale']} on {device}...")
     kwargs = dict(
         guidance_scale=float(sampling["guidance_scale"]),
         guidance_rescale=float(sampling.get("guidance_rescale", 0.0)),
         scale_factor=config["ldm"]["scale_factor"], seed=args.seed,
-        device=device,
+        device=device, mesh=mesh,
     )
     token_ids = torch.as_tensor(token_ids, dtype=torch.long)
+    if mesh is not None and mesh.distributed:
+        token_ids, b = rank_rows(token_ids, shape[0], mesh)
+        rows = slice(mesh.rank * b, (mesh.rank + 1) * b)
+        shape = (b,) + shape[1:]
+        if init_image is not None:
+            init_image = init_image[rows]
+        if mask is not None and mask.shape[0] > 1:
+            mask = mask[rows]
     if save_progress:
         images, _, sample_prog, pred_x0_prog = sample_txt2img_progressive(
             cond_model, unet, autoencoder, schedule, token_ids, shape, **kwargs)
@@ -364,6 +410,12 @@ def main(argv=None) -> torch.Tensor:
             cond_model, unet, autoencoder, schedule, token_ids, shape,
             sampler=sampler, cache_interval=int(sampling.get("cache_interval", 1)),
             cache_levels=int(sampling.get("cache_levels", 1)), **kwargs)
+    images = gather_rows(images, mesh)
+    if save_progress:
+        sample_prog = gather_rows(sample_prog, mesh)
+        pred_x0_prog = gather_rows(pred_x0_prog, mesh)
+    if mesh is not None and mesh.rank:
+        return images
     as_uint8 = lambda t: tensor_to_image(t.float().cpu().numpy())
     print("[INFO] Saving generated images to 'images.npy'...")
     np.save("images.npy", as_uint8(images))

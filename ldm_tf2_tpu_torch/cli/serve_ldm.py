@@ -34,8 +34,10 @@ decodes through the VQ autoencoder with ``force_quantize``, as the JAX
 server does.  ``ldm_sampling.cache_interval`` > 1 serves through the
 DeepCache loops (``cache_levels`` shallow levels; DDIM or
 DPM-Solver++(2M), else the JAX server's ``ValueError``).  As in the JAX
-server there is no image to image.  A device mesh raises
-``NotImplementedError`` naming its ROADMAP item.  The JAX server's
+server there is no image to image.  The server runs on one device: a
+device mesh (data parallelism over the requests, a ``model`` axis, tensor
+or sequence parallelism) raises ``NotImplementedError`` naming ROADMAP item
+A6b.  The JAX server's
 ``--aot_cache`` has no counterpart: PyTorch runs eagerly and compiles no
 pipeline executable to cache.
 """
@@ -55,6 +57,7 @@ from ldm_tf2_tpu_torch import factory
 from ldm_tf2_tpu_torch.cli.run_ldm_sampler import (
     CACHE_LOOPS, check_supported, sample_txt2img, sampler_name, tensor_to_image,
 )
+from ldm_tf2_tpu_torch.parallel import create_mesh
 
 
 def _note(msg: str) -> None:
@@ -82,6 +85,10 @@ def build_server(config: dict, params_blob_path: str = "", device="cuda",
             f"dpm_solver_pp_2m, got {sampler!r}"
         )
     check_supported(config)
+    if create_mesh(config["tpu"].get("mesh")).world > 1:
+        raise NotImplementedError(
+            "not ported yet: the server on a device mesh, data parallelism "
+            "over the requests it reads (ROADMAP queue A item A6b)")
     device = factory.resolve_device(device)
     factory.set_float32_precision()
     factory.apply_tpu_settings(config)

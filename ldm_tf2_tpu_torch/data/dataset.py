@@ -11,12 +11,15 @@ shuffle + repeat -> per-file record shuffle buffer -> JPEG decode ->
 /127.5 - 1 normalize -> centered pad-to-square -> **nearest** resize
 (half-pixel centers) -> optional horizontal flip -> drop-remainder
 batching, as an infinite generator of numpy batches decoded ahead by a
-thread pool.  The record order is a function of the seed alone, so the
+thread pool (closing it stops the producer thread; a decoding error is
+raised by the consumer).  The record order is a function of the seed alone, so the
 batches equal the JAX package's Python path batch for batch.  One
 difference: the flip coin is drawn in record order in the producer, where
 the JAX package draws it in its decode workers (whose order varies with
 thread timing), so here flipped runs repeat too.  The JAX package's native
-C++ decoder is not used.
+C++ decoder is not used.  ``shard_for_process`` splits the files over the
+ranks of a data-parallel run; ``data/indexed.py`` is the deterministic,
+resumable loader.
 """
 
 from __future__ import annotations
@@ -204,6 +207,15 @@ def create_dataset(
         q: queue.Queue = queue.Queue(maxsize=PREFETCH)
         stop = threading.Event()
 
+        def put(item) -> None:
+            """Stage ``item`` unless the consumer has stopped."""
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return
+                except queue.Full:
+                    continue
+
         def producer():
             try:
                 while not stop.is_set():
@@ -215,14 +227,14 @@ def create_dataset(
                     ]
                     items = [f.result() for f in futures]
                     if with_captions:
-                        q.put((np.stack([i[0] for i in items]),
-                               np.stack([i[1] for i in items])))
+                        put((np.stack([i[0] for i in items]),
+                             np.stack([i[1] for i in items])))
                     else:
-                        q.put(np.stack(items))
+                        put(np.stack(items))
             except StopIteration:
-                pass
-            finally:
-                q.put(None)
+                put(None)
+            except Exception as e:  # handed to the consumer, which raises it
+                put(e)
 
         thread = threading.Thread(target=producer, daemon=True)
         thread.start()
@@ -231,9 +243,12 @@ def create_dataset(
                 batch = q.get()
                 if batch is None:
                     return
+                if isinstance(batch, Exception):
+                    raise batch
                 yield batch
         finally:
             stop.set()
+            thread.join(timeout=10)
             pool.shutdown(wait=False, cancel_futures=True)
 
     return batches()
@@ -242,3 +257,16 @@ def create_dataset(
 def list_tfrecords(root_path: str) -> list[str]:
     """The ``*.tfrecord`` files under a directory, sorted."""
     return sorted(glob.glob(os.path.join(root_path, "*.tfrecord")))
+
+
+def shard_for_process(filenames: Sequence[str], mesh=None) -> list[str]:
+    """The files this rank streams: a round-robin share by rank over the
+    world (``mesh``, else the process group's), or all of them when there
+    are fewer files than ranks."""
+    from ldm_tf2_tpu_torch.parallel import create_mesh
+
+    mesh = mesh or create_mesh()
+    count, index = mesh.world, mesh.rank
+    if count == 1 or len(filenames) < count:
+        return list(filenames)
+    return [f for i, f in enumerate(filenames) if i % count == index]

@@ -5,7 +5,8 @@ Counterpart of ``ldm_tf2_tpu.diffusion.sampler`` (``apply_cfg``,
 ``ddim_sample_loop_deepcache``, ``ddim_img2img_loop``,
 ``ddim_sample_loop_progressive``, ``ddpm_step``, ``ddpm_sample_loop``).
 The JAX package's ``lax.scan`` becomes a Python loop, and its PRNG key an
-explicit ``torch.Generator``; every loop also takes the noise it would draw
+explicit ``torch.Generator`` (a ``parallel.RowSlice`` on a data-parallel
+rank, which draws this rank's rows of the global batch's noise); every loop also takes the noise it would draw
 (``init_noise``, ``step_noises``), so a test can hand it the JAX package's
 draws.  CFG runs one U-Net call on the doubled [2B] batch, unconditional
 half first; the split comes from the batch, not a fixed size.
@@ -20,6 +21,7 @@ import torch
 
 from ldm_tf2_tpu_torch.diffusion.losses import q_sample
 from ldm_tf2_tpu_torch.diffusion.schedule import DiffusionSchedule
+from ldm_tf2_tpu_torch.parallel import rng
 
 # An epsilon model: (xt_doubled [2B,H,W,C], t [2B], context [2B,S,D]) -> eps.
 EpsModel = Callable[..., torch.Tensor]
@@ -68,8 +70,7 @@ def ddim_update(schedule: DiffusionSchedule, xt, eps, index: int,
     if noise is None:
         if sigma == 0.0:
             return mean, pred_x0
-        noise = torch.randn(xt.shape, generator=generator, device=xt.device,
-                            dtype=xt.dtype)
+        noise = rng.randn(xt.shape, generator, device=xt.device, dtype=xt.dtype)
     return mean + float(sigma) * noise.to(xt.dtype), pred_x0
 
 
@@ -90,8 +91,7 @@ def ddim_step(eps_model: EpsModel, schedule: DiffusionSchedule, xt, cond,
 def _initial(context, shape, generator, init_noise):
     """The initial latent: ``init_noise``, else a draw from ``generator``."""
     if init_noise is None:
-        return torch.randn(tuple(shape), generator=generator, device=context.device,
-                           dtype=context.dtype)
+        return rng.randn(shape, generator, device=context.device, dtype=context.dtype)
     return init_noise.to(device=context.device, dtype=context.dtype)
 
 
@@ -195,8 +195,7 @@ def ddim_img2img_loop(eps_model: EpsModel, schedule: DiffusionSchedule, context,
         return init_latent
     device, dtype = init_latent.device, init_latent.dtype
     if init_noise is None:
-        noise0 = torch.randn(init_latent.shape, generator=generator, device=device,
-                             dtype=dtype)
+        noise0 = rng.randn(init_latent.shape, generator, device=device, dtype=dtype)
     else:
         noise0 = init_noise.to(device=device, dtype=dtype)
     table = lambda a: torch.as_tensor(a, device=device)
@@ -220,8 +219,7 @@ def ddim_img2img_loop(eps_model: EpsModel, schedule: DiffusionSchedule, context,
         c0 = torch.sqrt(acp_prev).item()
         c1 = torch.sqrt(torch.clamp(1.0 - acp_prev, min=0.0)).item()
         if keep_noises is None:
-            keep_noise = torch.randn(xt.shape, generator=generator, device=device,
-                                     dtype=dtype)
+            keep_noise = rng.randn(xt.shape, generator, device=device, dtype=dtype)
         else:
             keep_noise = keep_noises[n].to(device=device, dtype=dtype)
         xt = mask * xt + (1.0 - mask) * (c0 * init_latent + c1 * keep_noise)
@@ -281,8 +279,7 @@ def ddpm_step(eps_model: EpsModel, schedule: DiffusionSchedule, xt, cond, t: int
     if t == 0:
         return mean, pred_x0
     if noise is None:
-        noise = torch.randn(xt.shape, generator=generator, device=xt.device,
-                            dtype=xt.dtype)
+        noise = rng.randn(xt.shape, generator, device=xt.device, dtype=xt.dtype)
     std = np.exp(np.float32(0.5) * f32(schedule.posterior_log_variance_clipped))
     return mean + float(std) * noise.to(xt.dtype), pred_x0
 

@@ -13,7 +13,10 @@ fast one, E[x^2] - mean^2, clamped at 0; the running variance takes that
 *biased* batch variance; and momentum weights the old value,
 ``ra = 0.9 * ra + 0.1 * batch``.  The running statistics are the buffers
 ``mean`` and ``var`` (flax's ``batch_stats`` collection), updated in place
-by each training-mode call.
+by each training-mode call.  Data-parallel training passes ``sum_ranks``
+(``parallel.all_reduce_sum``): the float32 sums of x and x^2 and the count
+are summed over the ranks before the statistics are taken, so they are the
+global batch's on every rank, differentiably.
 """
 
 from __future__ import annotations
@@ -32,11 +35,16 @@ class BatchNorm(Norm):
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
 
-    def forward(self, x, training: bool = False):
+    def forward(self, x, training: bool = False, sum_ranks=None):
         xf = x.float()
         if training:
-            mean = xf.mean(dim=(0, 1, 2))
-            var = torch.clamp((xf * xf).mean(dim=(0, 1, 2)) - mean * mean, min=0.0)
+            c = xf.shape[-1]
+            count = torch.full((1,), float(xf[..., 0].numel()), device=xf.device)
+            sums = torch.cat([xf.sum(dim=(0, 1, 2)), (xf * xf).sum(dim=(0, 1, 2)), count])
+            if sum_ranks is not None:
+                sums = sum_ranks(sums)
+            mean = sums[:c] / sums[2 * c]
+            var = torch.clamp(sums[c:2 * c] / sums[2 * c] - mean * mean, min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.mean.copy_(m * self.mean + (1 - m) * mean.detach())
@@ -62,12 +70,13 @@ class Discriminator(nn.Module):
             ch = out
         self.conv_out = Conv(ch, 1, 4)
 
-    def forward(self, x, training: bool = False):
+    def forward(self, x, training: bool = False, sum_ranks=None):
         """Patch logits [B, H', W', 1]; ``training`` normalizes with the
-        batch's statistics and updates the running ones."""
+        batch's statistics (the global batch's under ``sum_ranks``) and
+        updates the running ones."""
         x = F.leaky_relu(self.conv_0(x.to(self.dtype), stride=2, padding=1), 0.2)
         for n in range(1, self.num_layers + 1):
             stride = 2 if n < self.num_layers else 1
             x = getattr(self, f"conv_{n}")(x, stride=stride, padding=1)
-            x = F.leaky_relu(getattr(self, f"bn_{n}")(x, training), 0.2)
+            x = F.leaky_relu(getattr(self, f"bn_{n}")(x, training, sum_ranks), 0.2)
         return self.conv_out(x, stride=1, padding=1)

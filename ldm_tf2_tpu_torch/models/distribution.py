@@ -1,12 +1,14 @@
 """Diagonal Gaussian posterior over latents (counterpart of
 ``ldm_tf2_tpu.models.distribution.DiagonalGaussian``); sampling takes an
-explicit ``torch.Generator``."""
+explicit ``torch.Generator`` (or a ``parallel.RowSlice``)."""
 
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+
+from ldm_tf2_tpu_torch.parallel import rng
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,10 +31,8 @@ class DiagonalGaussian:
         """mean + std * N(0, 1): the given ``noise`` (cast to the mean's
         dtype), or noise drawn from ``generator`` in the mean's dtype."""
         if noise is None:
-            noise = torch.randn(
-                self.mean.shape, generator=generator, device=self.mean.device,
-                dtype=self.mean.dtype,
-            )
+            noise = rng.randn(self.mean.shape, generator, device=self.mean.device,
+                              dtype=self.mean.dtype)
         return self.mean + self.std * noise.to(self.mean.dtype)
 
     def kl(self):

@@ -16,6 +16,7 @@ import torch
 from torch import nn
 
 from ldm_tf2_tpu_torch.ops.fused_conv import conv2d
+from ldm_tf2_tpu_torch.parallel import rng
 from ldm_tf2_tpu_torch.ops.group_norm import group_norm
 
 
@@ -23,15 +24,16 @@ def _param(*shape):
     return nn.Parameter(torch.empty(*shape))
 
 
-def dropout(x, rate: float, generator: torch.Generator | None):
+def dropout(x, rate: float, generator):
     """flax ``nn.Dropout`` in training mode: keep each element with
-    probability 1 - rate (a uniform draw from ``generator`` below it) and
-    scale the kept ones by 1 / (1 - rate).  Identity when ``generator`` is
-    None (not training) or the rate is 0."""
+    probability 1 - rate (a uniform draw from ``generator``, a
+    ``torch.Generator`` or a ``parallel.RowSlice``, below it) and scale the
+    kept ones by 1 / (1 - rate).  Identity when ``generator`` is None (not
+    training) or the rate is 0."""
     if generator is None or rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = rng.rand(x.shape, generator, device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 

@@ -53,6 +53,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ldm_tf2_tpu_torch.models import remat
 from ldm_tf2_tpu_torch.models.layers import (
     Conv, Dense, GroupNorm, LayerNorm, Norm, Projection, dropout,
 )
@@ -412,15 +413,18 @@ class UNet(nn.Module):
                 m.pv_int8 = self.attention_pv_int8
 
     def forward(self, x, time, context=None, *, training: bool = False,
-                generator: torch.Generator | None = None, shallow_cache=None,
-                return_cache: bool = False, cache_levels: int = 1):
+                generator=None, shallow_cache=None, return_cache: bool = False,
+                cache_levels: int = 1, remat_blocks: bool = False):
         """x: [B, H, W, C] latents (NHWC); time: [B]; context: [B, S, D].
         Returns [B, H, W, out_channels] predicted noise; with
         ``return_cache``, ``(noise, cache)``.  ``training`` with a nonzero
         ``dropout_rate`` draws the dropout masks from ``generator``.
         ``shallow_cache`` (a cache from a ``return_cache`` pass) runs the
         shallow pass of the ``cache_levels`` outermost levels (1 ..
-        levels - 1)."""
+        levels - 1).  ``remat_blocks`` runs each input, middle and output
+        block as its own checkpoint segment (``models/remat.py``, the
+        trainer's "blocks" policy), replaying its draws from ``generator``
+        in the recompute."""
         levels = len(self.channel_mult)
         shallow = shallow_cache is not None
         if (shallow or return_cache) and not 1 <= cache_levels <= levels - 1:
@@ -439,21 +443,33 @@ class UNet(nn.Module):
         t = get_time_embedding(time, self.model_channels).to(self.dtype)
         t = self.time_dense2(F.silu(self.time_dense1(t)))
         context = None if context is None else context.to(self.dtype)
+
+        def block(module, h, skip=None):
+            """One block on h (concatenated with its skip input), a
+            checkpoint segment of its own under ``remat_blocks``."""
+            if skip is None:
+                run, args = (lambda g, h: module(h, t, context, g)), (h,)
+            else:
+                run = lambda g, h, s: module(torch.cat([h, s], dim=-1), t, context, g)
+                args = (h, skip)
+            if remat_blocks:
+                return remat.checkpoint(run, gen, *args)
+            return run(gen, *args)
+
         hiddens = [h]
         # a shallow pass stops before the downsample of level cache_levels-1
         n_in = cache_levels * per_level - 1 if shallow else self.num_input_blocks
         for i in range(n_in):
-            h = getattr(self, f"input_block_{i}")(h, t, context, gen)
+            h = block(getattr(self, f"input_block_{i}"), h)
             hiddens.append(h)
         if shallow:
             h = shallow_cache.to(self.dtype)
         else:
-            h = self.middle_block(h, t, context, gen)
+            h = block(self.middle_block, h)
         cache = None
         for i in range(boundary if shallow else 0, self.num_output_blocks):
             if return_cache and i == boundary:
                 cache = h
-            h = torch.cat([h, hiddens.pop()], dim=-1)
-            h = getattr(self, f"output_block_{i}")(h, t, context, gen)
+            h = block(getattr(self, f"output_block_{i}"), h, hiddens.pop())
         out = self.conv_out(self.group_norm(h))
         return (out, cache) if return_cache else out

@@ -29,6 +29,15 @@ dropout) come from generators seeded from ``(seed, step)`` alone, and the
 posterior noise may be injected (``draws``), which is how the tests hand
 both frameworks the same numbers.  Compute runs in the models' compute
 dtype over float32 parameters.
+
+Data parallelism (``mesh``, a ``parallel.Mesh`` in a process group): the
+batch is this rank's rows of the global batch and every draw this rank's
+rows of the global batch's draw; both models' gradients are averaged over
+the ranks, the adaptive weight's two last-layer gradients before their
+norms, and D's BatchNorm takes the global batch's statistics
+(``parallel.all_reduce_sum`` of the float32 sums), so the running
+statistics, both Adam states and the logged (global-mean) metrics equal
+one process's at the global batch.
 """
 
 from __future__ import annotations
@@ -39,6 +48,9 @@ import torch
 
 from ldm_tf2_tpu_torch.diffusion.losses import D_LOSS_MAP, nll_loss
 from ldm_tf2_tpu_torch.models import AutoencoderKL
+from ldm_tf2_tpu_torch.parallel import (
+    RowSlice, all_reduce_mean_, all_reduce_sum, global_mean,
+)
 from ldm_tf2_tpu_torch.training.ldm_trainer import AdamW, _to, step_generators
 
 
@@ -73,7 +85,8 @@ def make_ae_train_steps(autoencoder, discriminator, lpips, ae_optimizer: AdamW,
                         regularization_weight: float = 1.0,
                         discriminator_weight: float = 1.0,
                         discriminator_factor: float = 1.0,
-                        discriminator_loss_type: str = "hinge", seed: int = 0):
+                        discriminator_loss_type: str = "hinge", seed: int = 0,
+                        mesh=None):
     """Build ``(train_step_autoencoder, train_step_autoencoder_discriminator)``,
     each ``(state, images, draws=None) -> (state, metrics)``.
 
@@ -85,9 +98,15 @@ def make_ae_train_steps(autoencoder, discriminator, lpips, ae_optimizer: AdamW,
     d_loss_fn = D_LOSS_MAP[discriminator_loss_type]
     device = next(autoencoder.parameters()).device
     kl = isinstance(autoencoder, AutoencoderKL)
+    in_group = mesh is not None and mesh.distributed
+    average = lambda tensors: all_reduce_mean_(tensors, mesh)
+    sum_ranks = (lambda x: all_reduce_sum(x, mesh)) if in_group else None
 
     def recon_losses(state, images, draws):
         noise_gen, dropout_gen = step_generators(seed, state.step, device, 2)
+        if in_group:
+            noise_gen = RowSlice(noise_gen, mesh.rank, mesh.world)
+            dropout_gen = RowSlice(dropout_gen, mesh.rank, mesh.world)
         if kl:
             posterior = autoencoder.encode(images, generator=dropout_gen)
             z = posterior.sample(noise_gen, (draws or {}).get("posterior_noise"))
@@ -102,7 +121,11 @@ def make_ae_train_steps(autoencoder, discriminator, lpips, ae_optimizer: AdamW,
 
     def apply(optimizer, module, loss_grads, opt_state):
         params = _params(module)
-        optimizer.step_(params, dict(zip(params, loss_grads)), opt_state)
+        optimizer.step_(params, dict(zip(params, loss_grads)), opt_state,
+                        average if in_group else None)
+
+    def global_metrics(metrics):
+        return {k: global_mean(v.detach(), mesh) for k, v in metrics.items()}
 
     def ae_grads(state: AETrainState, images, draws=None):
         """Phase 1's loss and gradients (autoencoder parameters, in
@@ -110,8 +133,8 @@ def make_ae_train_steps(autoencoder, discriminator, lpips, ae_optimizer: AdamW,
         _, nll, reg = recon_losses(state, images, draws)
         loss = nll + regularization_weight * reg
         grads = torch.autograd.grad(loss, list(_params(autoencoder).values()))
-        return grads, {"ae_loss": loss.detach(), "nll_loss": nll.detach(),
-                       "reg_loss": reg.detach()}
+        return grads, global_metrics({"ae_loss": loss, "nll_loss": nll,
+                                      "reg_loss": reg})
 
     def gan_grads(state: AETrainState, images, draws=None):
         """Phase 2's gradients (autoencoder, discriminator) and metrics, no
@@ -121,6 +144,7 @@ def make_ae_train_steps(autoencoder, discriminator, lpips, ae_optimizer: AdamW,
         last = autoencoder.last_layer()
         nll_grad, = torch.autograd.grad(nll, last, retain_graph=True)
         g_grad, = torch.autograd.grad(g_loss, last, retain_graph=True)
+        average([nll_grad, g_grad])
         weight = torch.linalg.vector_norm(nll_grad) / (
             torch.linalg.vector_norm(g_grad) + 1e-4)
         weight = torch.clamp(weight, 0.0, 1e4).detach() * discriminator_weight
@@ -129,13 +153,13 @@ def make_ae_train_steps(autoencoder, discriminator, lpips, ae_optimizer: AdamW,
         grads = torch.autograd.grad(ae_loss, list(_params(autoencoder).values()))
 
         outputs = outputs.detach()
-        logits_real = discriminator(images.detach(), training=True)
-        logits_fake = discriminator(outputs, training=True)
+        logits_real = discriminator(images.detach(), training=True, sum_ranks=sum_ranks)
+        logits_fake = discriminator(outputs, training=True, sum_ranks=sum_ranks)
         d_loss = d_loss_fn(logits_real, logits_fake) * discriminator_factor
         d_grads = torch.autograd.grad(d_loss, list(_params(discriminator).values()))
         metrics = {"ae_loss": ae_loss, "nll_loss": nll, "reg_loss": reg,
                    "g_loss": g_loss, "adaptive_weight": weight, "d_loss": d_loss}
-        return grads, d_grads, {k: v.detach() for k, v in metrics.items()}
+        return grads, d_grads, global_metrics(metrics)
 
     def train_step_autoencoder(state: AETrainState, images, draws=None):
         grads, metrics = ae_grads(state, images, draws)

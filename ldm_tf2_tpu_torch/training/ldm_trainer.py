@@ -30,6 +30,11 @@ Semantics kept from the JAX step and optax 0.2.6, not PyTorch's:
   (``draws``), which is how the tests hand both frameworks the same ones.
 * Noise is drawn in the latents' dtype, the loss is computed in the
   prediction's dtype, and the frozen models carry no gradient state.
+
+``remat_unet`` (``tpu.remat``) recomputes the U-Net forward in the
+backward pass with its dropout draws replayed (``models/remat.py``), and
+``mesh`` makes the step one rank's share of a data-parallel step
+(``make_ldm_train_step``).
 """
 
 from __future__ import annotations
@@ -41,7 +46,8 @@ import numpy as np
 import torch
 
 from ldm_tf2_tpu_torch.diffusion.losses import q_sample
-from ldm_tf2_tpu_torch.models import AutoencoderVQ
+from ldm_tf2_tpu_torch.models import AutoencoderVQ, remat
+from ldm_tf2_tpu_torch.parallel import RowSlice, all_reduce_mean_, global_mean, rng
 
 # Tensors per multi-tensor op in the optimizer: bounds its temporaries to a
 # slice of the parameters.
@@ -111,10 +117,13 @@ class AdamW:
         return state
 
     @torch.no_grad()
-    def step_(self, params: dict, grads: dict, state: dict) -> bool:
+    def step_(self, params: dict, grads: dict, state: dict, reduce=None) -> bool:
         """Fold ``grads`` into ``state`` and update ``params`` in place.
         Returns whether the parameters moved (False on the micro-steps of
-        gradient accumulation)."""
+        gradient accumulation).  ``reduce`` (a data-parallel run's
+        ``all_reduce_mean_``) averages, in place, the gradients the update
+        uses, before the clip: under accumulation the micro-steps' running
+        mean, on the sync step only (the mean is linear)."""
         names = list(params)
         g = [grads[n] for n in names]
         if self.accum_steps > 1:
@@ -128,6 +137,8 @@ class AdamW:
                 state["mini_step"] = n_acc + 1
                 return False
             g = acc
+        if reduce is not None:
+            reduce(g)
         if self.clip:
             norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
             if not float(norm) < self.clip:
@@ -215,8 +226,8 @@ def make_ldm_train_step(unet, cond_model, autoencoder, schedule,
                         optimizer: AdamW, *, scale_factor: float = 0.18215,
                         condition_dropout_rate: float = 0.1,
                         train_cond_model: bool = False, null_token_ids=None,
-                        ema_decay: float | None = None, encode_chunks: int = 1,
-                        seed: int = 0):
+                        remat_unet=False, ema_decay: float | None = None,
+                        encode_chunks: int = 1, seed: int = 0, mesh=None):
     """Build ``train_step(state, images, token_ids, draws=None) -> (state,
     {"loss": tensor})``.
 
@@ -225,8 +236,22 @@ def make_ldm_train_step(unet, cond_model, autoencoder, schedule,
     latents' shape), ``drop`` [B] bool, ``noise`` (the latents' shape);
     the rest are drawn from ``step_generators(seed, state.step)``.
     ``encode_chunks`` encodes the batch in that many sub-batches, one after
-    the other, each sampling its share of the posterior noise."""
+    the other, each sampling its share of the posterior noise.
+    ``remat_unet`` (``tpu.remat``: False, True, "full", "blocks", "dots";
+    ``models/remat.py``) recomputes the U-Net forward in the backward
+    pass, its dropout draws replayed: memory, not math, changes.
+
+    ``mesh`` (a ``parallel.Mesh`` in a process group) makes the step one
+    rank's share of a data-parallel step: the batch is this rank's rows of
+    the global batch, every draw is this rank's rows of the global batch's
+    draw (``parallel.RowSlice``), the gradients are averaged over the ranks
+    (float32) before the clip, and the loss is the global mean, so the
+    ranks' step equals one process's at the global batch."""
+    remat.check_policy(remat_unet)
     device = next(unet.parameters()).device
+    in_group = mesh is not None and mesh.distributed
+    rank, world = (mesh.rank, mesh.world) if in_group else (0, 1)
+    reduce = (lambda g: all_reduce_mean_(g, mesh)) if in_group else None
     sqrt_acp = torch.as_tensor(schedule.sqrt_alphas_cumprod, device=device)
     sqrt_1m_acp = torch.as_tensor(schedule.sqrt_one_minus_alphas_cumprod,
                                   device=device)
@@ -237,6 +262,9 @@ def make_ldm_train_step(unet, cond_model, autoencoder, schedule,
 
     @torch.no_grad()
     def encode(images, generator, noise):
+        """The scaled latents; the KL posterior's noise is ``noise``, else
+        the global batch's draw in ``encode_chunks`` chunks (the chunks of
+        one process at the global batch), this rank's rows of it."""
         b = images.shape[0]
         if b % encode_chunks:
             raise ValueError(
@@ -244,31 +272,46 @@ def make_ldm_train_step(unet, cond_model, autoencoder, schedule,
                 f"{b}; pick an encode_chunks that divides it, or 1"
             )
         n = b // encode_chunks
-        parts = []
-        for i in range(encode_chunks):
-            chunk = images[i * n:(i + 1) * n]
-            if vq:
-                parts.append(autoencoder.encode(chunk, only_encode=True))
-                continue
-            posterior = autoencoder.encode(chunk)
-            parts.append(posterior.sample(
-                generator, None if noise is None else noise[i * n:(i + 1) * n]))
-        return scale_factor * torch.cat(parts)
+        chunks = [images[i * n:(i + 1) * n] for i in range(encode_chunks)]
+        if vq:
+            return scale_factor * torch.cat(
+                [autoencoder.encode(c, only_encode=True) for c in chunks])
+        posteriors = [autoencoder.encode(c) for c in chunks]
+        if noise is None:
+            mean = posteriors[0].mean
+            part = (world * n,) + tuple(mean.shape[1:])
+            noise = torch.cat([torch.randn(part, generator=generator, device=device,
+                                           dtype=mean.dtype)
+                               for _ in range(encode_chunks)])[rank * b:(rank + 1) * b]
+        return scale_factor * torch.cat([
+            p.sample(noise=noise[i * n:(i + 1) * n]) for i, p in enumerate(posteriors)])
+
+    def unet_forward(generator, xt, t, context):
+        if remat_unet == "blocks":
+            return unet(xt, t, context, training=True, generator=generator,
+                        remat_blocks=True)
+        run = lambda g, xt, t, context: unet(xt, t, context, training=True, generator=g)
+        if not remat_unet:
+            return run(generator, xt, t, context)
+        return remat.checkpoint(run, generator, xt, t, context,
+                                context_fn=remat.dots_context
+                                if remat_unet == "dots" else None)
 
     def train_step(state: LDMTrainState, images, token_ids, draws=None):
         draws = draws or {}
         gens = step_generators(seed, state.step, device)
+        if in_group:
+            gens = [RowSlice(g, rank, world) for g in gens]
         batch = images.shape[0]
         t = draws.get("t")
         if t is None:
-            t = torch.randint(0, schedule.num_steps, (batch,), generator=gens[0],
-                              device=device)
-        latents = encode(images, gens[1], draws.get("posterior_noise"))
+            t = rng.randint(schedule.num_steps, (batch,), gens[0], device=device)
+        latents = encode(images, gens[1].generator if in_group else gens[1],
+                         draws.get("posterior_noise"))
         if null_ids is not None and condition_dropout_rate > 0:
             drop = draws.get("drop")
             if drop is None:
-                drop = torch.rand(batch, generator=gens[2],
-                                  device=device) < condition_dropout_rate
+                drop = rng.rand((batch,), gens[2], device=device) < condition_dropout_rate
             token_ids = torch.where(drop[:, None],
                                     null_ids[None].to(token_ids.dtype), token_ids)
         if train_cond_model:
@@ -278,23 +321,23 @@ def make_ldm_train_step(unet, cond_model, autoencoder, schedule,
                 context = cond_model(token_ids)
         noise = draws.get("noise")
         if noise is None:
-            noise = torch.randn(latents.shape, generator=gens[3], device=device,
-                                dtype=latents.dtype)
+            noise = rng.randn(latents.shape, gens[3], device=device, dtype=latents.dtype)
         noise = noise.to(latents.dtype)
         xt = q_sample(sqrt_acp, sqrt_1m_acp, latents, t, noise)
-        eps = unet(xt, t.float(), context, training=True, generator=gens[4])
+        eps = unet_forward(gens[4], xt, t.float(), context)
         loss = ((noise - eps) ** 2).mean(dim=(1, 2, 3)).mean()
 
         params = trainable_params(unet, trained_cond)
         grads = torch.autograd.grad(loss, list(params.values()))
-        applied = optimizer.step_(params, dict(zip(params, grads)), state.opt_state)
+        applied = optimizer.step_(params, dict(zip(params, grads)), state.opt_state,
+                                  reduce)
         if ema_decay is not None and applied:
             with torch.no_grad():
                 ema = [state.ema[n] for n in params]
                 torch._foreach_mul_(ema, ema_decay)
                 torch._foreach_add_(ema, list(params.values()), alpha=1.0 - ema_decay)
         state.step += 1
-        return state, {"loss": loss.detach()}
+        return state, {"loss": global_mean(loss.detach(), mesh)}
 
     return train_step
 

@@ -3,7 +3,9 @@
 steps, one line with the step, the metrics, steps/s and images/s since the
 previous log line, also kept in ``records``.  Reading a metric that lives
 on the card waits for the card, so a log line is also where the host meets
-the device.
+the device.  In a data-parallel run every rank keeps the records (of the
+global-mean metrics), only rank 0 prints (``verbose``), and images/s counts
+the global batch the trainer passes.
 """
 
 from __future__ import annotations
@@ -14,8 +16,9 @@ from typing import Mapping
 
 
 class MetricLogger:
-    def __init__(self, log_per_iterations: int = 100):
+    def __init__(self, log_per_iterations: int = 100, verbose: bool = True):
         self._every = max(1, log_per_iterations)
+        self._verbose = verbose
         self._last_time = time.perf_counter()
         self._last_step: int | None = None
         self.records: list[dict] = []
@@ -37,7 +40,8 @@ class MetricLogger:
         self._last_time = now
         self._last_step = int(step)
         self.records.append(record)
-
+        if not self._verbose:
+            return
         parts = [f"step {record['step']}"] + [
             f"{k}: {v:.6g}" for k, v in record.items() if k not in ("step", "time")
         ]

@@ -391,8 +391,13 @@ def test_ae_config_checks():
         bad = {**base, section: {**base[section], key: value}}
         with pytest.raises(error):
             validate(bad)
-    for tpu, item in (({"deterministic_data": True}, "item A5"),
-                      ({"remat": "full"}, "item A4"), ({"mesh": {"data": 2}}, "item A6")):
+    # tpu.remat and tpu.deterministic_data are accepted (tests/test_torch_remat.py,
+    # tests/test_torch_indexed.py); a mesh the world does not fill raises the
+    # JAX create_mesh's ValueError, a model axis names the unported item
+    for tpu, error, what in (
+            ({"mesh": {"data": 2}}, ValueError, r"mesh shape \{'data': 2\} != 1 devices"),
+            ({"mesh": {"data": -1, "model": 2}, "tensor_parallel": True},
+             NotImplementedError, "item A6b")):
         config = validate({**base, "tpu": {**base["tpu"], **tpu}})
-        with pytest.raises(NotImplementedError, match=item):
+        with pytest.raises(error, match=what):
             train(config, device="cpu", models=(None, None, None))
