@@ -39,7 +39,15 @@ final line is printed:
    row 8's device time summed over one serve eval's 29 calls and row 5's
    over one opt-in eval's 17 (counted by shape in that eval); beside each
    timed row's wall time, its device time per call from ``torch.profiler``
-   (``device_ms``, and the library call's ``library_device_ms``);
+   (``device_ms``, and the library call's ``library_device_ms``); row 2's
+   partial-product mode (tensor parallelism) at every shard shape
+   (``FFN_TP_SHAPES``: F / 2 and F / 4 at the four main-path widths), bf16
+   on wgmma and float32 on the FMA path, two calls bit-equal;
+3b. tp layers: a level-0 and a level-3 SpatialTransformer, a ResidualBlock
+   and a text-encoder layer at full width, sharded by ``shard_params_tp`` at
+   model 2 and 4, each rank a thread on the one card, the partials summed
+   in rank order, against the whole layer (``TP_LAYER_TOL`` in float32,
+   ``TP_BF16_FACTOR`` in bf16); at model 2 also with the opt-in switches on;
 4. unet: one full-width U-Net eval (CFG batch 4, 32x32 latent, seeded
    weights) on the card against the same weights on the CPU in float32,
    plain, under ``tpu.attention_impl: xla`` (no flash launch) and in the
@@ -89,6 +97,16 @@ final line is printed:
    in-memory stream, with the launch counts read around it and held to
    what the north-star U-Net dispatches (``SERVE_EVAL``), every int8-P.V
    launch on wgmma, every GN+SiLU+quantize launch resident;
+6b. tp / sp (``phase_tp_sp``): two spawned gloo ranks on the one card
+   (NCCL ranks too where the machine has two or four cards), each calling
+   ``dist.init_process_group`` before the port: the collectives on CUDA
+   tensors, a full-width TP sampler call (``TP_SP_STEPS`` CFG DDIM steps,
+   batch 2, 256^2, ``{"data": 1, "model": 2}``; row 2's partial-mode
+   launches read around it), an SP call at 512^2 (latent [2, 64, 64, 4],
+   Ulysses calls counted), a ``serve()`` wave on ``{"data": 2}``, each
+   against the one-process call on the same weights (``TP_SP_TOL``), with
+   all-reduces per U-Net eval and text encode, weight bytes, peak memory
+   and eval times per rank;
 7. train: the stage-2 trainer (``cli/run_ldm_trainer.train``) at the
    north-star widths, batch 8, 256^2, bf16 compute over float32 U-Net
    masters, frozen text encoder and autoencoder in bf16, U-Net and
@@ -149,12 +167,14 @@ SOURCES = ("flash_attention", "fused_ffn", "gn_silu_quant", "s8_conv3x3",
            "gn_silu_conv3x3", "cross_attention", "fused_ffn_int8")
 # One entry per TPU kernel of the JAX package (13 rows of PERF.md's table):
 # rows 9 (the streamed GN+SiLU+quantize) and 10 (the whole int8 chain) are
-# carried by the kernels of rows 8 and 11 and measured at their own shapes.
+# carried by the kernels of rows 8 and 11 and measured at their own shapes;
+# row 2's partial-product mode (tensor parallelism: the TPU kernel with
+# residual=False) has an entry of its own.
 KERNELS = ("flash_attention", "fused_ffn", "gn_silu_quant", "s8_conv3x3",
            "flash_attention_pv_int8", "flash_backward_dq", "flash_backward_dkv",
            "group_norm_fused", "group_stats", "gn_silu_conv3x3_fused",
            "cross_attention", "fused_ffn_int8", "gn_silu_quant_stream",
-           "int8_chain")
+           "int8_chain", "fused_ffn_partial")
 
 # (B, Tq, Tk, H, S): the main path's self-attentions (CFG batch 4), then
 # the serve path's bf16 ones (CFG batch 8; its level-0 ones take int8 P.V)
@@ -172,6 +192,9 @@ WGMMA_HEAD_DIMS = (40, 80, 160, 512)
 # (M, d): the main path's FFNs (CFG batch 4), then the serve path's (batch 8)
 FFN_SHAPES = [(4096, 320), (1024, 640), (256, 1280), (64, 1280),
               (8192, 320), (2048, 640), (512, 1280), (128, 1280)]
+# (M, d, n): the FFN's tensor-parallel shards, every level-0..3 shape of the
+# main path (CFG batch 4, 256^2) at F / n hidden columns, n = 2 and 4
+FFN_TP_SHAPES = [(m, d, n) for m, d in FFN_SHAPES[:4] for n in (2, 4)]
 # ([B, H, W, Cin], Cout, epilogue): the distinct ResBlock chains of the
 # north-star U-Net that the int8 gate quantizes at the serve path's CFG
 # batch 8 (tests/test_torch_int8.py holds the gate to the JAX package's on
@@ -255,7 +278,7 @@ TRAIN_STEP = {"flash_attention": 17, "flash_backward_dq": 16,
               "flash_attention_pv_int8": 0, "gn_silu_quant": 0, "s8_conv3x3": 0,
               "group_norm_fused": 0, "group_stats": 0, "gn_silu_conv3x3_fused": 0,
               "cross_attention": 0, "fused_ffn_int8": 0, "gn_silu_quant_stream": 0,
-              "int8_chain": 0}
+              "int8_chain": 0, "fused_ffn_partial": 0}
 
 # Stage-1 autoencoder training: the repo config's sections
 # (ldm_tf2_tpu/configs/all_in_one_config.yaml), copied here so that the
@@ -685,6 +708,7 @@ def phase_kernels():
                     f"{sums['library_device_ms']:.4f} ms, bound {sums['bound_ms']:.4f} ms")
     phase_int8_kernels(results, randn)
     phase_ffn_int8_kernel(results, randn)
+    phase_ffn_partial_kernel(results, randn)
     phase_backward_kernels(results, randn)
     phase_opt_in_kernels(results, randn)
     summary = ", ".join(
@@ -992,6 +1016,68 @@ def phase_ffn_int8_kernel(results, randn):
 EVAL_SUMS: dict = {}
 # Row 5's bf16 rows by (shape, eps, SiLU), for its per-eval sum
 GN_ROWS: dict = {}
+
+
+def phase_ffn_partial_kernel(results, randn):
+    """Row 2's partial-product mode at every tensor-parallel shard shape
+    (``FFN_TP_SHAPES``): the product over F / n hidden columns rounded to
+    the activation dtype, against the plain version's in float32
+    (``FFN_TOL``), bf16 on wgmma, float32 on the FMA path, two calls
+    bit-equal; bf16 timed, with the unfused chain of PyTorch calls for the
+    same product as the library yardstick."""
+    import torch
+    import torch.nn.functional as F
+
+    from ldm_tf2_tpu_torch.ops.fused_ffn import _plain_ffn, fused_ffn
+
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        path = "wgmma" if dtype == torch.bfloat16 else "fma"
+        for m, d, n in FFN_TP_SHAPES:
+            f = 4 * d // n
+            x = randn(1, m, d).to(dtype)
+            lns, lnb = randn(d, scale=0.1) + 1.0, randn(d, scale=0.1)
+            ws = [randn(d, f, scale=d**-0.5), randn(f, scale=0.1), randn(d, f, scale=d**-0.5),
+                  randn(f, scale=0.1), randn(f, d, scale=(4 * d)**-0.5), randn(d, scale=0.1)]
+            ws = [w.to(dtype) for w in ws]
+            before = dict(fused_ffn.partial_launches_by_path)
+            out = [fused_ffn(x, lns, lnb, *ws, partial=True) for _ in range(2)]
+            took = {k: v - before[k] for k, v in fused_ffn.partial_launches_by_path.items()
+                    if v - before[k]}
+            ref = _plain_ffn(x.float(), lns, lnb, *[w.float() for w in ws], partial=True)
+            torch.cuda.synchronize()
+            max_abs, rel = errors(out[0], ref)
+            same = bool(torch.equal(out[0], out[1]))
+            tol_abs, tol_rel = FFN_TOL[name]
+            ok = max_abs < tol_abs and rel < tol_rel and same and took == {path: 2}
+            row = dict(shape=[m, d, n], dtype=name, max_abs_err=max_abs, rel_l2=rel, ok=ok,
+                       paths=took, deterministic=same)
+            timing = ""
+            if dtype == torch.bfloat16:
+                w1 = torch.cat([ws[0], ws[2]], dim=1).T.contiguous()
+                b1 = torch.cat([ws[1], ws[3]])
+                w2t = ws[4].T.contiguous()
+                lnd = (lns.to(dtype), lnb.to(dtype))
+
+                def library():
+                    h = F.linear(F.layer_norm(x, (d,), *lnd), w1, b1)
+                    return F.linear(h[..., :f] * F.gelu(h[..., f:]), w2t)
+
+                call = lambda: fused_ffn(x, lns, lnb, *ws, partial=True)
+                nbytes = (2 * x.numel() + sum(w.numel() for w in ws[:5])) * x.element_size() \
+                    + 2 * d * 4
+                bms, by = bound_ms(nbytes, 6.0 * m * d * f, name)
+                row.update(ms=time_ms(call), device_ms=device_ms(call),
+                           plain_ms=time_ms(lambda: _plain_ffn(x, lns, lnb, *ws, partial=True)),
+                           library_ms=time_ms(library), library_device_ms=device_ms(library),
+                           bound_ms=bms, bound_by=by)
+                timing = (f"; ms {row['ms']:.4f} device {row['device_ms']:.4f} plain "
+                          f"{row['plain_ms']:.4f} library {row['library_ms']:.4f} (device "
+                          f"{row['library_device_ms']:.4f}) bound {bms:.4f} ({by})")
+            results["fused_ffn_partial"].append(row)
+            log(f"fused_ffn partial {name} M {m} d {d} F/{n} = {f}: max_abs {max_abs:.3e} "
+                f"(tol {tol_abs:g}) rel_l2 {rel:.3e} (tol {tol_rel:g}) two calls equal "
+                f"{same} path {took} (want {path}) {'PASS' if ok else 'FAIL'}{timing}")
 
 
 def _one_path(took: dict) -> str:
@@ -1491,22 +1577,28 @@ LAST_MODES: dict = {}
 
 def _reset(counters) -> None:
     """Every count to 0 just before a path run, the counts by path and mode
-    too."""
+    too (the partial FFN's by path among them)."""
+    from ldm_tf2_tpu_torch.ops.fused_ffn import fused_ffn
+
     for fn in counters.values():
         fn.launches = 0
     for fn in (*_path_wrappers().values(), *_mode_wrappers().values()):
         fn.launches_by_path = dict.fromkeys(fn.launches_by_path, 0)
+    fused_ffn.partial_launches_by_path = dict.fromkeys(fused_ffn.partial_launches_by_path, 0)
 
 
 def _read(counters) -> dict:
     """The counts of one path run, its counters set to 0 just before it
     (``_reset``); also added to ``PATH_TOTALS``.  The launches by path go
     to ``LAST_PATHS``, by mode to ``LAST_MODES``."""
+    from ldm_tf2_tpu_torch.ops.fused_ffn import fused_ffn
+
     got = {k: fn.launches for k, fn in counters.items()}
     for k, v in got.items():
         PATH_TOTALS[k] = PATH_TOTALS.get(k, 0) + v
     LAST_PATHS.clear()
     LAST_PATHS.update({k: dict(fn.launches_by_path) for k, fn in _path_wrappers().items()})
+    LAST_PATHS["fused_ffn_partial"] = dict(fused_ffn.partial_launches_by_path)
     LAST_MODES.clear()
     LAST_MODES.update({k: dict(fn.launches_by_path) for k, fn in _mode_wrappers().items()})
     return got
@@ -1541,7 +1633,8 @@ def _counters():
             "flash_backward_dkv": fa.flash_backward_dkv,
             "group_norm_fused": gn.group_norm_fused, "group_stats": gn.group_stats,
             "gn_silu_conv3x3_fused": fc.gn_silu_conv3x3_fused,
-            "cross_attention": ca.cross_attention}
+            "cross_attention": ca.cross_attention,
+            "fused_ffn_partial": _Count(fused_ffn, "partial_launches")}
 
 
 def _counted_call(models, schedule, ids, shape, kwargs):
@@ -2977,6 +3070,533 @@ def phase_two_ranks(card: str, s0=None) -> None:
     check(ok, f"two ranks differ from one process: {r}")
 
 
+# ------------------------------------------- tensor and sequence parallelism
+
+# float32: the partials summed in rank order against the whole layer, only
+# the summation order differs; bf16: the TP layer's rel L2 against the
+# float32 whole layer within TP_BF16_FACTOR times the whole bf16 layer's own
+TP_LAYER_TOL = 1e-5
+TP_BF16_FACTOR = 2.0
+# a 10-step bf16 TP or SP call's x0 against the one-process call's on the
+# same weights (rel L2), and the mesh server's images against one process's
+TP_SP_TOL = 5e-2
+TP_SP_STEPS = 10
+
+
+class _LockstepRanks:
+    """The ranks of a model group run as threads on one card: each thread
+    runs its shard, and ``all_reduce`` exchanges the partials, sums them in
+    rank order in their dtype and hands every rank the sum.  All threads
+    launch on the device's default stream, so the sum is queued after every
+    partial."""
+
+    def __init__(self, n: int):
+        import threading
+
+        self.n, self.slots, self.calls = n, [None] * n, 0
+        self.barrier = threading.Barrier(n)
+        self.local = threading.local()
+
+    def all_reduce(self, x):
+        self.slots[self.local.rank] = x.contiguous()
+        self.barrier.wait()
+        total = self.slots[0].clone()
+        for part in self.slots[1:]:
+            total += part
+        self.barrier.wait()
+        if self.local.rank == 0:
+            self.calls += 1
+        return total
+
+    def run(self, fns):
+        """``fns[r]()`` on thread r; returns their results in rank order."""
+        import threading
+
+        out, failed = [None] * self.n, []
+
+        def body(r):
+            self.local.rank = r
+            try:
+                out[r] = fns[r]()
+            except BaseException as e:  # noqa: BLE001 - handed to the caller
+                failed.append(e)
+                self.barrier.abort()
+
+        threads = [threading.Thread(target=body, args=(r,)) for r in range(self.n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if failed:
+            raise failed[0]
+        return out
+
+
+def _tp_layers():
+    """(name, whole layer under the name its rules expect, its forward on
+    the main path's inputs at CFG batch 4, 256^2, in a dtype)."""
+    import torch
+    from torch import nn
+
+    from ldm_tf2_tpu_torch.models.transformer import EncoderLayer
+    from ldm_tf2_tpu_torch.models.unet import ResidualBlock, SpatialTransformer
+
+    def held(attr, layer, seed):
+        from ldm_tf2_tpu_torch import factory
+
+        holder = nn.Module()
+        setattr(holder, attr, layer)
+        factory.randomize_(holder.cuda().requires_grad_(False), seed)
+        with torch.no_grad():
+            for n, p in holder.named_parameters():
+                if n.endswith("scale"):
+                    p.add_(1.0)
+        return holder
+
+    g = torch.Generator(device="cuda").manual_seed(71)
+    r = lambda *s: torch.randn(s, generator=g, device="cuda")
+    ctx, x0, x3, temb, tokens = (r(4, 77, 1280), r(4, 32, 32, 320), r(4, 4, 4, 1280),
+                                 r(4, 1280), r(4, 77, 1280))
+    return [
+        ("level-0 SpatialTransformer", held("st", SpatialTransformer(320, 8, 40, 1280), 72),
+         lambda m, dt: m.st(x0.to(dt), ctx.to(dt))),
+        ("level-3 SpatialTransformer", held("st", SpatialTransformer(1280, 8, 160, 1280), 73),
+         lambda m, dt: m.st(x3.to(dt), ctx.to(dt))),
+        ("level-0 ResidualBlock", held("residual", ResidualBlock(320, 320, 1280), 74),
+         lambda m, dt: m.residual(x0.to(dt), temb.to(dt))),
+        ("text-encoder layer", held("layer", EncoderLayer(1280, 8, 64, 5120), 75),
+         lambda m, dt: m.layer(tokens.to(dt))),
+    ]
+
+
+def phase_tp_layers(card: str) -> None:
+    """Tensor parallelism on one card: a level-0 and a level-3 (middle
+    block) SpatialTransformer, a ResidualBlock and a text-encoder layer at
+    full width, at model 2 and 4.  Each rank's shard (``shard_params_tp``)
+    runs as a thread, the partials are summed in rank order
+    (``_LockstepRanks`` in place of ``ops.tp.all_reduce_model``), and the
+    result is held against the unsharded layer: float32 within
+    ``TP_LAYER_TOL`` rel L2, bf16 within ``TP_BF16_FACTOR`` times the whole
+    bf16 layer's own error against float32.  Launches by path printed.  At
+    model 2 the same again with the opt-in switches on (GroupNorm and fused
+    conv "pallas", packed cross-attention): rows 5, 7 and 12 on the local
+    shards, against the whole layer with the switches on."""
+    import copy
+
+    import torch
+
+    from ldm_tf2_tpu_torch.ops import tp
+    from ldm_tf2_tpu_torch.parallel import Mesh
+    from ldm_tf2_tpu_torch.parallel.sharding import shard_params_tp
+
+    start = time.perf_counter()
+    reduce = tp.all_reduce_model
+    try:
+        layers = _tp_layers()
+        for (name, whole, forward), opt_in in [(x, False) for x in layers] + [
+                (x, True) for x in layers[:3]]:
+            if opt_in:
+                _set_switches("pallas", "pallas", True)
+                name += ", opt-in switches on"
+            else:
+                _set_switches("auto", "auto", False)
+            with torch.no_grad():
+                ref = {dt: forward(whole, dt) for dt in (torch.float32, torch.bfloat16)}
+            whole_bf16 = errors(ref[torch.bfloat16], ref[torch.float32])[1]
+            for n in (2,) if opt_in else (2, 4):
+                ranks = _LockstepRanks(n)
+                tp.all_reduce_model = ranks.all_reduce
+                shards = [shard_params_tp(copy.deepcopy(whole), Mesh({"model": n}, r, n))
+                          for r in range(n)]
+                for dt in (torch.float32, torch.bfloat16):
+                    ranks.calls, outs = 0, []
+                    runs = [lambda s=s: forward(s, dt) for s in shards]
+                    with torch.no_grad():
+                        took = paths_of(lambda: outs.extend(ranks.run(runs)))
+                    torch.cuda.synchronize()
+                    same = all(torch.equal(o, outs[0]) for o in outs)
+                    _, rel = errors(outs[0], ref[torch.float32])
+                    if dt == torch.float32:
+                        bound, err = TP_LAYER_TOL, errors(outs[0], ref[dt])[1]
+                    else:
+                        bound, err = TP_BF16_FACTOR * whole_bf16, rel
+                    ok = same and err < bound and bool(torch.isfinite(outs[0]).all())
+                    dname = str(dt).split(".")[-1]
+                    log(f"tp layers on {card}: {name} model {n} {dname}: rel L2 {err:.3e} "
+                        f"(bound {bound:.3e}; whole bf16 vs float32 {whole_bf16:.3e}), "
+                        f"ranks equal {same}, {ranks.calls} all-reduces, launches by path "
+                        f"{took} {'PASS' if ok else 'FAIL'}")
+                    check(ok, f"tensor-parallel {name} at model {n} ({dname}) differs from "
+                              "the whole layer")
+                del shards
+    finally:
+        tp.all_reduce_model = reduce
+        _set_switches("auto", "auto", False)
+    torch.cuda.empty_cache()
+    log(f"tp layers: {time.perf_counter() - start:.1f} s")
+
+
+def _tp_sp_config(mesh: dict, side: int = 32, **tpu) -> dict:
+    """The north star at ``TP_SP_STEPS`` CFG DDIM steps (eta 0), batch 2,
+    a ``side`` x ``side`` latent, on ``mesh``."""
+    from ldm_tf2_tpu_torch.configs.loader import validate
+
+    config = json.loads(json.dumps(NORTH_STAR))
+    config["ldm"].update(num_ddim_steps=TP_SP_STEPS)
+    config["ldm_sampling"].update(latent_shape=[2, side, side, 4],
+                                  vocab_dir=os.path.join(ROOT, "bert_model"))
+    config["tpu"].update(mesh=mesh, **tpu)
+    return validate(config)
+
+
+SERVE_MESH_REQUESTS = "\n".join(json.dumps(r) for r in (
+    {"prompt": "a virus monster is playing guitar", "seed": 1, "out": "m1"},
+    {"prompt": ["an oil painting of a harbour", "a red fox"], "seed": 2,
+     "guidance_scale": 7.5, "out": "m2"},
+    {"prompt": "a lighthouse at dusk", "n": 1, "seed": 1, "out": "m3"},
+    {"prompt": "a bowl of fruit", "seed": 3, "out": "m4"},
+))
+
+
+def _tp_sp_models(config):
+    from ldm_tf2_tpu_torch import factory
+
+    return [factory.randomize_(build(config, device="cuda"), seed)
+            for seed, build in ((31, factory.build_cond_model), (32, factory.build_unet),
+                                (33, factory.build_autoencoder))]
+
+
+def _eval_times(unet, shape, context, what: dict, n: int = 5) -> None:
+    """One U-Net eval's wall time (median of ``n`` CUDA-event timings after
+    one warm-up) and device busy time (the kernels' device time over one
+    profiler window of ``n`` evals, per eval) into ``what``.  The number of
+    evals is fixed, so that ranks that all-reduce inside the eval make the
+    same calls (``device_ms`` takes windows until two agree)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.randn(shape, device="cuda", dtype=torch.bfloat16)
+    t = torch.full((shape[0],), 500, device="cuda")
+    with torch.inference_mode():
+        call = lambda: unet(x, t, context)
+        wall = time_ms(call, iters=n, warmup=1)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                call()
+            torch.cuda.synchronize()
+    busy_us = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
+                  if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA)
+    what.update(eval_ms=wall, eval_busy_ms=busy_us / 1e3 / n)
+
+
+def _tp_sp_call(config, mesh, models, tokens, result: dict, key: str):
+    """``apply_parallelism`` then one ``sample_txt2img`` call (this rank's
+    data rows, gathered), its launches counted around it (this process's
+    counters set to 0 just before, read just after), its seconds and peak
+    memory, and one U-Net eval's times and all-reduces."""
+    import torch
+
+    from ldm_tf2_tpu_torch import factory
+    from ldm_tf2_tpu_torch.cli.run_ldm_sampler import (
+        apply_parallelism, rank_rows, sample_txt2img,
+    )
+    from ldm_tf2_tpu_torch.ops import sequence_parallel as sp
+    from ldm_tf2_tpu_torch.ops import tp
+    from ldm_tf2_tpu_torch.parallel import gather_rows
+
+    shape = tuple(config["ldm_sampling"]["latent_shape"])
+    apply_parallelism(config, mesh, models, log if mesh.rank == 0 else (lambda *a: None))
+    rows = mesh if mesh.distributed and shape[0] % mesh.data_size == 0 else None
+    ids, b = rank_rows(tokens, shape[0], rows) if rows is not None else (tokens, shape[0])
+    kwargs = dict(guidance_scale=5.0, scale_factor=config["ldm"]["scale_factor"], seed=0,
+                  device="cuda", mesh=rows)
+    counters = _counters()
+    ulysses, exchange = [], sp.ulysses_attention
+    sp.ulysses_attention = lambda *a, **k: ulysses.append(1) or exchange(*a, **k)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset(counters)
+        start = time.perf_counter()
+        images, x0 = sample_txt2img(*models, factory.build_schedule(config), ids,
+                                    (b,) + shape[1:], **kwargs)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        launches = _read(counters)
+    finally:
+        sp.ulysses_attention = exchange
+    paths = {k: dict(LAST_PATHS[k]) for k in ("flash_attention", "fused_ffn",
+                                               "fused_ffn_partial")}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    counted = []
+    reduce = tp.all_reduce_model
+    tp.all_reduce_model = lambda x: counted.append(1) or reduce(x)
+    try:
+        with torch.inference_mode():
+            context = models[0](ids.to("cuda"))
+            encode = len(counted)
+            eval_times = {}
+            _eval_times(models[1], (2 * b,) + shape[1:], context, eval_times)
+            counted.clear()
+            models[1](torch.zeros((2 * b,) + shape[1:], device="cuda", dtype=torch.bfloat16),
+                      torch.full((2 * b,), 500, device="cuda"), context)
+    finally:
+        tp.all_reduce_model = reduce
+    result[key] = dict(
+        images=gather_rows(images, rows).float().cpu(), x0=gather_rows(x0, rows).float().cpu(),
+        seconds=seconds, launches=launches, paths=paths, peak_gb=peak,
+        ulysses_calls=len(ulysses),
+        unet_weight_bytes=sum(p.numel() * p.element_size() for p in models[1].parameters()),
+        all_reduces_per_eval=len(counted), all_reduces_per_encode=encode, **eval_times)
+
+
+def _tp_sp_rank(rank: int, world: int, port: int, backend: str, out: str, meshes: dict):
+    """One rank of ``phase_tp_sp``: the collectives' check, then the TP
+    call, the SP call at 512^2 and a ``serve()`` wave, each on its mesh."""
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from ldm_tf2_tpu_torch.cli import serve_ldm
+    from ldm_tf2_tpu_torch.data.tokenizer import cfg_token_ids, load_tokenizer
+    from ldm_tf2_tpu_torch.parallel import create_mesh
+
+    import datetime
+
+    torch.cuda.set_device(rank if backend == "nccl" else 0)
+    # a collective that one rank never joins raises after 5 minutes
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(minutes=5))
+    result = {"collectives": {}}
+    try:
+        if backend == "gloo":
+            result["collectives"] = _collectives_check(world)
+            bad = {k: v for k, v in result["collectives"].items() if v != "ok"}
+            if bad:
+                return
+        tokens = torch.as_tensor(cfg_token_ids(
+            load_tokenizer(os.path.join(ROOT, "bert_model")), NORTH_STAR["ldm_sampling"]
+            ["text_prompt"], 2, 77))
+        if "tp" in meshes:
+            config = _tp_sp_config(meshes["tp"], tensor_parallel=True)
+            _tp_sp_call(config, create_mesh(config["tpu"]["mesh"]), _tp_sp_models(config),
+                        tokens, result, "tp")
+            torch.cuda.empty_cache()
+        if "sp" in meshes:
+            config = _tp_sp_config(meshes["sp"], side=64, sequence_parallel=True)
+            _tp_sp_call(config, create_mesh(config["tpu"]["mesh"]), _tp_sp_models(config),
+                        tokens, result, "sp")
+            torch.cuda.empty_cache()
+        if "serve" in meshes:
+            config = _tp_sp_config(meshes["serve"])
+            stream = io.StringIO(SERVE_MESH_REQUESTS if rank == 0 else "")
+            sink = io.StringIO()
+            with tempfile.TemporaryDirectory(dir=ROOT) as out_dir:
+                serve_ldm.serve(config, stream, sink, output_dir=out_dir, device="cuda",
+                                models=_tp_sp_models(config))
+                resps = [json.loads(line) for line in sink.getvalue().splitlines()]
+                result["serve"] = dict(responses=resps, images={
+                    r["out"].rsplit("/", 1)[-1]: np.load(r["out"]) for r in resps if r["ok"]})
+    finally:
+        if rank == 0:
+            torch.save(result, out)
+        dist.destroy_process_group()
+
+
+def _collectives_check(world: int) -> dict:
+    """Whether the process group takes CUDA tensors for every collective the
+    port calls (all_reduce in float32 and bf16, all_gather, all_to_all_single,
+    broadcast_object_list): "ok", or the error."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.nn.functional import all_to_all_single
+
+    rank = dist.get_rank()
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        tests = {
+            "all_reduce": lambda: _all_reduced(dt, world, rank),
+            "all_gather": lambda: _all_gathered(dt, world, rank),
+            "all_to_all_single": lambda: bool(torch.equal(
+                all_to_all_single(torch.empty(world, device="cuda", dtype=dt),
+                                  torch.full((world,), float(rank), device="cuda", dtype=dt)),
+                torch.arange(world, device="cuda", dtype=dt))),
+        }
+        for name, test in tests.items():
+            try:
+                out[f"{name} {str(dt).split('.')[-1]}"] = "ok" if test() else "wrong values"
+            except Exception as e:  # noqa: BLE001 - reported and failed on
+                out[f"{name} {str(dt).split('.')[-1]}"] = f"{type(e).__name__}: {e}"[:300]
+    try:
+        obj = [["wave"] if rank == 0 else None, rank == 0]
+        dist.broadcast_object_list(obj, src=0)
+        out["broadcast_object_list"] = "ok" if obj == [["wave"], True] else "wrong values"
+    except Exception as e:  # noqa: BLE001
+        out["broadcast_object_list"] = f"{type(e).__name__}: {e}"[:300]
+    return out
+
+
+def _all_reduced(dt, world, rank) -> bool:
+    import torch
+    import torch.distributed as dist
+
+    x = torch.full((8,), float(rank + 1), device="cuda", dtype=dt)
+    dist.all_reduce(x)
+    return bool((x == world * (world + 1) / 2).all())
+
+
+def _all_gathered(dt, world, rank) -> bool:
+    import torch
+    import torch.distributed as dist
+
+    parts = [torch.empty(4, device="cuda", dtype=dt) for _ in range(world)]
+    dist.all_gather(parts, torch.full((4,), float(rank), device="cuda", dtype=dt))
+    return all(bool((p == r).all()) for r, p in enumerate(parts))
+
+
+def _tp_sp_reference(key: str, config, tokens) -> dict:
+    """The one-process call of ``key`` on the same weights."""
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ldm_tf2_tpu_torch import factory
+    from ldm_tf2_tpu_torch.cli import serve_ldm
+    from ldm_tf2_tpu_torch.cli.run_ldm_sampler import sample_txt2img
+
+    models = _tp_sp_models(config)
+    if key == "serve":
+        sink = io.StringIO()
+        with tempfile.TemporaryDirectory(dir=ROOT) as out_dir:
+            serve_ldm.serve(config, io.StringIO(SERVE_MESH_REQUESTS), sink,
+                            output_dir=out_dir, device="cuda", models=models)
+            resps = [json.loads(line) for line in sink.getvalue().splitlines()]
+            return dict(responses=resps, images={r["out"].rsplit("/", 1)[-1]: np.load(r["out"])
+                                                 for r in resps if r["ok"]})
+    shape = tuple(config["ldm_sampling"]["latent_shape"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    images, x0 = sample_txt2img(*models, factory.build_schedule(config), tokens, shape,
+                                guidance_scale=5.0, scale_factor=config["ldm"]["scale_factor"],
+                                seed=0, device="cuda")
+    torch.cuda.synchronize()
+    out = dict(images=images.float().cpu(), x0=x0.float().cpu(),
+               seconds=time.perf_counter() - start,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               unet_weight_bytes=sum(p.numel() * p.element_size()
+                                     for p in models[1].parameters()))
+    with torch.inference_mode():
+        _eval_times(models[1], (2 * shape[0],) + shape[1:], models[0](tokens.cuda()), out)
+    return out
+
+
+def phase_tp_sp(card: str) -> dict:
+    """Tensor parallelism, sequence parallelism and the server on a mesh,
+    in spawned ranks: two gloo ranks on this one card (NCCL refuses two
+    ranks on one device), each calling ``dist.init_process_group`` before
+    the port, which then leaves the group alone; on a machine with two or
+    more cards the same calls under NCCL, one rank a card, and with four,
+    tensor parallelism on ``{"data": 2, "model": 2}``.  The calls: a
+    full-width TP sampler call (``TP_SP_STEPS`` CFG DDIM steps, batch 2,
+    256^2, ``{"data": 1, "model": 2}``), an SP call at 512^2 (latent
+    [2, 64, 64, 4]: level 0's 4096 tokens and 8 heads through the
+    exchange), a ``serve()`` wave of four requests on ``{"data": 2}``; each
+    against the one-process call on the same weights (``TP_SP_TOL``), with
+    its launches (the partial FFN's among them), all-reduces per U-Net eval
+    and text encode, U-Net weight bytes, peak memory and eval times.
+    Returns the gloo TP call's result on rank 0 (its launches and launches
+    by path)."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from ldm_tf2_tpu_torch.data.tokenizer import cfg_token_ids, load_tokenizer
+
+    start = time.perf_counter()
+    tokens = torch.as_tensor(cfg_token_ids(load_tokenizer(os.path.join(ROOT, "bert_model")),
+                                           NORTH_STAR["ldm_sampling"]["text_prompt"], 2, 77))
+    two = {"tp": {"data": 1, "model": 2}, "sp": {"data": 1, "model": 2}, "serve": {"data": 2}}
+    runs = [("gloo", 2, two)]
+    if torch.cuda.device_count() >= 2:
+        runs.append(("nccl", 2, two))
+    if torch.cuda.device_count() >= 4:
+        runs.append(("nccl", 4, {"tp": {"data": 2, "model": 2}, "sp": {"data": 2, "model": 2}}))
+    refs = {"tp": _tp_sp_reference("tp", _tp_sp_config({"data": -1}), tokens),
+            "sp": _tp_sp_reference("sp", _tp_sp_config({"data": -1}, side=64), tokens),
+            "serve": _tp_sp_reference("serve", _tp_sp_config({"data": -1}), tokens)}
+    torch.cuda.empty_cache()
+    for what in ("tp", "sp"):
+        r = refs[what]
+        log(f"tp/sp one process on {card}: {what}: {r['seconds']:.3f} s, U-Net eval "
+            f"{r['eval_ms']:.3f} ms wall, {r['eval_busy_ms']:.3f} ms busy, U-Net weights "
+            f"{r['unet_weight_bytes'] / 1e9:.3f} GB, peak {r['peak_gb']:.2f} GB")
+    gloo_tp = None
+    for backend, world, meshes in runs:
+        out = os.path.join(tempfile.mkdtemp(prefix="ldm_tp_sp_"), "rank0.pt")
+        t0 = time.perf_counter()
+        mp.start_processes(_tp_sp_rank, args=(world, _free_port(), backend, out, meshes),
+                           nprocs=world, join=True, start_method="spawn")
+        got = torch.load(out, weights_only=False)
+        bad = {k: v for k, v in got["collectives"].items() if v != "ok"}
+        log(f"tp/sp {backend} x{world}: collectives on CUDA tensors {got['collectives']}")
+        check(not bad, f"{backend} refuses CUDA tensors for: {bad}")
+        for what in ("tp", "sp"):
+            if what not in meshes:
+                continue
+            r, ref = got[what], refs[what]
+            x0_abs, x0_rel = errors(r["x0"], ref["x0"])
+            im_abs, im_rel = errors(r["images"], ref["images"])
+            # SP: level 0's 5 self-attentions an eval through the exchange
+            want = {"flash_attention": r["launches"]["flash_attention"] > 0,
+                    "fused_ffn" if what == "sp" else "fused_ffn_partial":
+                        r["launches"]["fused_ffn" if what == "sp" else "fused_ffn_partial"] > 0,
+                    "ulysses": r["ulysses_calls"] == (5 * TP_SP_STEPS if what == "sp" else 0)}
+            fma = {k: p.get("fma", 0) for k, p in r["paths"].items() if p.get("fma", 0)}
+            ok = (x0_rel < TP_SP_TOL and bool(torch.isfinite(r["images"]).all())
+                  and all(want.values()) and not fma)
+            log(f"tp/sp {backend} x{world} on {card}: {what} on {meshes[what]}: x0 max abs "
+                f"{x0_abs:.3e} rel L2 {x0_rel:.3e} (bound {TP_SP_TOL:g}), images max abs "
+                f"{im_abs:.3e} rel L2 {im_rel:.3e}; {r['seconds']:.3f} s (one process "
+                f"{ref['seconds']:.3f}); U-Net eval {r['eval_ms']:.3f} ms wall, "
+                f"{r['eval_busy_ms']:.3f} ms busy per rank (one process {ref['eval_ms']:.3f}, "
+                f"{ref['eval_busy_ms']:.3f}); all-reduces per eval {r['all_reduces_per_eval']}, "
+                f"per text encode {r['all_reduces_per_encode']}; U-Net weights per rank "
+                f"{r['unet_weight_bytes'] / 1e9:.3f} GB (one process "
+                f"{ref['unet_weight_bytes'] / 1e9:.3f}); peak {r['peak_gb']:.2f} GB (one "
+                f"process {ref['peak_gb']:.2f}); Ulysses calls {r['ulysses_calls']}; "
+                f"launches {r['launches']}; by path "
+                f"{r['paths']} {'PASS' if ok else 'FAIL'}")
+            check(ok, f"{what} over {backend} x{world} differs from one process, or missed "
+                      f"its kernels: {want}, FMA {fma}")
+            if what == "tp" and backend == "gloo":
+                gloo_tp = r
+        if "serve" in meshes:
+            r, ref = got["serve"], refs["serve"]
+            ok = [x["ok"] for x in r["responses"]] == [x["ok"] for x in ref["responses"]]
+            worst = 0.0
+            for name, image in ref["images"].items():
+                a = torch.as_tensor(r["images"][name]).float()
+                worst = max(worst, errors(a, torch.as_tensor(image).float())[1])
+            ok = ok and worst < TP_SP_TOL
+            waves = [x["latency_s"] for x in r["responses"]][:1]
+            ref_waves = [x["latency_s"] for x in ref["responses"]][:1]
+            log(f"tp/sp {backend} x{world} on {card}: serve on {meshes['serve']}: "
+                f"{len(r['responses'])} responses, images rel L2 at most {worst:.3e} (bound "
+                f"{TP_SP_TOL:g}); one wave of 4 requests (4 calls of batch 2) "
+                f"{waves} s, one process {ref_waves} s {'PASS' if ok else 'FAIL'}")
+            check(ok, f"the server on {meshes['serve']} over {backend} differs from one process")
+        log(f"tp/sp {backend} x{world}: {time.perf_counter() - t0:.1f} s")
+    log(f"tp/sp: {time.perf_counter() - start:.1f} s")
+    return gloo_tp
+
+
 def _ae_config(ae_type: str, compute: str = "bfloat16", image_size: int = 256,
                batch: int = 3, num_iterations: int = 2, **ae_overrides) -> dict:
     """The repo config's stage-1 sections at full width (``AE_CONFIG`` and
@@ -3295,6 +3915,7 @@ def main() -> int:
     log("build: " + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()))
 
     results = phase_kernels()
+    phase_tp_layers(card)
     from ldm_tf2_tpu_torch.ops.fused_ffn import fused_ffn_int8
 
     ffn8_checked = fused_ffn_int8.launches  # the kernels phase's own launches
@@ -3321,6 +3942,10 @@ def main() -> int:
                                            "flash_attention_pv_int8")})
     del run
     torch.cuda.empty_cache()
+    # row 2's partial mode reports its launches in the TP sampler call
+    tp_call = phase_tp_sp(card)
+    launches["fused_ffn_partial"] = tp_call["launches"]["fused_ffn_partial"]
+    by_path["fused_ffn_partial"] = tp_call["paths"]["fused_ffn_partial"]
     train_launches, train_models = phase_train(card)
     by_path.update({k: dict(LAST_PATHS[k]) for k in ("flash_backward_dq", "flash_backward_dkv")})
     phase_remat(card, train_models)
@@ -3352,13 +3977,14 @@ def main() -> int:
                 "cross_attention": "ldm_tf2_tpu/ops/cross_attention.py:84",
                 "fused_ffn_int8": "ldm_tf2_tpu/ops/fused_ffn.py:176",
                 "gn_silu_quant_stream": "ldm_tf2_tpu/ops/quant_conv.py:209",
-                "int8_chain": "ldm_tf2_tpu/ops/quant_conv.py:411"}
+                "int8_chain": "ldm_tf2_tpu/ops/quant_conv.py:411",
+                "fused_ffn_partial": "ldm_tf2_tpu/ops/fused_ffn.py:132"}
     source = {"flash_backward_dq": "flash_attention_bwd",
               "flash_backward_dkv": "flash_attention_bwd",
               "group_norm_fused": "group_norm", "group_stats": "group_norm",
               "gn_silu_conv3x3_fused": "gn_silu_conv3x3",
               "gn_silu_quant_stream": "gn_silu_quant",
-              "int8_chain": "s8_conv3x3"}
+              "int8_chain": "s8_conv3x3", "fused_ffn_partial": "fused_ffn"}
     kernels = []
     for name, rows in results.items():
         main_row = rows[0]  # bf16 at the path's first (level-0) shape

@@ -26,14 +26,15 @@ saves nothing.  Losses, the adaptive weight and images/s are logged every
 ``tpu.log_per_iterations`` steps.
 
 ``tpu.remat`` is accepted and ignored, as the JAX autoencoder trainer
-ignores it.  Under ``torchrun`` the ranks are the ``data`` axis of
-``tpu.mesh``, as in the LDM trainer: the batch size is per rank, and the
-steps average both models' gradients and take D's batch statistics over
-the global batch (``training/ae_trainer.py``).  A ``model`` axis, tensor
-and sequence parallelism raise ``NotImplementedError`` naming ROADMAP item
-A6b.  ``train(config, ..., batches=..., models=...)`` takes in-memory
-global batches (each rank takes its rows) and built models instead of the
-files and the blob.
+ignores it.  Under ``torchrun`` the ranks form ``tpu.mesh``, as in the
+LDM trainer: the batch size is per device, the ``data`` coordinates take
+the global batch's rows (``model`` peers the same ones), and the steps
+average both models' gradients and take D's batch statistics over the
+``data`` axis (``training/ae_trainer.py``); the tensor- and
+sequence-parallel flags are not read, as in the JAX trainer.
+``train(config, ..., batches=..., models=...)`` takes in-memory global
+batches (each rank takes its rows) and built models instead of the files
+and the blob.
 """
 
 from __future__ import annotations
@@ -136,7 +137,7 @@ def train(config: dict, lpips_blob=None, device="cuda", *, seed: int = 0,
         train_step = step_ae_d if step >= gan_from else step_ae
         state, metrics = train_step(state, images)
         step = state.step
-        logger.log(step, metrics, batch_size=images.shape[0] * mesh.world)
+        logger.log(step, metrics, batch_size=images.shape[0] * mesh.data_size)
         if manager and step % persist_every == 0:
             say(f"[INFO] Saving checkpoint at global step {step}...")
             manager.save(step, checkpoint_state(state, autoencoder, discriminator, seed))

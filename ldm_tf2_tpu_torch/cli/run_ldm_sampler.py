@@ -26,14 +26,17 @@ with DDIM only (``sample_img2img``).  ``ldm_sampling.autoencoder_type:
 vq`` decodes with the VQ autoencoder, quantizing the latents first
 (``force_quantize``), as the JAX CLI does.  The configurations the JAX CLI
 refuses raise its ``ValueError`` (``check_sampling``).  Under ``torchrun``
-the ranks are the ``data`` axis of ``tpu.mesh`` (JAX CLI's data-parallel
-sampling): when the latent batch B divides by it, rank r samples latent
-rows ``[r b, (r + 1) b)`` (b = B / data), with the token rows ``r b ...``
-of both halves of the CFG batch, the initial latent and every step's noise
-drawn at the global shape and sliced (``sample_*(..., mesh=...)``), and
-rank 0 gathers the images in rank order and writes them; otherwise rank 0
-samples on one device.  A ``model`` axis, tensor and sequence parallelism
-raise ``NotImplementedError`` naming ROADMAP item A6b.  The serving modes
+the ranks form ``tpu.mesh`` (``parallel/mesh.py``), in the JAX CLI's order:
+the serving modes, then ``tpu.sequence_parallel`` (Ulysses attention over
+the ``model`` axis, ``ops.attention.enable_sequence_parallel``; weights
+whole), then ``tpu.tensor_parallel`` (``ops/tp.py``; each model's leaves
+sharded over the ``model`` axis by ``parallel.sharding.shard_params_tp``).
+When the latent batch B divides by the ``data`` axis, data coordinate r
+samples latent rows ``[r b, (r + 1) b)`` (b = B / data), with the token rows
+``r b ...`` of both halves of the CFG batch, the initial latent and every
+step's noise drawn at the global shape and sliced (``sample_*(...,
+mesh=...)``), and the images are gathered in data order; otherwise every
+data coordinate samples every row.  Rank 0 writes them.  The serving modes
 ``tpu.quantize: int8`` and ``tpu.quantize_attention: int8pv`` apply here as
 in the JAX CLI, which honours both (``factory.apply_serving_modes``).  The
 text-to-image pipeline is ``sample_txt2img`` (``sample_txt2img_progressive``
@@ -58,9 +61,6 @@ from ldm_tf2_tpu_torch.diffusion.solvers import (
 )
 from ldm_tf2_tpu_torch.models import AutoencoderVQ
 from ldm_tf2_tpu_torch.parallel import RowSlice
-# the branches of the JAX CLIs not ported yet: a ``model`` mesh axis,
-# sequence or tensor parallelism
-from ldm_tf2_tpu_torch.parallel import check_data_parallel as check_supported
 
 # ldm_sampling.sampler -> loop, the JAX CLIs' table
 SAMPLE_LOOPS = {
@@ -149,8 +149,8 @@ def sample_txt2img(cond_model, unet, autoencoder, schedule, token_ids, shape,
     ``return_trajectory`` (DDIM, no DeepCache) are the loops' test hooks.
     ``mesh`` (a data-parallel rank's): token_ids and shape are this rank's
     share (``rank_rows``) and every draw is this rank's rows of the global
-    batch's draw.  Returns (images [B, H, W, 3] float, x0 latents), plus the
-    [S, B, h, w, c] trajectory when asked.
+    batch's draw, by its ``data`` coordinate.  Returns (images [B, H, W, 3]
+    float, x0 latents), plus the [S, B, h, w, c] trajectory when asked.
     """
     device = factory.resolve_device(device)
     loop = SAMPLE_LOOPS[sampler]
@@ -251,17 +251,44 @@ def _generator(device, seed: int, mesh):
     global batch's draws."""
     generator = torch.Generator(device=device).manual_seed(seed)
     if mesh is not None and mesh.distributed:
-        return RowSlice(generator, mesh.rank, mesh.world)
+        return RowSlice(generator, mesh.data_index, mesh.data_size)
     return generator
 
 
 def rank_rows(token_ids, batch: int, mesh):
     """This rank's share of a CFG call of latent batch ``batch`` (the
     ``[uncond B; cond B]`` token rows): rows ``r b .. (r + 1) b`` of both
-    halves, b = batch / world."""
-    b = batch // mesh.world
-    rows = slice(mesh.rank * b, (mesh.rank + 1) * b)
+    halves, r its ``data`` coordinate, b = batch / data."""
+    b = batch // mesh.data_size
+    rows = slice(mesh.data_index * b, (mesh.data_index + 1) * b)
     return torch.cat([token_ids[:batch][rows], token_ids[batch:][rows]]), b
+
+
+def apply_parallelism(config: dict, mesh, models, say=print) -> None:
+    """The JAX CLI's order after the serving modes: ``tpu.sequence_parallel``
+    (Ulysses over the ``model`` axis, the weights whole), then
+    ``tpu.tensor_parallel`` (each of ``models`` sharded over it; none given,
+    as by the server, which never shards, as the JAX server does not).  A
+    flag that is off clears what an earlier call of the process set."""
+    from ldm_tf2_tpu_torch.ops.attention import (
+        disable_sequence_parallel, enable_sequence_parallel,
+    )
+    from ldm_tf2_tpu_torch.ops.tp import enable_tensor_parallel
+    from ldm_tf2_tpu_torch.parallel.sharding import shard_params_tp
+
+    tpu = config["tpu"]
+    disable_sequence_parallel()
+    enable_tensor_parallel(None)
+    if tpu["sequence_parallel"]:
+        say("[INFO] Ulysses sequence-parallel attention over 'model' axis "
+            f"(size {mesh.shape['model']}).")
+        enable_sequence_parallel(mesh)
+    if tpu["tensor_parallel"] and models:
+        say("[INFO] Tensor-parallel params over 'model' axis "
+            f"(size {mesh.size('model')}); kernels run per shard (ops/tp.py).")
+        enable_tensor_parallel(mesh)
+        for model in models:
+            shard_params_tp(model, mesh)
 
 
 def nearest_resize_indices(size_in: int, size_out: int) -> np.ndarray:
@@ -317,9 +344,8 @@ def load_mask(path: str, latent_shape) -> np.ndarray:
 
 def main(argv=None) -> torch.Tensor | None:
     """Run the CLI; returns the decoded images (also saved as uint8 to
-    ``images.npy`` in the working directory by rank 0), every rank's rows
-    gathered; None on the other ranks when the batch does not divide by the
-    ``data`` axis and rank 0 samples alone."""
+    ``images.npy`` in the working directory by rank 0), every data
+    coordinate's rows gathered, on every rank."""
     from ldm_tf2_tpu_torch.checkpoints.bridge import load_params, read_blob
     from ldm_tf2_tpu_torch.configs.loader import load_config
     from ldm_tf2_tpu_torch.data.tokenizer import cfg_token_ids, load_tokenizer
@@ -340,7 +366,6 @@ def main(argv=None) -> torch.Tensor | None:
     sampler = check_sampling(sampling)
     save_progress = bool(sampling.get("sample_save_progress", False))
     init_image_path = sampling.get("init_image_path")
-    check_supported(config)
     device = factory.resolve_device(maybe_initialize_distributed(args.device))
     mesh = create_mesh(config["tpu"].get("mesh"))
     say = print if mesh.rank == 0 else (lambda *a: None)
@@ -348,15 +373,14 @@ def main(argv=None) -> torch.Tensor | None:
     factory.apply_tpu_settings(config)
     shape = tuple(sampling["latent_shape"])
     n_data = mesh.shape["data"]
+    rank = mesh.rank
     if shape[0] % n_data == 0:
         say(f"[INFO] Sampling data-parallel over mesh {dict(mesh.shape)}.")
+        rows_mesh = mesh
     else:
-        if n_data > 1:
-            say(f"[INFO] Batch {shape[0]} not divisible by data axis {n_data}; "
-                "sampling on a single device.")
-        if mesh.rank:
-            return None
-        mesh = None
+        say(f"[INFO] Batch {shape[0]} not divisible by data axis {n_data}; every "
+            "data coordinate samples every row.")
+        rows_mesh = None
     init_image = mask = None
     if init_image_path:
         init_image = load_init_image(init_image_path, config)
@@ -374,6 +398,7 @@ def main(argv=None) -> torch.Tensor | None:
                                   device, resolution=factory.sampling_resolution(config)),
         blob["autoencoder"])
     factory.apply_serving_modes(config, unet, autoencoder)
+    apply_parallelism(config, mesh, (cond_model, unet, autoencoder), say)
     schedule = factory.build_schedule(config)
 
     token_ids = cfg_token_ids(
@@ -387,12 +412,12 @@ def main(argv=None) -> torch.Tensor | None:
         guidance_scale=float(sampling["guidance_scale"]),
         guidance_rescale=float(sampling.get("guidance_rescale", 0.0)),
         scale_factor=config["ldm"]["scale_factor"], seed=args.seed,
-        device=device, mesh=mesh,
+        device=device, mesh=rows_mesh,
     )
     token_ids = torch.as_tensor(token_ids, dtype=torch.long)
-    if mesh is not None and mesh.distributed:
+    if rows_mesh is not None and mesh.distributed:
         token_ids, b = rank_rows(token_ids, shape[0], mesh)
-        rows = slice(mesh.rank * b, (mesh.rank + 1) * b)
+        rows = slice(mesh.data_index * b, (mesh.data_index + 1) * b)
         shape = (b,) + shape[1:]
         if init_image is not None:
             init_image = init_image[rows]
@@ -410,11 +435,11 @@ def main(argv=None) -> torch.Tensor | None:
             cond_model, unet, autoencoder, schedule, token_ids, shape,
             sampler=sampler, cache_interval=int(sampling.get("cache_interval", 1)),
             cache_levels=int(sampling.get("cache_levels", 1)), **kwargs)
-    images = gather_rows(images, mesh)
+    images = gather_rows(images, rows_mesh)
     if save_progress:
-        sample_prog = gather_rows(sample_prog, mesh)
-        pred_x0_prog = gather_rows(pred_x0_prog, mesh)
-    if mesh is not None and mesh.rank:
+        sample_prog = gather_rows(sample_prog, rows_mesh)
+        pred_x0_prog = gather_rows(pred_x0_prog, rows_mesh)
+    if rank:
         return images
     as_uint8 = lambda t: tensor_to_image(t.float().cpu().numpy())
     print("[INFO] Saving generated images to 'images.npy'...")

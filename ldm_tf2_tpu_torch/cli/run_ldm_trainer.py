@@ -28,13 +28,15 @@ null ``ckpt_path`` saves nothing.  Loss and images/s are logged every
 dots) recomputes the U-Net forward in the backward pass
 (``models/remat.py``).
 
-Under ``torchrun`` the ranks are the ``data`` axis of ``tpu.mesh`` (-1:
-all of them): ``ldm_training.params.batch_size`` is per rank, the global
-batch is that times the axis, each rank reads its rows of it (the indexed
-loader's shard of the global permutation, or ``shard_for_process``'s
-files), and the step averages the gradients over the ranks
-(``training/ldm_trainer.py``).  A ``model`` axis, tensor and sequence
-parallelism raise ``NotImplementedError`` naming ROADMAP item A6b.
+Under ``torchrun`` the ranks form ``tpu.mesh`` (``parallel/mesh.py``), as
+the JAX trainer's devices do: ``ldm_training.params.batch_size`` is per
+device, the global batch is that times the ``data`` axis, each ``data``
+coordinate reads its rows of it (the indexed loader's shard of the global
+permutation, or ``shard_for_process``'s files), ranks that differ only in
+their ``model`` coordinate take the same rows, the state is replicated
+over the whole mesh, and the step averages the gradients over the ``data``
+axis (``training/ldm_trainer.py``).  As in the JAX trainer,
+``tpu.tensor_parallel`` and ``tpu.sequence_parallel`` are not read.
 ``train(config, ..., batches=..., models=...)`` takes in-memory global
 batches (each rank takes its rows) and built models instead of the files
 and the blob.
@@ -47,30 +49,19 @@ import argparse
 import torch
 
 from ldm_tf2_tpu_torch import factory
-from ldm_tf2_tpu_torch.parallel import check_data_parallel as check_supported
 
 
 def data_parallel_setup(config: dict, section: str, device):
-    """Join ``torchrun``'s process group (if any), check ``tpu.mesh``
-    against the world and split the global batch as the JAX CLIs do.
-    Returns (device, mesh, the loader's keywords with the per-rank batch
-    size)."""
+    """Join ``torchrun``'s process group (if any) and check ``tpu.mesh``
+    against the world as the JAX CLIs do.  The global batch is the
+    per-device batch times the ``data`` axis and each ``data`` coordinate
+    loads its share, so a rank loads the per-device batch.  Returns
+    (device, mesh, the loader's keywords)."""
     from ldm_tf2_tpu_torch.parallel import create_mesh, maybe_initialize_distributed
 
-    check_supported(config)
     device = factory.resolve_device(maybe_initialize_distributed(device))
     mesh = create_mesh(config["tpu"].get("mesh"))
-    params = dict(config[section]["params"])
-    batch_size = params["batch_size"] * mesh.shape["data"]
-    if batch_size % mesh.world:
-        raise ValueError(
-            f"Global batch {batch_size} (per-device {params['batch_size']} x data "
-            f"axis {mesh.shape['data']}) is not divisible by the process count "
-            f"{mesh.world}; the per-process loader slice would silently change "
-            "the effective global batch."
-        )
-    params["batch_size"] = batch_size // mesh.world
-    return device, mesh, params
+    return device, mesh, dict(config[section]["params"])
 
 
 def make_batches(config: dict, section: str, params: dict, mesh, seed: int,
@@ -87,8 +78,8 @@ def make_batches(config: dict, section: str, params: dict, mesh, seed: int,
     files = list_tfrecords(config[section]["root_path"])
     if config["tpu"]["deterministic_data"]:
         return create_indexed_dataset(files, **params, **kw, random_seed=seed,
-                                      start_step=start_step, shard_index=mesh.rank,
-                                      shard_count=mesh.world)
+                                      start_step=start_step, shard_index=mesh.data_index,
+                                      shard_count=mesh.data_size)
     return create_dataset(shard_for_process(files, mesh), **params, **kw,
                           random_seed=seed)
 
@@ -187,7 +178,7 @@ def train(config: dict, params_blob_path: str | None = None, device="cuda", *,
         token_ids = torch.as_tensor(token_ids).to(device=device, dtype=torch.long)
         state, metrics = train_step(state, images, token_ids)
         step = state.step
-        logger.log(step, metrics, batch_size=images.shape[0] * mesh.world)
+        logger.log(step, metrics, batch_size=images.shape[0] * mesh.data_size)
         if manager and step % persist_every == 0:
             say(f"[INFO] Saving checkpoint at global step {step}...")
             manager.save(step, checkpoint_state(state, unet, trained_cond, seed))

@@ -34,10 +34,17 @@ decodes through the VQ autoencoder with ``force_quantize``, as the JAX
 server does.  ``ldm_sampling.cache_interval`` > 1 serves through the
 DeepCache loops (``cache_levels`` shallow levels; DDIM or
 DPM-Solver++(2M), else the JAX server's ``ValueError``).  As in the JAX
-server there is no image to image.  The server runs on one device: a
-device mesh (data parallelism over the requests, a ``model`` axis, tensor
-or sequence parallelism) raises ``NotImplementedError`` naming ROADMAP item
-A6b.  The JAX server's
+server there is no image to image.
+
+On a mesh (``torchrun``, ``tpu.mesh``), as the JAX server on its devices:
+rank 0 reads each wave of requests and broadcasts it (or the exit) to every
+rank, so all ranks run the same calls and stop together; when the batch
+divides by the ``data`` axis each data coordinate runs its rows of the slot
+batch (its token rows and guidances, every draw its rows of the global
+draw, ``parallel.RowSlice``) and the images are gathered to rank 0, which
+writes the files and the responses.  ``tpu.sequence_parallel`` runs
+Ulysses attention over the ``model`` axis; tensor parallelism is never
+applied, as in the JAX server.  The JAX server's
 ``--aot_cache`` has no counterpart: PyTorch runs eagerly and compiles no
 pipeline executable to cache.
 """
@@ -52,12 +59,16 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ldm_tf2_tpu_torch import factory
 from ldm_tf2_tpu_torch.cli.run_ldm_sampler import (
-    CACHE_LOOPS, check_supported, sample_txt2img, sampler_name, tensor_to_image,
+    CACHE_LOOPS, apply_parallelism, rank_rows, sample_txt2img, sampler_name,
+    tensor_to_image,
 )
-from ldm_tf2_tpu_torch.parallel import create_mesh
+from ldm_tf2_tpu_torch.parallel import (
+    create_mesh, gather_rows, maybe_initialize_distributed,
+)
 
 
 def _note(msg: str) -> None:
@@ -67,7 +78,8 @@ def _note(msg: str) -> None:
 def build_server(config: dict, params_blob_path: str = "", device="cuda",
                  models=None):
     """Returns (run_batch, warmup, batch_size): a runner of one pipeline
-    call on a packed slot batch, a warm-up call, and the batch size.
+    call on a packed slot batch (its mesh as ``run_batch.mesh``), a warm-up
+    call, and the batch size.
 
     ``models``: (cond_model, unet, autoencoder) already built on ``device``
     with their weights, used instead of the blob at ``params_blob_path``."""
@@ -84,15 +96,14 @@ def build_server(config: dict, params_blob_path: str = "", device="cuda",
             "ldm_sampling.cache_interval > 1 requires sampler: ddim or "
             f"dpm_solver_pp_2m, got {sampler!r}"
         )
-    check_supported(config)
-    if create_mesh(config["tpu"].get("mesh")).world > 1:
-        raise NotImplementedError(
-            "not ported yet: the server on a device mesh, data parallelism "
-            "over the requests it reads (ROADMAP queue A item A6b)")
-    device = factory.resolve_device(device)
+    device = factory.resolve_device(maybe_initialize_distributed(device))
+    mesh = create_mesh(config["tpu"].get("mesh"))
     factory.set_float32_precision()
     factory.apply_tpu_settings(config)
     shape = tuple(sampling["latent_shape"])
+    rows_mesh = mesh if mesh.distributed and shape[0] % mesh.shape["data"] == 0 else None
+    if rows_mesh is not None:
+        _note(f"data-parallel over mesh {dict(mesh.shape)}")
     max_seq_len = config["cond_stage_model"]["max_seq_len"]
     guidance_rescale = float(sampling.get("guidance_rescale", 0.0))
 
@@ -112,6 +123,7 @@ def build_server(config: dict, params_blob_path: str = "", device="cuda",
         )
     cond_model, unet, autoencoder = models
     factory.apply_serving_modes(config, unet, autoencoder)
+    apply_parallelism(config, mesh, (), _note)
     tpu = config["tpu"]
     if tpu["quantize"] == "int8":
         _note("W8A8 int8 U-Net convs (tpu.quantize: int8)")
@@ -123,21 +135,30 @@ def build_server(config: dict, params_blob_path: str = "", device="cuda",
 
     def run_batch(prompts, negatives, guidances, seed):
         """One pipeline call on a packed slot batch: length-B prompt,
-        negative and guidance lists -> uint8 [B, H, W, 3]."""
+        negative and guidance lists -> uint8 [B, H, W, 3] (every row, on
+        every rank)."""
         token_ids = torch.as_tensor(
             packed_cfg_token_ids(tokenizer, prompts, negatives, max_seq_len))
         guidance = torch.as_tensor(
             np.asarray(guidances, np.float32).reshape(shape[0], 1, 1, 1),
             device=device)
+        rows_shape = shape
+        if rows_mesh is not None:
+            token_ids, b = rank_rows(token_ids, shape[0], rows_mesh)
+            guidance = guidance[rows_mesh.data_index * b:(rows_mesh.data_index + 1) * b]
+            rows_shape = (b,) + shape[1:]
         images, _ = sample_txt2img(
-            cond_model, unet, autoencoder, schedule, token_ids, shape,
+            cond_model, unet, autoencoder, schedule, token_ids, rows_shape,
             sampler=sampler, guidance_scale=guidance,
             guidance_rescale=guidance_rescale, cache_interval=cache_interval,
             cache_levels=cache_levels,
             scale_factor=config["ldm"]["scale_factor"], seed=int(seed),
-            device=device,
+            device=device, mesh=rows_mesh,
         )
+        images = gather_rows(images, rows_mesh)
         return tensor_to_image(images.float().cpu().numpy())
+
+    run_batch.mesh = mesh
 
     def warmup():
         start = time.perf_counter()
@@ -232,16 +253,24 @@ def serve(config: dict, input_stream, output_stream, output_dir: str = ".",
     and scripts can drive it with in-memory streams.
 
     Each wave of buffered requests is packed into full batches (slots
-    grouped by seed); responses are written in request order."""
+    grouped by seed); responses are written in request order.  On a mesh
+    only rank 0 reads ``input_stream`` and writes ``output_stream`` and the
+    images; the other ranks take each wave from it."""
     run_batch, warmup, batch_size = build_server(
         config, params_blob_path, device, models)
+    mesh = run_batch.mesh
     sampling = config["ldm_sampling"]
     warmup()
     _note("ready")
     request_seq = itertools.count()
 
     while True:
-        wave, done = _read_wave(input_stream, batch_window_ms / 1000.0)
+        wave, done = (_read_wave(input_stream, batch_window_ms / 1000.0)
+                      if mesh.rank == 0 else (None, None))
+        if mesh.distributed:
+            shared = [wave, done]
+            dist.broadcast_object_list(shared, src=0)
+            wave, done = shared
         responses = [None] * len(wave)
         specs = []  # (wave index, spec)
         for i, line in enumerate(wave):
@@ -277,6 +306,10 @@ def serve(config: dict, input_stream, output_stream, output_dir: str = ".",
             for i, _ in specs:
                 responses[i] = dict(err)
         latency = round(time.perf_counter() - start, 4)
+        if mesh.rank:
+            if done:
+                break
+            continue
 
         for i, spec in specs:
             if responses[i] is not None:

@@ -17,8 +17,15 @@
 // a and g take their biases in f32; the output is the product rounded to T,
 // then + b2, then + x, each add rounded to T (ffn_out).
 //
+// Partial-product mode (`partial`, tensor parallelism: the JAX tp_fused_ffn
+// runs _pallas_ffn with a zero b2 and residual=False on a rank's F / n hidden
+// columns): the output is the product rounded to T alone, b2 and x are not
+// read by the epilogue; the caller all-reduces the ranks' partials, then
+// adds b2 and x in ffn_out's order.
+//
 // wgmma path (bf16, d a multiple of 128 or 160 up to 1280, F a multiple of
-// 128, 16-byte aligned operands: every FFN of the models), three launches
+// 64, 16-byte aligned operands: every FFN of the models, and every tensor-
+// parallel shard of them at n = 2, 4: F / n = 640 .. 320), three launches
 // (four when the last splits), geometry from the wrapper's ffn_plan:
 //  1. ffn_ln_kernel: y = LN(x) in bf16, one warp per row, written once (the
 //     TPU kernel's ln_ref scratch; a CTA of the up-projection reads only its
@@ -94,7 +101,7 @@ ffn_kernel(const T* __restrict__ x, const float* __restrict__ lns, const float* 
            const T* __restrict__ w1v, const T* __restrict__ b1v, const T* __restrict__ w1g,
            const T* __restrict__ b1g, const T* __restrict__ w2, const T* __restrict__ b2,
            T* __restrict__ out, float* __restrict__ partial, int m, int d, int f,
-           int chunk_cols, float eps) {
+           int chunk_cols, float eps, int partial_out) {
   extern __shared__ __align__(16) float smem[];
   float* yt = smem;         // [d][TM]
   float* ut = yt + d * TM;  // [NB][TM]
@@ -219,22 +226,24 @@ ffn_kernel(const T* __restrict__ x, const float* __restrict__ lns, const float* 
 #pragma unroll
     for (int r = 0; r < TM; ++r) {
       const long row = row0 + r;
-      if (row < m) out[row * d + c] = ffn_out<T>(acc[ci][r], b2[c], x[row * d + c]);
+      if (row < m)
+        out[row * d + c] = partial_out ? from_f32<T>(acc[ci][r])
+                                       : ffn_out<T>(acc[ci][r], b2[c], x[row * d + c]);
     }
   }
 }
 
-// out = ffn_out(sum over chunks, in order)
+// out = ffn_out(sum over chunks, in order), or the sum rounded (partial_out)
 template <typename T>
 __global__ void ffn_reduce_kernel(const float* __restrict__ partial, const T* __restrict__ b2,
                                   const T* __restrict__ x, T* __restrict__ out, int m, int d,
-                                  int chunks) {
+                                  int chunks, int partial_out) {
   const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
   const long n = (long)m * d;
   if (i >= n) return;
   float s = 0.f;
   for (int k = 0; k < chunks; ++k) s += partial[k * n + i];
-  out[i] = ffn_out<T>(s, b2[i % d], x[i]);
+  out[i] = partial_out ? from_f32<T>(s) : ffn_out<T>(s, b2[i % d], x[i]);
 }
 
 constexpr int kSMs = 132;
@@ -252,11 +261,11 @@ int chunk_columns(int m, int f, int tm, int nb, int target) {
 
 template <typename T>
 cudaError_t launch_reduce(const float* partial, const void* b2, const void* x, void* out, int m,
-                          int d, int chunks, cudaStream_t stream) {
+                          int d, int chunks, int partial_out, cudaStream_t stream) {
   const long n = (long)m * d;
   ffn_reduce_kernel<T><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
       partial, static_cast<const T*>(b2), static_cast<const T*>(x), static_cast<T*>(out), m, d,
-      chunks);
+      chunks, partial_out);
   return cudaGetLastError();
 }
 
@@ -267,7 +276,7 @@ template <typename T, int NC>
 cudaError_t launch(const void* x, const float* lns, const float* lnb, const void* w1v,
                    const void* b1v, const void* w1g, const void* b1g, const void* w2,
                    const void* b2, void* out, float* workspace, int m, int d, int f,
-                   float eps, cudaStream_t stream) {
+                   float eps, int partial_out, cudaStream_t stream) {
   const int cols = chunk_columns(m, f, TM, NB, kFmaTarget);
   const int chunks = (f + cols - 1) / cols;
   float* partial = chunks > 1 ? workspace : nullptr;
@@ -279,23 +288,23 @@ cudaError_t launch(const void* x, const float* lns, const float* lnb, const void
   ffn_kernel<T, NC><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(x), lns, lnb, static_cast<const T*>(w1v), static_cast<const T*>(b1v),
       static_cast<const T*>(w1g), static_cast<const T*>(b1g), static_cast<const T*>(w2),
-      static_cast<const T*>(b2), static_cast<T*>(out), partial, m, d, f, cols, eps);
+      static_cast<const T*>(b2), static_cast<T*>(out), partial, m, d, f, cols, eps, partial_out);
   err = cudaGetLastError();
   if (err != cudaSuccess || partial == nullptr) return err;
-  return launch_reduce<T>(partial, b2, x, out, m, d, chunks, stream);
+  return launch_reduce<T>(partial, b2, x, out, m, d, chunks, partial_out, stream);
 }
 
 template <typename T>
 cudaError_t dispatch_fma(const void* x, const float* lns, const float* lnb, const void* w1v,
                          const void* b1v, const void* w1g, const void* b1g, const void* w2,
                          const void* b2, void* out, float* ws, int m, int d, int f, float eps,
-                         cudaStream_t stream) {
+                         int po, cudaStream_t stream) {
   switch ((d + kThreads - 1) / kThreads) {
-    case 1: return launch<T, 1>(x, lns, lnb, w1v, b1v, w1g, b1g, w2, b2, out, ws, m, d, f, eps, stream);
-    case 2: return launch<T, 2>(x, lns, lnb, w1v, b1v, w1g, b1g, w2, b2, out, ws, m, d, f, eps, stream);
-    case 3: return launch<T, 3>(x, lns, lnb, w1v, b1v, w1g, b1g, w2, b2, out, ws, m, d, f, eps, stream);
-    case 4: return launch<T, 4>(x, lns, lnb, w1v, b1v, w1g, b1g, w2, b2, out, ws, m, d, f, eps, stream);
-    case 5: return launch<T, 5>(x, lns, lnb, w1v, b1v, w1g, b1g, w2, b2, out, ws, m, d, f, eps, stream);
+    case 1: return launch<T, 1>(x, lns, lnb, w1v, b1v, w1g, b1g, w2, b2, out, ws, m, d, f, eps, po, stream);
+    case 2: return launch<T, 2>(x, lns, lnb, w1v, b1v, w1g, b1g, w2, b2, out, ws, m, d, f, eps, po, stream);
+    case 3: return launch<T, 3>(x, lns, lnb, w1v, b1v, w1g, b1g, w2, b2, out, ws, m, d, f, eps, po, stream);
+    case 4: return launch<T, 4>(x, lns, lnb, w1v, b1v, w1g, b1g, w2, b2, out, ws, m, d, f, eps, po, stream);
+    case 5: return launch<T, 5>(x, lns, lnb, w1v, b1v, w1g, b1g, w2, b2, out, ws, m, d, f, eps, po, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -493,7 +502,8 @@ ffn_up_kernel(const __grid_constant__ CUtensorMap ymap, const __grid_constant__ 
   }
 }
 
-// Launch 3, the down-projection: out = u w2 + b2 + x.  A stage is one A
+// Launch 3, the down-projection: out = u w2 + b2 + x (u w2 alone when
+// partial_out).  A stage is one A
 // tile (BM rows x 64 hidden columns of u, K-major) and one B tile (64
 // hidden rows x BN output columns of w2, MN-major chunks of 64 columns).
 template <int NWG, int BN, int STAGES>
@@ -517,7 +527,7 @@ __global__ void __launch_bounds__(NWG * 128 + 32, 1)
 ffn_down_kernel(const __grid_constant__ CUtensorMap umap,
                 const __grid_constant__ CUtensorMap w2map, const bf16* __restrict__ b2,
                 const bf16* __restrict__ x, bf16* __restrict__ out, float* __restrict__ partial,
-                int m, int d, int f, int per_split) {
+                int m, int d, int f, int per_split, int partial_out) {
   using C = FfnDown<NWG, BN, STAGES>;
   using namespace hopper;
   extern __shared__ unsigned char smem_raw[];
@@ -589,6 +599,8 @@ ffn_down_kernel(const __grid_constant__ CUtensorMap umap,
       if (partial != nullptr) {
         *reinterpret_cast<float2*>(partial + ((long)blockIdx.z * m + row) * d + col) =
             make_float2(v0, v1);
+      } else if (partial_out) {
+        *reinterpret_cast<__nv_bfloat162*>(out + row * d + col) = __floats2bfloat162_rn(v0, v1);
       } else {
         const __nv_bfloat162 xr = *reinterpret_cast<const __nv_bfloat162*>(x + row * d + col);
         __nv_bfloat162 o;
@@ -601,10 +613,12 @@ ffn_down_kernel(const __grid_constant__ CUtensorMap umap,
 }
 
 // The last launch of a split down-projection: out = ffn_out(sum of the
-// splits' partials, in split order), four columns a thread (d % 4 == 0).
+// splits' partials, in split order), or the sum rounded (partial_out), four
+// columns a thread (d % 4 == 0).
 __global__ void __launch_bounds__(256)
 ffn_reduce4_kernel(const float* __restrict__ partial, const bf16* __restrict__ b2,
-                   const bf16* __restrict__ x, bf16* __restrict__ out, int m, int d, int splits) {
+                   const bf16* __restrict__ x, bf16* __restrict__ out, int m, int d, int splits,
+                   int partial_out) {
   const long n4 = (long)m * d / 4;
   for (long i = (long)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
        i += (long)gridDim.x * blockDim.x) {
@@ -616,14 +630,19 @@ ffn_reduce4_kernel(const float* __restrict__ partial, const bf16* __restrict__ b
       s.z += p.z;
       s.w += p.w;
     }
-    const int c = (int)(4 * i % d);
-    const uint2 xv = reinterpret_cast<const uint2*>(x)[i];
-    const bf16* xs = reinterpret_cast<const bf16*>(&xv);
     __nv_bfloat162 lo, hi;
-    lo.x = ffn_out<bf16>(s.x, b2[c], xs[0]);
-    lo.y = ffn_out<bf16>(s.y, b2[c + 1], xs[1]);
-    hi.x = ffn_out<bf16>(s.z, b2[c + 2], xs[2]);
-    hi.y = ffn_out<bf16>(s.w, b2[c + 3], xs[3]);
+    if (partial_out) {
+      lo = __floats2bfloat162_rn(s.x, s.y);
+      hi = __floats2bfloat162_rn(s.z, s.w);
+    } else {
+      const int c = (int)(4 * i % d);
+      const uint2 xv = reinterpret_cast<const uint2*>(x)[i];
+      const bf16* xs = reinterpret_cast<const bf16*>(&xv);
+      lo.x = ffn_out<bf16>(s.x, b2[c], xs[0]);
+      lo.y = ffn_out<bf16>(s.y, b2[c + 1], xs[1]);
+      hi.x = ffn_out<bf16>(s.z, b2[c + 2], xs[2]);
+      hi.y = ffn_out<bf16>(s.w, b2[c + 3], xs[3]);
+    }
     uint2 o;
     o.x = *reinterpret_cast<const uint32_t*>(&lo);
     o.y = *reinterpret_cast<const uint32_t*>(&hi);
@@ -657,7 +676,7 @@ cudaError_t launch_up(const int* geo, const CUtensorMap& ym, const CUtensorMap& 
 template <int NWG, int BN, int STAGES>
 cudaError_t launch_down(const int* geo, const CUtensorMap& um, const CUtensorMap& wm,
                         const bf16* b2, const bf16* x, bf16* out, float* partial, int m,
-                        int d, int f, cudaStream_t st) {
+                        int d, int f, int partial_out, cudaStream_t st) {
   using C = FfnDown<NWG, BN, STAGES>;
   auto kernel = ffn_down_kernel<NWG, BN, STAGES>;
   static bool smem_set = false;  // once per instantiation
@@ -672,13 +691,13 @@ cudaError_t launch_down(const int* geo, const CUtensorMap& um, const CUtensorMap
   if (splits > 1 && partial == nullptr) return cudaErrorInvalidValue;
   const dim3 grid((m + C::BM - 1) / C::BM, (d + BN - 1) / BN, splits);
   kernel<<<grid, C::THREADS, C::SMEM, st>>>(um, wm, b2, x, out, splits > 1 ? partial : nullptr, m,
-                                           d, f, per_split);
+                                           d, f, per_split, partial_out);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
   const long n4 = (long)m * d / 4;
   const long nblk = (n4 + 255) / 256;
   ffn_reduce4_kernel<<<(unsigned)(nblk < 132 * 8 ? nblk : 132 * 8), 256, 0, st>>>(
-      partial, b2, x, out, m, d, splits);
+      partial, b2, x, out, m, d, splits, partial_out);
   return cudaGetLastError();
 }
 
@@ -686,7 +705,7 @@ cudaError_t launch_down(const int* geo, const CUtensorMap& um, const CUtensorMap
 cudaError_t run_wgmma(const bf16* x, const float* lns, const float* lnb, const bf16* w1v,
                       const bf16* b1v, const bf16* w1g, const bf16* b1g, const bf16* w2,
                       const bf16* b2, bf16* out, bf16* y, bf16* u, float* partial, int m,
-                      int d, int f, float eps, const int* geo, cudaStream_t st) {
+                      int d, int f, float eps, int po, const int* geo, cudaStream_t st) {
   CUtensorMap ym, vm, gm, um, wm;
   const int up_bm = 64 * geo[0], down_bm = 64 * geo[3];
   cudaError_t err = hopper::make_bf16_map(&ym, y, {d, m, 1, 1}, {64, up_bm, 1, 1});
@@ -713,10 +732,10 @@ cudaError_t run_wgmma(const bf16* x, const float* lns, const float* lnb, const b
                 : launch_up<2, 7>(geo, ym, vm, gm, b1v, b1g, u, m, d, f, st);
   if (err != cudaSuccess) return err;
   switch (down) {
-    case 1: return launch_down<1, 128, 8>(geo, um, wm, b2, x, out, partial, m, d, f, st);
-    case 2: return launch_down<2, 128, 7>(geo, um, wm, b2, x, out, partial, m, d, f, st);
-    case 3: return launch_down<1, 160, 7>(geo, um, wm, b2, x, out, partial, m, d, f, st);
-    default: return launch_down<2, 160, 5>(geo, um, wm, b2, x, out, partial, m, d, f, st);
+    case 1: return launch_down<1, 128, 8>(geo, um, wm, b2, x, out, partial, m, d, f, po, st);
+    case 2: return launch_down<2, 128, 7>(geo, um, wm, b2, x, out, partial, m, d, f, po, st);
+    case 3: return launch_down<1, 160, 7>(geo, um, wm, b2, x, out, partial, m, d, f, po, st);
+    default: return launch_down<2, 160, 5>(geo, um, wm, b2, x, out, partial, m, d, f, po, st);
   }
 }
 
@@ -730,6 +749,8 @@ extern "C" long long ldm_fused_ffn_workspace_floats(int m, int d, int f) {
 
 // Returns a cudaError_t value (0 on success).  lns/lnb are float32; every
 // other operand has the activation type (is_bf16: 1 bfloat16, 0 float32).
+// partial: 1 writes the product rounded to the activation type alone (the
+// partial-product mode; b2 is not read), 0 the whole epilogue.
 // geometry: null, or the wgmma path's plan (bf16; the caller's ffn_plan),
 // which then runs or fails; it also needs y [m, d] and u [m, f] bf16 scratch
 // and, when the plan splits the down-projection, `workspace` [splits, m, d]
@@ -741,8 +762,8 @@ extern "C" int ldm_fused_ffn_fwd(const void* x, const void* lns, const void* lnb
                                  const void* w1v, const void* b1v, const void* w1g,
                                  const void* b1g, const void* w2, const void* b2, void* out,
                                  void* workspace, void* y, void* u, int m, int d, int f,
-                                 float eps, int is_bf16, const int* geometry, int* path,
-                                 void* stream) {
+                                 float eps, int is_bf16, int partial, const int* geometry,
+                                 int* path, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* s = static_cast<const float*>(lns);
   const float* b = static_cast<const float*>(lnb);
@@ -750,7 +771,7 @@ extern "C" int ldm_fused_ffn_fwd(const void* x, const void* lns, const void* lnb
   cudaError_t err;
   if (geometry != nullptr) {  // the caller's plan: wgmma, or an error
     *path = 2;
-    if (!is_bf16 || d % 64 != 0 || f % 128 != 0 || !aligned16(x) || !aligned16(lns) ||
+    if (!is_bf16 || d % 64 != 0 || f % 64 != 0 || !aligned16(x) || !aligned16(lns) ||
         !aligned16(lnb) || !aligned16(w1v) || !aligned16(w1g) || !aligned16(w2) ||
         !aligned16(out) || !aligned16(y) || !aligned16(u))
       return static_cast<int>(cudaErrorInvalidValue);
@@ -758,13 +779,13 @@ extern "C" int ldm_fused_ffn_fwd(const void* x, const void* lns, const void* lnb
                     static_cast<const bf16*>(b1v), static_cast<const bf16*>(w1g),
                     static_cast<const bf16*>(b1g), static_cast<const bf16*>(w2),
                     static_cast<const bf16*>(b2), static_cast<bf16*>(out), static_cast<bf16*>(y),
-                    static_cast<bf16*>(u), ws, m, d, f, eps, geometry, st);
+                    static_cast<bf16*>(u), ws, m, d, f, eps, partial, geometry, st);
   } else {
     *path = 0;
     err = is_bf16 ? dispatch_fma<bf16>(x, s, b, w1v, b1v, w1g, b1g, w2, b2, out, ws, m, d, f,
-                                       eps, st)
+                                       eps, partial, st)
                   : dispatch_fma<float>(x, s, b, w1v, b1v, w1g, b1g, w2, b2, out, ws, m, d, f,
-                                        eps, st);
+                                        eps, partial, st);
   }
   return static_cast<int>(err);
 }

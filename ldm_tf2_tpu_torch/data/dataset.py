@@ -260,13 +260,13 @@ def list_tfrecords(root_path: str) -> list[str]:
 
 
 def shard_for_process(filenames: Sequence[str], mesh=None) -> list[str]:
-    """The files this rank streams: a round-robin share by rank over the
-    world (``mesh``, else the process group's), or all of them when there
-    are fewer files than ranks."""
+    """The files this rank streams: a round-robin share by its ``data``
+    coordinate over the ``data`` axis (``mesh``, else the process group's),
+    or all of them when there are fewer files than coordinates."""
     from ldm_tf2_tpu_torch.parallel import create_mesh
 
     mesh = mesh or create_mesh()
-    count, index = mesh.world, mesh.rank
+    count, index = mesh.data_size, mesh.data_index
     if count == 1 or len(filenames) < count:
         return list(filenames)
     return [f for i, f in enumerate(filenames) if i % count == index]

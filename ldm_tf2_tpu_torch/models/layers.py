@@ -8,6 +8,16 @@ JAX package's HWIO once).  Parameters are created uninitialized: they are
 filled by the bridge or by ``factory.randomize_``.  Weights are cast to the
 activation dtype where they are used, as flax's ``dtype=`` does; norm
 parameters are applied in float32.
+
+Tensor parallelism (``parallel/sharding.py::shard_params_tp``): a module
+whose kernel holds one rank's block carries ``tp`` (the split dimension,
+the block, the number of blocks; None when whole).  A column-parallel
+``Dense`` (kernel split on its output features, bias with it) and a split
+``Projection`` (on its heads) run as they are on the local block; a
+row-parallel ``Dense`` (input features) and a merge ``Projection`` (heads)
+compute their partial product, all-reduce it over the model group
+(``ops/tp.py``) and add the bias once; a vocabulary-split ``Embed`` reads
+zero for the ids outside its rows and all-reduces.
 """
 
 from __future__ import annotations
@@ -15,6 +25,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ldm_tf2_tpu_torch.ops import tp as _tp
 from ldm_tf2_tpu_torch.ops.fused_conv import conv2d
 from ldm_tf2_tpu_torch.parallel import rng
 from ldm_tf2_tpu_torch.ops.group_norm import group_norm
@@ -42,9 +53,12 @@ class Dense(nn.Module):
         super().__init__()
         self.kernel = _param(in_features, features)
         self.bias = _param(features) if bias else None
+        self.tp = None
 
     def forward(self, x):
         y = x @ self.kernel.to(x.dtype)
+        if self.tp is not None and self.tp.dim == 0:  # row-parallel
+            y = _tp.all_reduce_model(y)
         if self.bias is not None:
             y = y + self.bias.to(x.dtype)
         return y
@@ -58,6 +72,7 @@ class Conv(nn.Module):
         super().__init__()
         self.kernel = _param(features, in_features, kernel_size, kernel_size)
         self.bias = _param(features) if bias else None
+        self.tp = None
 
     def forward(self, x, stride: int = 1, padding: int = 1):
         return conv2d(x, self.kernel, self.bias, stride=stride, padding=padding)
@@ -106,9 +121,18 @@ class Embed(nn.Module):
     def __init__(self, num: int, features: int):
         super().__init__()
         self.embedding = _param(num, features)
+        self.tp = None
 
     def forward(self, ids, dtype):
-        return self.embedding.to(dtype)[ids]
+        table = self.embedding.to(dtype)
+        if self.tp is None:
+            return table[ids]
+        rows = table.shape[0]
+        local = ids - self.tp.index * rows
+        inside = (local >= 0) & (local < rows)
+        out = torch.where(inside[..., None], table[local.clamp(0, rows - 1)],
+                          torch.zeros((), dtype=dtype, device=table.device))
+        return _tp.all_reduce_model(out)
 
 
 class Projection(nn.Module):
@@ -116,6 +140,7 @@ class Projection(nn.Module):
     unpacked layout).
 
     split: [B,T,D] x [D,H,S] -> [B,T,H,S];  merge: [B,T,H,S] x [H,S,D] -> [B,T,D]
+    (H the heads this rank holds under tensor parallelism)
     """
 
     def __init__(self, num_heads: int, size_per_head: int,
@@ -132,17 +157,17 @@ class Projection(nn.Module):
         else:
             self.kernel = _param(hidden, num_heads, size_per_head)
             self.bias = _param(size_per_head) if use_bias else None
+        self.tp = None
 
     def forward(self, x):
+        k = self.kernel.to(x.dtype)
         if self.mode == "merge":
             b, t = x.shape[:2]
-            k = self.kernel.to(x.dtype)
             out = x.reshape(b, t, -1) @ k.reshape(-1, k.shape[-1])
+            if self.tp is not None:  # row-parallel over the heads
+                out = _tp.all_reduce_model(out)
         else:
-            k = self.kernel.to(x.dtype)
-            out = (x @ k.reshape(k.shape[0], -1)).reshape(
-                *x.shape[:-1], self.num_heads, self.size_per_head
-            )
+            out = (x @ k.reshape(k.shape[0], -1)).reshape(*x.shape[:-1], *k.shape[1:])
         if self.bias is not None:
             out = out + self.bias.to(x.dtype)
         return out

@@ -37,6 +37,17 @@ shortcut + h, and every CrossAttention drops its output, both at
 ``dropout_rate``; the FeedForward's rate is 0, so the fused FFN stays on
 the training path.  ``training=False`` is the sampling path.
 
+Tensor parallelism (``parallel/sharding.py::shard_params_tp``, the JAX
+rules): the attentions run on the rank's heads through the same kernels and
+end in the row-parallel merge projection; the FeedForward runs
+``ops/tp.py::tp_fused_ffn`` (the FFN kernel's partial-product mode over
+the rank's hidden columns, one all-reduce, then + b2, + x); a ResidualBlock
+runs its first chain on the rank's output channels (conv2d_1, its bias, the
+time embedding's dense), GroupNorm 2 on those channels with 32 / n groups,
+then conv2d_2 on them as a partial sum with no bias or residual, one
+all-reduce, then + bias and + shortcut.  The opt-in kernels (rows 5-7, 12)
+run on the local shards where their switches are on.
+
 Serving modes (``set_serving_modes``, set by ``factory.apply_serving_modes``
 from ``tpu.quantize`` / ``tpu.quantize_attention``): ``conv_quant`` sends the
 ResBlock chains the JAX package's int8 gate claims through the W8A8 kernels
@@ -54,6 +65,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ldm_tf2_tpu_torch.models import remat
+from ldm_tf2_tpu_torch.ops import tp as _tp
 from ldm_tf2_tpu_torch.models.layers import (
     Conv, Dense, GroupNorm, LayerNorm, Norm, Projection, dropout,
 )
@@ -133,6 +145,8 @@ class ResidualBlock(nn.Module):
             self.register_buffer(f"ws_{i}", ws, persistent=False)
 
     def forward(self, x, time_embedding, generator=None):
+        if self.conv2d_2.tp is not None:
+            return self._forward_tp(x, time_embedding, generator)
         t = self.dense(F.silu(time_embedding))
         q1, q2 = ((self.w8_1, self.ws_1), (self.w8_2, self.ws_2)) \
             if self.w8_1 is not None else (None, None)
@@ -152,6 +166,28 @@ class ResidualBlock(nn.Module):
             self.conv2d_2.kernel, self.conv2d_2.bias, residual_add=shortcut,
             eps=1e-5, int8_weights=q2,
         )
+
+    def _forward_tp(self, x, time_embedding, generator):
+        """This rank's output channels of the first chain and input channels
+        of the second (``shard_params_tp``); the partial sums of conv2d_2
+        are all-reduced, then the bias and the shortcut are added."""
+        groups = 32 // self.conv2d_2.tp.size
+        t = self.dense(F.silu(time_embedding))
+        h = gn_silu_conv3x3(
+            x, self.group_norm_1.scale, self.group_norm_1.bias,
+            self.conv2d_1.kernel, self.conv2d_1.bias, time_add=t, eps=1e-5,
+        )
+        shortcut = x if self.shortcut is None else self.shortcut(x)
+        g2, conv = self.group_norm_2, self.conv2d_2
+        if generator is not None and self.dropout_rate > 0.0:
+            h = group_norm(h, g2.scale, g2.bias, groups, 1e-5, activate=True)
+            part = conv3x3(dropout(h, self.dropout_rate, generator), conv.kernel, None)
+        else:
+            part = gn_silu_conv3x3(h, g2.scale, g2.bias, conv.kernel,
+                                   torch.zeros_like(conv.bias), num_groups=groups,
+                                   eps=1e-5)
+        out = _tp.all_reduce_model(part)
+        return out + conv.bias.to(out.dtype) + shortcut.to(out.dtype)
 
 
 class CrossAttention(nn.Module):
@@ -210,7 +246,8 @@ class FeedForward(nn.Module):
     def forward(self, x, ln_scale, ln_bias):
         dt = x.dtype
         g = self.geglu
-        return fused_ffn(
+        ffn = _tp.tp_fused_ffn if self.dense.tp is not None else fused_ffn
+        return ffn(
             x, ln_scale.float(), ln_bias.float(),
             g.value.kernel.to(dt), g.value.bias.to(dt),
             g.gate.kernel.to(dt), g.gate.bias.to(dt),

@@ -24,6 +24,14 @@ package; "flash" takes the kernel for every spatial self-attention, of any
 length, as the JAX package's ``_use_flash`` does; "auto" is the port's
 default route (``ops.flash_attention.spatial_self_attention``).  The
 calling module makes the choice, not the kernel wrapper.
+
+``enable_sequence_parallel(mesh)`` keeps the JAX package's third dispatch
+layer: a spatial self-attention of at least ``min_seq_len`` tokens whose
+lengths and head count divide the mesh's ``model`` axis (``_sp_claims``)
+runs as Ulysses sequence-parallel attention over that axis
+(``ops/sequence_parallel.py``), the local attention inside being the one
+``spatial_self_attention`` would run.  The autoencoder's single head and
+the 77-token cross-attention are never claimed.
 """
 
 from __future__ import annotations
@@ -32,6 +40,9 @@ import torch
 
 _PACKED_CROSS_ENABLED = False
 _ATTENTION_IMPL = "auto"
+
+# Sequence-parallel dispatch state: (mesh, axis, min_seq_len) or None.
+_SP_STATE = None
 
 
 def set_attention_impl(impl: str) -> None:
@@ -44,6 +55,39 @@ def set_attention_impl(impl: str) -> None:
 
 def get_attention_impl() -> str:
     return _ATTENTION_IMPL
+
+
+def enable_sequence_parallel(mesh, axis: str = "model", min_seq_len: int = 4096) -> None:
+    """Route long spatial self-attention through Ulysses SP over
+    ``mesh``'s ``axis``: attention calls whose q/kv lengths and head count
+    divide the axis size and whose sequence is at least ``min_seq_len``
+    tokens run with the tokens split over the axis (two all-to-alls a
+    call); everything else stays local.  No dispatch when the axis has size
+    1."""
+    global _SP_STATE
+    if axis not in mesh.shape:
+        raise ValueError(f"mesh has no axis {axis!r}: {dict(mesh.shape)}")
+    _SP_STATE = (mesh, axis, min_seq_len) if mesh.shape[axis] > 1 else None
+
+
+def disable_sequence_parallel() -> None:
+    global _SP_STATE
+    _SP_STATE = None
+
+
+def sp_state():
+    return _SP_STATE
+
+
+def _sp_claims(q_len: int, kv_len: int, num_heads: int) -> bool:
+    """"SP owns this attention shape": a long enough sequence whose q/kv
+    lengths and head count divide the mesh axis."""
+    if _SP_STATE is None:
+        return False
+    mesh, axis, min_seq_len = _SP_STATE
+    p = mesh.shape[axis]
+    return (q_len >= min_seq_len and num_heads % p == 0 and q_len % p == 0
+            and kv_len % p == 0)
 
 
 def set_packed_cross(flag: bool) -> None:

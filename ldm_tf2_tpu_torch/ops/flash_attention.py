@@ -556,7 +556,21 @@ def spatial_self_attention(q, k, v, scale: float, pv_int8: bool = False):
     ``dot_product_attention``; otherwise ``flash_attention_pv_int8`` when
     the int8-P.V serving mode is on and the JAX package would run its flash
     kernel (q and kv of at least ``PV_INT8_MIN_TOKENS`` tokens, or any
-    length under "flash"), else ``flash_attention``."""
+    length under "flash"), else ``flash_attention``.  A shape that
+    sequence parallelism claims (``ops.attention._sp_claims``) runs as
+    Ulysses attention over the mesh's axis with that local attention on
+    the rank's heads and all the tokens."""
+    if _attention._sp_claims(q.shape[1], k.shape[1], q.shape[2]):
+        from ldm_tf2_tpu_torch.ops.sequence_parallel import sequence_parallel_attention
+
+        mesh, axis, _ = _attention.sp_state()
+        return sequence_parallel_attention(
+            q, k, v, mesh, scale, axis,
+            local=lambda q, k, v, scale: _local_self_attention(q, k, v, scale, pv_int8))
+    return _local_self_attention(q, k, v, scale, pv_int8)
+
+
+def _local_self_attention(q, k, v, scale: float, pv_int8: bool):
     impl = _attention.get_attention_impl()
     if impl == "xla":
         return dot_product_attention(q, k, v, scale)

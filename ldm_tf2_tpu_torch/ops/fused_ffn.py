@@ -11,6 +11,12 @@ the kernel ``csrc/fused_ffn.cu`` (which replaces the TPU kernel
 
 Weights keep the JAX layouts: w1v, w1g [d, 4d] (in x out), w2 [4d, d].
 
+``partial=True`` is the partial-product mode of tensor parallelism (the JAX
+``tp_fused_ffn`` runs ``_pallas_ffn`` with a zero b2 and
+``residual=False`` on a rank's F / n hidden columns): ``out = u @ w2``
+rounded to x's dtype, without b2 and x; ``ops/tp.py::tp_fused_ffn``
+all-reduces it over the model group and adds b2, then x.
+
 ``fused_ffn_int8`` is the W8A8 variant (the TPU kernel ``_ffn_kernel_int8``,
 ``csrc/fused_ffn_int8.cu`` on the card, ``_plain_ffn_int8`` on the CPU).
 As in the JAX package it is a building block that no path dispatches:
@@ -41,9 +47,11 @@ MAX_WIDTH = 1280
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _plain_ffn(x, ln_scale, ln_bias, w1v, b1v, w1g, b1g, w2, b2, eps=1e-5):
+def _plain_ffn(x, ln_scale, ln_bias, w1v, b1v, w1g, b1g, w2, b2, eps=1e-5,
+               partial=False):
     """The plain version (``_xla_ffn``): fast variance E[x^2]-E[x]^2 clamped
-    at 0, f32 statistics, LN output cast to the activation dtype."""
+    at 0, f32 statistics, LN output cast to the activation dtype.
+    ``partial``: the product alone, in the activation dtype."""
     xf = x.float()
     mu = xf.mean(dim=-1, keepdim=True)
     var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True) - mu * mu, min=0.0)
@@ -52,6 +60,8 @@ def _plain_ffn(x, ln_scale, ln_bias, w1v, b1v, w1g, b1g, w2, b2, eps=1e-5):
     a = y @ w1v + b1v
     g = y @ w1g + b1g
     u = a * F.gelu(g)
+    if partial:
+        return u @ w2
     return u @ w2 + b2 + x
 
 
@@ -92,9 +102,10 @@ def ffn_plan(m: int, d: int, f: int, dtype) -> dict:
     and the wgmma path's launch geometry.
 
     float32 takes the FMA path.  bf16 with d a multiple of 64 and of 128 or
-    160, at most ``MAX_WIDTH``, and F a multiple of 128 takes wgmma (the C
-    side also needs 16-byte aligned operands; every FFN of the models);
-    other bf16 shapes the FMA path.  The wgmma path is three launches (four
+    160, at most ``MAX_WIDTH``, and F a multiple of 64 (the hidden blocks
+    and k-steps are 64 wide) takes wgmma (the C side also needs 16-byte
+    aligned operands; every FFN of the models, and their tensor-parallel
+    shards at n = 2 and 4); other bf16 shapes the FMA path.  The wgmma path is three launches (four
     with a split):
 
     * the LayerNorm, y = LN(x) in bf16, one warp per row;
@@ -114,7 +125,7 @@ def ffn_plan(m: int, d: int, f: int, dtype) -> dict:
       a stage."""
     if dtype != torch.bfloat16:
         return {"path": "fma"}
-    if d % 64 or f % 128 or (d % 128 and d % 160) or d > MAX_WIDTH:
+    if d % 64 or f % 64 or (d % 128 and d % 160) or d > MAX_WIDTH:
         return {"path": "fma"}
     nwg = 1 if m <= 64 else 2
     bm = 64 * nwg
@@ -146,7 +157,7 @@ def geometry_arg(plan: dict):
                              plan["per_split"], plan["up_smem"], plan["down_smem"]))
 
 
-def _launch(x, ln_scale, ln_bias, w1v, b1v, w1g, b1g, w2, b2, eps):
+def _launch(x, ln_scale, ln_bias, w1v, b1v, w1g, b1g, w2, b2, eps, partial=False):
     if x.device.type != "cuda":
         raise ValueError(f"fused_ffn takes CPU or CUDA tensors, got {x.device}")
     b, t, d = x.shape
@@ -167,8 +178,9 @@ def _launch(x, ln_scale, ln_bias, w1v, b1v, w1g, b1g, w2, b2, eps):
         raise ValueError(f"width {d} exceeds the kernel's {MAX_WIDTH}")
     plan = ffn_plan(m, d, f, x.dtype)
     fn = _build.entry("fused_ffn", "ldm_fused_ffn_fwd", [ctypes.c_void_p] * 13 + [
-        ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
-                             ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+        ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                             ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
+                             ctypes.c_void_p])
     out = torch.empty_like(x)
     geometry = y = u = workspace = None
     if plan["path"] == "wgmma":
@@ -191,12 +203,16 @@ def _launch(x, ln_scale, ln_bias, w1v, b1v, w1g, b1g, w2, b2, eps):
         w1v.data_ptr(), b1v.data_ptr(), w1g.data_ptr(), b1g.data_ptr(),
         w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
         *(None if a is None else a.data_ptr() for a in (workspace, y, u)),
-        m, d, f, float(eps), int(x.dtype == torch.bfloat16), geometry, ctypes.byref(path),
+        m, d, f, float(eps), int(x.dtype == torch.bfloat16), int(partial), geometry,
+        ctypes.byref(path),
         torch._C._cuda_getCurrentRawStream(x.get_device()),
     )
     _build.check(err, "fused_ffn kernel launch")
     fused_ffn.launches += 1
     fused_ffn.launches_by_path[PATHS[2 - path.value]] += 1
+    if partial:
+        fused_ffn.partial_launches += 1
+        fused_ffn.partial_launches_by_path[PATHS[2 - path.value]] += 1
     return out
 
 
@@ -205,43 +221,49 @@ class _FusedFFN(torch.autograd.Function):
     through ``_plain_ffn`` and differentiates it."""
 
     @staticmethod
-    def forward(ctx, x, ln_scale, ln_bias, w1v, b1v, w1g, b1g, w2, b2, eps):
+    def forward(ctx, x, ln_scale, ln_bias, w1v, b1v, w1g, b1g, w2, b2, eps, partial):
         args = (x, ln_scale, ln_bias, w1v, b1v, w1g, b1g, w2, b2)
         ctx.save_for_backward(*args)
-        ctx.eps = eps
+        ctx.eps, ctx.partial = eps, partial
         if x.device.type == "cpu":
-            return _plain_ffn(*args, eps)
-        return _launch(*args, eps)
+            return _plain_ffn(*args, eps, partial)
+        return _launch(*args, eps, partial)
 
     @staticmethod
     def backward(ctx, grad):
         args = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
         with torch.enable_grad():
-            out = _plain_ffn(*args, ctx.eps)
-        return (*torch.autograd.grad(out, args, grad), None)
+            out = _plain_ffn(*args, ctx.eps, ctx.partial)
+        grads = torch.autograd.grad(out, args, grad, allow_unused=True)
+        return (*grads, None, None)
 
 
-def fused_ffn(x, ln_scale, ln_bias, w1v, b1v, w1g, b1g, w2, b2, eps=1e-5):
+def fused_ffn(x, ln_scale, ln_bias, w1v, b1v, w1g, b1g, w2, b2, eps=1e-5,
+              partial=False):
     """LN -> GEGLU -> Dense -> +residual over [B, T, d].
 
     x: [B, T, d] bf16 or f32; ln_scale, ln_bias: [d] (f32 on the card);
     w1v, w1g: [d, F]; b1v, b1g: [F]; w2: [F, d]; b2: [d], all in x's dtype
     on the card.  A CPU tensor takes the plain version; a CUDA tensor takes
     the kernel, or raises.  Differentiable on both (see the module
-    docstring).  ``fused_ffn.launches`` counts kernel calls,
-    ``launches_by_path`` them by path ("wgmma", "fma"; ``ffn_plan``
-    chooses)."""
+    docstring).  ``partial``: the partial-product mode (the module
+    docstring; b2 is checked but not read).  ``fused_ffn.launches`` counts
+    kernel calls, ``launches_by_path`` them by path ("wgmma", "fma";
+    ``ffn_plan`` chooses); ``partial_launches`` and
+    ``partial_launches_by_path`` count the partial-mode calls among them."""
     _check(x, ln_scale, ln_bias, w1v, b1v, w1g, b1g, w2, b2)
     if _build.needs_grad(x, ln_scale, ln_bias, w1v, b1v, w1g, b1g, w2, b2):
         return _FusedFFN.apply(x, ln_scale, ln_bias, w1v, b1v, w1g, b1g, w2,
-                               b2, eps)
+                               b2, eps, partial)
     if x.device.type == "cpu":
-        return _plain_ffn(x, ln_scale, ln_bias, w1v, b1v, w1g, b1g, w2, b2, eps)
-    return _launch(x, ln_scale, ln_bias, w1v, b1v, w1g, b1g, w2, b2, eps)
+        return _plain_ffn(x, ln_scale, ln_bias, w1v, b1v, w1g, b1g, w2, b2, eps, partial)
+    return _launch(x, ln_scale, ln_bias, w1v, b1v, w1g, b1g, w2, b2, eps, partial)
 
 
 fused_ffn.launches = 0
 fused_ffn.launches_by_path = dict.fromkeys(PATHS, 0)
+fused_ffn.partial_launches = 0
+fused_ffn.partial_launches_by_path = dict.fromkeys(PATHS, 0)
 
 
 # ------------------------------------------------------------ W8A8 FFN --

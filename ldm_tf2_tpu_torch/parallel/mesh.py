@@ -1,22 +1,29 @@
-"""The data-parallel mesh of the port over ``torch.distributed`` (the
-counterpart of ``ldm_tf2_tpu.parallel.mesh``).
+"""The device mesh of the port over ``torch.distributed`` (the counterpart
+of ``ldm_tf2_tpu.parallel.mesh``).
 
 One process drives one card.  A run launched by ``torchrun`` (which sets
 ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and
 ``MASTER_PORT``) joins the process group in ``maybe_initialize_distributed``:
 NCCL for CUDA devices, gloo for the CPU, rank r on ``cuda:<LOCAL_RANK>``.
 ``create_mesh`` checks ``tpu.mesh`` against the world size as the JAX
-``create_mesh`` checks it against the device count.
+``create_mesh`` checks it against the device count, and places rank r in
+the mesh as the JAX package places device r: ``devices.reshape(sizes)``
+over the axes in ``tpu.mesh``'s key order, so under ``{"data": 2,
+"model": 2}`` rank r sits at data r // 2 and model r % 2.  Each axis has
+the process group of the ranks that differ only in it (``Mesh.group``):
+the world's where the axis spans it, else one made by ``dist.new_group``;
+every rank makes every group, in one fixed order.
 
 The JAX package lets ``jit`` emit the collectives of a sharded step; here
-the trainers call them: ``all_reduce_mean_`` averages gradients (float32),
-``all_reduce_sum`` is the differentiable sum behind the discriminator's
-global batch statistics, ``gather_rows`` collects a batch in rank order.
-Each is the identity without a process group.  With one (at world 1 too)
-they run the collectives, so the world-1 path is the data-parallel code.
-
-Only the ``data`` axis is ported: a ``model`` axis larger than 1, tensor
-and sequence parallelism are ROADMAP queue A item A6b.
+the trainers call them, over the ``data`` axis: ``all_reduce_mean_``
+averages gradients (float32), ``all_reduce_sum`` is the differentiable sum
+behind the discriminator's global batch statistics, ``gather_rows``
+collects a batch in data order, ``shard_batch`` takes this rank's rows.
+Ranks that differ only in their ``model`` coordinate take the same rows.
+``replicate`` broadcasts over the world.  Each is the identity without a
+process group.  With one (at world 1 too) they run the collectives, so the
+world-1 path is the data-parallel code.  The ``model`` axis is the tensor-
+and sequence-parallel groups' (``ops/tp.py``, ``ops/attention.py``).
 """
 
 from __future__ import annotations
@@ -63,13 +70,46 @@ def maybe_initialize_distributed(device="cuda") -> torch.device:
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """Axis sizes (``shape``, e.g. ``{"data": 2}``), this process's rank and
-    the world size.  ``distributed`` says whether the collectives run."""
+    """Axis sizes (``shape``, e.g. ``{"data": 2, "model": 2}``), this
+    process's rank and the world size.  ``distributed`` says whether the
+    collectives run; ``groups`` holds, for an axis that does not span the
+    world, the process group of this rank's peers along it."""
 
     shape: Mapping[str, int]
     rank: int = 0
     world: int = 1
     distributed: bool = False
+    groups: Mapping[str, object] = dataclasses.field(default_factory=dict, repr=False,
+                                                     compare=False)
+
+    def size(self, axis: str) -> int:
+        return self.shape.get(axis, 1)
+
+    def index(self, axis: str) -> int:
+        """This rank's coordinate along ``axis`` (0 off the mesh's axes)."""
+        if axis not in self.shape:
+            return 0
+        coords = np.unravel_index(self.rank, tuple(self.shape.values()))
+        return int(coords[list(self.shape).index(axis)])
+
+    def group(self, axis: str):
+        """The process group of the ranks that differ from this one only
+        along ``axis`` (None: the world's, or none along an axis of one)."""
+        return self.groups.get(axis)
+
+    def spans(self, axis: str) -> bool:
+        """Whether collectives over ``axis`` run: in a process group, along
+        an axis of more than one rank or one that spans the world (at world
+        1 too, so that the world-1 path is the data-parallel code)."""
+        return self.distributed and (self.size(axis) > 1 or self.size(axis) == self.world)
+
+    @property
+    def data_index(self) -> int:
+        return self.index(DATA_AXIS)
+
+    @property
+    def data_size(self) -> int:
+        return self.size(DATA_AXIS)
 
 
 def create_mesh(mesh_shape: Mapping[str, int] | None = None,
@@ -93,41 +133,56 @@ def create_mesh(mesh_shape: Mapping[str, int] | None = None,
         raise ValueError(
             f"mesh shape {dict(zip(names, sizes))} != {world} devices"
         )
-    return Mesh(dict(zip(names, sizes)), rank, world, in_group)
+    shape = dict(zip(names, sizes))
+    groups = _axis_groups(shape, rank, world) if in_group and world > 1 else {}
+    return Mesh(shape, rank, world, in_group, groups)
 
 
-def check_data_parallel(config: dict, what: str = "") -> None:
-    """Refuse what the port does not run yet: a ``model`` axis larger than 1,
-    ``tpu.tensor_parallel`` and ``tpu.sequence_parallel``."""
-    tpu = config["tpu"]
-    model = (tpu.get("mesh") or {}).get(MODEL_AXIS, 1)
-    if tpu["sequence_parallel"] or tpu["tensor_parallel"] or model not in (-1, 1):
-        raise NotImplementedError(
-            f"not ported yet{what}: a 'model' mesh axis, tensor or sequence "
-            "parallelism (ROADMAP queue A item A6b)"
-        )
+def _axis_groups(shape: dict, rank: int, world: int) -> dict:
+    """{axis: this rank's group along it} for the axes of more than one rank
+    that do not span the world.  Every rank creates every group
+    (``dist.new_group`` is collective over the world), axis by axis in key
+    order, groups in rank order."""
+    coords = np.stack(np.unravel_index(np.arange(world), tuple(shape.values())), axis=1)
+    groups = {}
+    for a, axis in enumerate(shape):
+        if shape[axis] in (1, world):
+            continue
+        others = np.delete(coords, a, axis=1)
+        for key in sorted({tuple(c) for c in others}):
+            ranks = [r for r in range(world) if tuple(others[r]) == key]
+            group = dist.new_group(ranks)
+            if rank in ranks:
+                groups[axis] = group
+    return groups
 
 
 def _in_group(mesh: Mesh | None) -> bool:
     return mesh is not None and mesh.distributed
 
 
+def _over_data(mesh: Mesh | None) -> bool:
+    return mesh is not None and mesh.spans(DATA_AXIS)
+
+
 def shard_batch(x, mesh: Mesh | None):
-    """This rank's rows of a global batch (all of it without a group)."""
+    """This rank's rows of a global batch, by its ``data`` coordinate (all
+    of it without a group)."""
     if not _in_group(mesh):
         return x
-    if x.shape[0] % mesh.world:
+    n = mesh.data_size
+    if x.shape[0] % n:
         raise ValueError(
-            f"global batch {x.shape[0]} is not divisible by the world size "
-            f"{mesh.world}"
+            f"global batch {x.shape[0]} is not divisible by the data axis {n}"
         )
-    b = x.shape[0] // mesh.world
-    return x[mesh.rank * b:(mesh.rank + 1) * b]
+    b = x.shape[0] // n
+    return x[mesh.data_index * b:(mesh.data_index + 1) * b]
 
 
 @torch.no_grad()
 def replicate(module: torch.nn.Module, mesh: Mesh | None) -> torch.nn.Module:
-    """Broadcast ``module``'s parameters and buffers from rank 0."""
+    """Broadcast ``module``'s parameters and buffers from rank 0 to the
+    world."""
     if _in_group(mesh):
         for t in list(module.parameters()) + list(module.buffers()):
             dist.broadcast(t.data, src=0)
@@ -136,9 +191,9 @@ def replicate(module: torch.nn.Module, mesh: Mesh | None) -> torch.nn.Module:
 
 @torch.no_grad()
 def all_reduce_mean_(tensors, mesh: Mesh | None) -> None:
-    """Average ``tensors`` across ranks in place, summed in float32 (in
-    buckets of at most 256 MB of copies)."""
-    if not _in_group(mesh):
+    """Average ``tensors`` over the ``data`` axis in place, summed in
+    float32 (in buckets of at most 256 MB of copies)."""
+    if not _over_data(mesh):
         return
     tensors = list(tensors)
     start = 0
@@ -149,50 +204,53 @@ def all_reduce_mean_(tensors, mesh: Mesh | None) -> None:
             stop += 1
         bucket = tensors[start:stop]
         flat = torch.cat([t.reshape(-1).float() for t in bucket])
-        dist.all_reduce(flat)
-        flat.div_(mesh.world)
+        dist.all_reduce(flat, group=mesh.group(DATA_AXIS))
+        flat.div_(mesh.data_size)
         parts = flat.split([t.numel() for t in bucket])
         torch._foreach_copy_(bucket, [p.view_as(t) for p, t in zip(parts, bucket)])
         start = stop
 
 
 def global_mean(x: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
-    """The mean of a per-rank scalar over the ranks (``x`` without a group)."""
-    if not _in_group(mesh):
+    """The mean of a per-rank scalar over the ``data`` axis (``x`` without a
+    group)."""
+    if not _over_data(mesh):
         return x
     y = x.detach().float().clone()
-    dist.all_reduce(y)
-    return (y / mesh.world).to(x.dtype)
+    dist.all_reduce(y, group=mesh.group(DATA_AXIS))
+    return (y / mesh.data_size).to(x.dtype)
 
 
 class _AllReduceSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, group):
+        ctx.group = group
         y = x.clone()
-        dist.all_reduce(y)
+        dist.all_reduce(y, group=group)
         return y
 
     @staticmethod
     def backward(ctx, grad):
         # every rank's loss reads the sum: its gradient is the sum of theirs
         grad = grad.clone()
-        dist.all_reduce(grad)
-        return grad
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
 
 
 def all_reduce_sum(x: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
-    """The sum of ``x`` over the ranks, differentiable (``x`` without a
-    group)."""
-    return _AllReduceSum.apply(x) if _in_group(mesh) else x
+    """The sum of ``x`` over the ``data`` axis, differentiable (``x``
+    without a group)."""
+    return _AllReduceSum.apply(x, mesh.group(DATA_AXIS)) if _over_data(mesh) else x
 
 
 def gather_rows(x: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
-    """Every rank's ``x`` concatenated along the first axis in rank order."""
-    if not _in_group(mesh):
+    """Every ``data`` coordinate's ``x`` concatenated along the first axis
+    in data order."""
+    if not _over_data(mesh):
         return x
     x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(mesh.world)]
-    dist.all_gather(parts, x)
+    parts = [torch.empty_like(x) for _ in range(mesh.data_size)]
+    dist.all_gather(parts, x, group=mesh.group(DATA_AXIS))
     return torch.cat(parts)
 
 

@@ -32,8 +32,8 @@ dtype over float32 parameters.
 
 Data parallelism (``mesh``, a ``parallel.Mesh`` in a process group): the
 batch is this rank's rows of the global batch and every draw this rank's
-rows of the global batch's draw; both models' gradients are averaged over
-the ranks, the adaptive weight's two last-layer gradients before their
+rows of the global batch's draw (rows by the ``data`` coordinate); both
+models' gradients are averaged over the ``data`` axis, the adaptive weight's two last-layer gradients before their
 norms, and D's BatchNorm takes the global batch's statistics
 (``parallel.all_reduce_sum`` of the float32 sums), so the running
 statistics, both Adam states and the logged (global-mean) metrics equal
@@ -105,8 +105,8 @@ def make_ae_train_steps(autoencoder, discriminator, lpips, ae_optimizer: AdamW,
     def recon_losses(state, images, draws):
         noise_gen, dropout_gen = step_generators(seed, state.step, device, 2)
         if in_group:
-            noise_gen = RowSlice(noise_gen, mesh.rank, mesh.world)
-            dropout_gen = RowSlice(dropout_gen, mesh.rank, mesh.world)
+            noise_gen = RowSlice(noise_gen, mesh.data_index, mesh.data_size)
+            dropout_gen = RowSlice(dropout_gen, mesh.data_index, mesh.data_size)
         if kl:
             posterior = autoencoder.encode(images, generator=dropout_gen)
             z = posterior.sample(noise_gen, (draws or {}).get("posterior_noise"))

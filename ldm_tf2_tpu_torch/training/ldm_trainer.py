@@ -244,13 +244,13 @@ def make_ldm_train_step(unet, cond_model, autoencoder, schedule,
     ``mesh`` (a ``parallel.Mesh`` in a process group) makes the step one
     rank's share of a data-parallel step: the batch is this rank's rows of
     the global batch, every draw is this rank's rows of the global batch's
-    draw (``parallel.RowSlice``), the gradients are averaged over the ranks
-    (float32) before the clip, and the loss is the global mean, so the
+    draw (``parallel.RowSlice``; rows by the ``data`` coordinate), the
+    gradients are averaged over the ``data`` axis (float32) before the clip, and the loss is the global mean, so the
     ranks' step equals one process's at the global batch."""
     remat.check_policy(remat_unet)
     device = next(unet.parameters()).device
     in_group = mesh is not None and mesh.distributed
-    rank, world = (mesh.rank, mesh.world) if in_group else (0, 1)
+    rank, world = (mesh.data_index, mesh.data_size) if in_group else (0, 1)
     reduce = (lambda g: all_reduce_mean_(g, mesh)) if in_group else None
     sqrt_acp = torch.as_tensor(schedule.sqrt_alphas_cumprod, device=device)
     sqrt_1m_acp = torch.as_tensor(schedule.sqrt_one_minus_alphas_cumprod,

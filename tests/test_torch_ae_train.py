@@ -393,11 +393,12 @@ def test_ae_config_checks():
             validate(bad)
     # tpu.remat and tpu.deterministic_data are accepted (tests/test_torch_remat.py,
     # tests/test_torch_indexed.py); a mesh the world does not fill raises the
-    # JAX create_mesh's ValueError, a model axis names the unported item
+    # JAX create_mesh's ValueError, a model axis too (it is run under torchrun,
+    # tests/test_torch_tp.py)
     for tpu, error, what in (
             ({"mesh": {"data": 2}}, ValueError, r"mesh shape \{'data': 2\} != 1 devices"),
             ({"mesh": {"data": -1, "model": 2}, "tensor_parallel": True},
-             NotImplementedError, "item A6b")):
+             ValueError, r"mesh shape \{'data': 0, 'model': 2\} != 1 devices")):
         config = validate({**base, "tpu": {**base["tpu"], **tpu}})
         with pytest.raises(error, match=what):
             train(config, device="cpu", models=(None, None, None))

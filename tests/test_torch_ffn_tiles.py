@@ -112,7 +112,9 @@ def test_shared_memory_bytes_by_hand():
 def test_other_dtypes_and_widths():
     assert tff.ffn_plan(4096, 320, 1280, torch.float32) == {"path": "fma"}
     assert tff.ffn_plan(64, 96, 384, torch.bfloat16) == {"path": "fma"}
-    assert tff.ffn_plan(64, 320, 1216, torch.bfloat16) == {"path": "fma"}  # F % 128
+    assert tff.ffn_plan(64, 320, 1248, torch.bfloat16) == {"path": "fma"}  # F % 64
+    # F a multiple of 64 but not of 128 (a tensor-parallel shard) takes wgmma
+    assert tff.ffn_plan(64, 320, 1216, torch.bfloat16)["path"] == "wgmma"
     assert tff.ffn_plan(64, 1408, 5632, torch.bfloat16) == {"path": "fma"}  # beyond 1280
 
 
@@ -172,7 +174,8 @@ def _round(v, dtype):
     return v.to(dtype).float()
 
 
-def _mirror(x, lns, lnb, w1v, b1v, w1g, b1g, w2, b2, plan, eps=1e-5, counts=None):
+def _mirror(x, lns, lnb, w1v, b1v, w1g, b1g, w2, b2, plan, eps=1e-5, counts=None,
+            partial=False):
     """The wgmma path's walk on the CPU in float32, rounding where the
     kernels round to x's dtype: LN rows into y; for each (row tile, hidden
     group) the group's blocks of 64 columns, block bl by warpgroup bl % nwg
@@ -180,7 +183,8 @@ def _mirror(x, lns, lnb, w1v, b1v, w1g, b1g, w2, b2, plan, eps=1e-5, counts=None
     in float32, u = a * gelu(g) rounded; for each
     (row tile, N tile, split) the split's 64-column hidden k-steps, each
     split's sums in its own slot, added in split order from 0; then the
-    product rounded, + b2 rounded, + x rounded.  ``counts`` gets how often
+    product rounded, + b2 rounded, + x rounded (``partial``: the product
+    rounded alone, the partial-product mode).  ``counts`` gets how often
     each u element and each (output, k-step) was computed, and which
     warpgroup computed each u element."""
     dt = x.dtype
@@ -223,7 +227,7 @@ def _mirror(x, lns, lnb, w1v, b1v, w1g, b1g, w2, b2, plan, eps=1e-5, counts=None
     acc = torch.zeros(m, d)
     for z in range(splits):
         acc = acc + slots[z]
-    out = _round(_round(acc, dt) + b2.float(), dt) + xf
+    out = _round(acc, dt) if partial else _round(_round(acc, dt) + b2.float(), dt) + xf
     if counts is not None:
         counts.update(u=u_count, k=k_count, wg=u_wg)
     return out.to(dt)
@@ -293,3 +297,24 @@ def test_mirror_bf16_matches_the_plain_version_and_jax(m, d):
     for ref in (want, jax_want):
         assert float(np.abs(got - ref).max()) < tol_abs
         assert float(np.linalg.norm(got - ref) / np.linalg.norm(ref)) < tol_rel
+
+
+# (m, d, n): tensor-parallel shards of F = 4d / n hidden columns, F a
+# multiple of 64 but not always of 128 (320 at d = 320, n = 4)
+TP_MIRROR_SHAPES = [(130, 320, 4), (64, 1280, 2), (40, 640, 4)]
+
+
+@pytest.mark.parametrize("m,d,n", TP_MIRROR_SHAPES)
+def test_tp_shard_walk_in_partial_mode_is_the_plain_version(m, d, n):
+    """A shard's plan takes wgmma, its walk computes every hidden column and
+    product once, and in the partial-product mode (float32, no roundings)
+    it is ``_plain_ffn(..., partial=True)``: the product alone."""
+    f = 4 * d // n
+    plan = tff.ffn_plan(m, d, f, torch.bfloat16)
+    assert plan["path"] == "wgmma"
+    x, lns, lnb, ws = _inputs(np.random.default_rng(6), m, d, f, torch.float32)
+    counts = {}
+    got = _mirror(x, lns, lnb, *ws, plan, counts=counts, partial=True)
+    assert bool((counts["u"] == 1).all()) and bool((counts["k"] == 1).all())
+    want = tff._plain_ffn(x[None], lns, lnb, *ws, partial=True)[0]
+    assert float(np.linalg.norm(got.numpy() - want.numpy()) / np.linalg.norm(want.numpy())) < 1e-5

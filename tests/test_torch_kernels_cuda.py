@@ -126,6 +126,35 @@ def test_ffn_kernel_matches_plain_on_card(dtype, m, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,d,n", chip_smoke.FFN_TP_SHAPES)
+def test_partial_ffn_matches_plain_at_tp_shard_shapes(dtype, m, d, n):
+    """The partial-product mode (tensor parallelism) on one rank's F / n
+    hidden columns: the product alone, rounded to the activation dtype,
+    within ``chip_smoke.FFN_TOL`` of the plain version's in float32; bf16
+    on the wgmma path (F / n = 320 .. 640 is a multiple of 64), float32 on
+    the FMA path; counted on ``partial_launches``."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    x = torch.randn(1, m, d, generator=gen, device="cuda").to(dtype)
+    lns, lnb, w1v, b1v, w1g, b1g, w2, b2 = _ffn_args(gen, d, dtype)
+    cols = slice(0, 4 * d // n)
+    local = [lns, lnb, w1v[:, cols].contiguous(), b1v[cols].contiguous(),
+             w1g[:, cols].contiguous(), b1g[cols].contiguous(), w2[cols].contiguous(), b2]
+    before = dict(tff.fused_ffn.partial_launches_by_path)
+    got = tff.fused_ffn(x, *local, partial=True)
+    path = "wgmma" if dtype == torch.bfloat16 else "fma"
+    took = {k: v - before[k] for k, v in tff.fused_ffn.partial_launches_by_path.items()
+            if v - before[k]}
+    assert took == {path: 1}
+    ref = tff._plain_ffn(x.float(), *[p.float() for p in local], partial=True)
+    tol_abs, tol_rel = chip_smoke.FFN_TOL[str(dtype).split(".")[-1]]
+    diff = got.float() - ref
+    assert float(diff.abs().max()) < tol_abs
+    assert float(diff.norm() / ref.norm()) < tol_rel
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("m,d", chip_smoke.FFN_SHAPES)
 def test_ffn_wgmma_at_every_model_shape_on_card(m, d):
     """Every FFN of the sampling, serving and training paths (bf16) on the

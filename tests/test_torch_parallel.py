@@ -167,9 +167,10 @@ def write_sampler_inputs(directory) -> str:
     return path
 
 
-def sample(directory, out_dir):
+def sample(directory, out_dir, config="config.json"):
     """``run_ldm_sampler.main`` (DDIM, eta 1: noise at every step) from
-    ``out_dir``; returns the images it returned."""
+    ``out_dir`` with ``directory``'s ``config``; returns the images it
+    returned."""
     from ldm_tf2_tpu_torch.cli import run_ldm_sampler
 
     cwd = os.getcwd()
@@ -177,17 +178,17 @@ def sample(directory, out_dir):
     os.chdir(out_dir)
     try:
         return run_ldm_sampler.main([
-            "--config_path", os.path.join(directory, "config.json"), "--params_blob",
+            "--config_path", os.path.join(directory, config), "--params_blob",
             os.path.join(directory, "params"), "--seed", "9", "--device", "cpu"])
     finally:
         os.chdir(cwd)
 
 
-def train_ldm(root, ckpt, batch, num_iterations):
+def train_ldm(root, ckpt, batch, num_iterations, **tpu):
     """``run_ldm_trainer.train`` on the indexed loader; {step: loss}."""
     from ldm_tf2_tpu_torch.cli.run_ldm_trainer import train
 
-    config = ldm_config(root, ckpt, batch, num_iterations, deterministic_data=True)
+    config = ldm_config(root, ckpt, batch, num_iterations, deterministic_data=True, **tpu)
     _, records = train(config, device="cpu", seed=5, models=ldm_models(config))
     return {r["step"]: r["loss"] for r in records}
 

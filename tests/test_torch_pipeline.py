@@ -208,17 +208,30 @@ tpu: {{compute_dtype: float32}}
     assert images.min() == 0 and images.max() == 255
 
 
-def test_cli_refuses_unported_branches():
-    """Only the mesh is left unported; DeepCache and img2img pass the check."""
-    config = {"ldm_sampling": {"init_image_path": "init.npy"},
-              "tpu": {"quantize": "none", "quantize_attention": "none",
-                      "sequence_parallel": False, "tensor_parallel": False}}
-    cli.check_supported(config)
-    config["ldm_sampling"] = {"cache_interval": 2}
-    cli.check_supported(config)
-    config["tpu"]["sequence_parallel"] = True
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item A6"):
-        cli.check_supported(config)
+def test_cli_refuses_unported_branches(tmp_path, monkeypatch):
+    """No branch is left unported: DeepCache and img2img pass the sampling
+    check, and a sequence-parallel mesh at world 1 raises the JAX
+    ``create_mesh``'s ValueError (it runs under torchrun,
+    tests/test_torch_sequence_parallel.py)."""
+    cli.check_sampling({"init_image_path": "init.npy"})
+    cli.check_sampling({"cache_interval": 2})
+    config = tmp_path / "config.yaml"
+    config.write_text("""
+cond_stage_model: {vocab_size: 64, encoder_stack_size: 1, hidden_size: 32,
+  num_heads: 2, size_per_head: 16, max_seq_len: 8, filter_size: 64}
+unet: {model_channels: 32, out_channels: 4, num_blocks: 1,
+  attention_resolutions: [1], channel_mult: [1, 2], num_heads: 2}
+autoencoder_kl: {latent_channels: 4, channels: 32, num_blocks: 1,
+  attention_resolutions: [], multipliers: [1, 2], resample_with_conv: true}
+ldm: {num_steps: 50, beta_start: 0.00085, beta_end: 0.012, v_posterior: 0.0,
+  scale_factor: 0.18215, eta: 0.0, num_ddim_steps: 2}
+ldm_sampling: {guidance_scale: 5.0, latent_shape: [2, 8, 8, 4], text_prompt: a,
+  vocab_dir: none, autoencoder_type: kl}
+tpu: {compute_dtype: float32, mesh: {data: -1, model: 2}, sequence_parallel: true}
+""")
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(ValueError, match=r"mesh shape \{'data': 0, 'model': 2\} != 1 devices"):
+        cli.main(["--config_path", str(config), "--params_blob", "none", "--device", "cpu"])
 
 
 @pytest.mark.slow

@@ -290,17 +290,21 @@ def test_server_answers_with_a_non_ddim_sampler(tmp_path, monkeypatch):
     ({"init_image_path": "init.npy", "mask_path": "mask.npy", "cache_interval": 2}, {},
      ValueError, "init_image_path requires sampler: ddim"),
     ({}, {"tensor_parallel": True, "mesh": {"data": -1, "model": 2}},
-     NotImplementedError, "item A6"),
+     ValueError, r"mesh shape \{'data': 0, 'model': 2\} != 1 devices"),
 ])
 def test_remaining_branches_still_name_their_items(sampling, tpu, error, what):
-    """The configurations the JAX CLI refuses raise its ValueError; the mesh
-    is still refused, naming its ROADMAP item, by the CLI and the server."""
+    """The configurations the JAX CLI refuses raise its ValueError; a model
+    axis at world 1 raises the JAX ``create_mesh``'s, in the CLI's mesh and
+    the server (both run it under torchrun: tests/test_torch_tp.py,
+    tests/test_torch_serve_mesh.py)."""
+    from ldm_tf2_tpu_torch.parallel import create_mesh
+
     config = _config(**sampling)
     config["tpu"].update(tpu)
     config = validate(config)
     with pytest.raises(error, match=what):
         cli.check_sampling(config["ldm_sampling"])
-        cli.check_supported(config)
-    if error is NotImplementedError:
-        with pytest.raises(NotImplementedError, match=what):
+        create_mesh(config["tpu"]["mesh"])
+    if tpu:
+        with pytest.raises(error, match=what):
             serve_ldm.build_server(config, device="cpu", models=())

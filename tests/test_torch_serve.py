@@ -165,14 +165,16 @@ def test_per_slot_guidance_matches_jax():
 
 def test_server_refuses_unported_branches():
     """A cache with a sampler DeepCache does not compose with raises the JAX
-    server's ValueError, a mesh is still refused, and a DDIM DeepCache
-    config serves through ``sample_txt2img``'s DeepCache loop."""
+    server's ValueError, a model axis at world 1 the JAX ``create_mesh``'s
+    (the server runs on a mesh under torchrun: tests/test_torch_serve_mesh.py),
+    and a DDIM DeepCache config serves through ``sample_txt2img``'s
+    DeepCache loop."""
     config = _config()
     config["ldm_sampling"].update(sampler="plms", cache_interval=3)
     with pytest.raises(ValueError, match="cache_interval > 1 requires sampler: ddim "
                                          "or dpm_solver_pp_2m, got 'plms'"):
         serve_ldm.build_server(config, device="cpu", models=())
-    with pytest.raises(NotImplementedError, match="mesh.* item A6"):
+    with pytest.raises(ValueError, match=r"mesh shape \{'data': 0, 'model': 2\} != 1 devices"):
         serve_ldm.build_server(_config(mesh={"data": -1, "model": 2}), device="cpu",
                                models=())
     config = _config()

@@ -216,7 +216,8 @@ def test_ldm_trainer_encodes_vq_like_jax(tmp_path):
                                   autoencoder_type="vq", ckpt_path=None, num_iterations=1,
                                   train_cond_model=False, condition_dropout_rate=0.0)
     config = validate(config)
-    run_ldm_trainer.check_supported(config)
+    _, mesh, params = run_ldm_trainer.data_parallel_setup(config, "ldm_training", "cpu")
+    assert dict(mesh.shape) == {"data": 1} and params["batch_size"] == 2
     _, _, loaded = run_ldm_trainer._load_models(config, str(tmp_path / "params"), "cpu", 0)
     assert isinstance(loaded, tm.AutoencoderVQ)
     for name, p in loaded.state_dict().items():
