@@ -122,8 +122,17 @@ final line is printed:
    data-parallel code at world 1 in an NCCL group of one process, the LDM
    step, the AE GAN step and a CFG sampler call each bit-equal to the
    plain run, then two ranks against one process when the machine has two
-   cards (``phase_data_parallel``).  Before it, the kernels phase checks
-   the flash backward kernels at the training path's shapes, and a gradient
+   cards (``phase_data_parallel``); then (7c) the LDM step under tensor
+   parallelism at full width (``phase_tp_train``): two gloo ranks on the
+   one card on ``{"model": 2}`` (NCCL x2 and, with four cards, x4 on
+   ``{"data": 2, "model": 2}`` too) against one process at batch 2 (rank
+   0's), in float32 (TF32 off) and bf16: step 1's gradients per group,
+   the clip's global norm, replicated leaves bit-equal on the peers, the
+   launches of a step (``TP_TRAIN_STEP``), s/step and peak memory per
+   rank, and a checkpoint saved under TP (whole leaves) and restored bit
+   for bit.  Before it, the kernels phase checks the flash forward and
+   backward kernels at the training path's shapes (the TP step's local
+   heads among them), and a gradient
    phase holds a north-star-width U-Net's parameter gradients on the card
    to the CPU's in float32, with the opt-in switches off and on;
 8. AE train: the stage-1 trainer (``cli/run_autoencoder_trainer.train``)
@@ -183,9 +192,11 @@ ATTN_SHAPES = [
     (4, 16, 16, 8, 160), (2, 1024, 1024, 1, 512), (4, 1000, 1000, 8, 40),
     (8, 256, 256, 8, 80), (8, 64, 64, 8, 160), (8, 16, 16, 8, 160),
     (3, 1024, 1024, 1, 512), (8, 1024, 1024, 1, 512), (2, 1024, 1000, 1, 512),
-]
+] + [(2, t, t, 8 // n, s) for t, s in ((1024, 40), (256, 80), (64, 160)) for n in (2, 4)]
 # the autoencoder's S = 512 above: the sampling decode (batch 2), the VQ AE
-# train step (batch 3), the LDM train step's encode (batch 8), a ragged kv.
+# train step (batch 3), the LDM train step's encode (batch 8), a ragged kv;
+# last, the tensor-parallel train step's local heads (phase_tp_train's batch
+# 2, levels 0-2, 8 / n heads at model n = 2 and 4).
 # Every bf16 launch at the models' head dims takes the wgmma path (read
 # from the wrappers' launches_by_path); float32 the FMA path.
 WGMMA_HEAD_DIMS = (40, 80, 160, 512)
@@ -238,13 +249,14 @@ FFN_TOL = {"float32": (1e-3, 1e-5), "bfloat16": (1e-1, 1e-2)}
 PV_TOL = {"float32": (2e-3, 1e-3), "bfloat16": (1e-2, 5e-3)}  # (max abs, rel L2)
 # (B, Tq, Tk, H, S, extreme): the training path's self-attentions at batch
 # 8, 256^2, then a ragged kv whose logits lie near -160 (an unmasked padded
-# key would overflow exp()), then the autoencoder's 512-wide head
+# key would overflow exp()), then the autoencoder's 512-wide head, then the
+# tensor-parallel step's local heads (the last six of ATTN_SHAPES)
 BWD_SHAPES = [
     (8, 1024, 1024, 8, 40, False), (8, 256, 256, 8, 80, False),
     (8, 64, 64, 8, 160, False), (8, 16, 16, 8, 160, False),
     (4, 1000, 1000, 8, 40, True), (2, 1024, 1024, 1, 512, False),
     (3, 1024, 1024, 1, 512, False), (8, 1024, 1024, 1, 512, False),
-]
+] + [shape + (False,) for shape in ATTN_SHAPES[-6:]]
 # rel-L2 of dq, dk, dv against the plain version on the kernel's own lse and
 # di: float32 differs in summation order only; bf16 rounds each output once
 # (about 2^-9 relative)
@@ -3597,6 +3609,326 @@ def phase_tp_sp(card: str) -> dict:
     return gloo_tp
 
 
+# Tensor-parallel training: the LDM step at the full-width config (256^2,
+# text encoder frozen as the config has it, U-Net dropout 0.1, a clip of
+# TP_TRAIN_CLIP) at model 2, global batch TP_TRAIN_BATCH, against one
+# process at the same batch, cuDNN deterministic in both.  As in
+# phase_resume, a bf16 first moment and no EMA keep the checkpoint at 8.7 GB:
+# the machine takes 45 GiB of disk writes a run (tests/test_torch_tp_train.py
+# holds the EMA's gather and reshard)
+TP_TRAIN_BATCH = 2
+TP_TRAIN_SIZE = 256
+TP_TRAIN_STEPS = 3
+TP_TRAIN_CLIP = 1.0
+# Step 1's gradients per group (rel L2 against one process's float32 step):
+# float32 (TF32 off) within DP_TOL, as the two-rank data-parallel phase;
+# bf16 within TP_BF16_FACTOR times the one-process bf16 step's own distance
+# from the float32 step (the partials are rounded to bf16 before they are
+# summed)
+TP_TRAIN_DTYPES = ("float32", "bfloat16")
+# What one TP step launches at model 2: the calls of one process's step
+# (TRAIN_STEP) on 4 local heads, every FFN in the partial mode
+TP_TRAIN_STEP = {"flash_attention": 17, "flash_backward_dq": 16,
+                 "flash_backward_dkv": 16, "fused_ffn": 16, "fused_ffn_partial": 16}
+
+
+def _tp_train_config(dtype: str) -> dict:
+    config = _train_config(TP_TRAIN_BATCH, TP_TRAIN_SIZE)
+    config["latent_diffusion_optimizer"].update(clip_grad_norm=TP_TRAIN_CLIP,
+                                                mu_dtype="bfloat16")
+    if dtype == "float32":
+        config["tpu"].update(compute_dtype="float32", frozen_weights_dtype="float32")
+    return config
+
+
+def _tp_train_steps(dtype: str, mesh, ckpt_dir: str | None = None) -> dict:
+    """``TP_TRAIN_STEPS`` LDM steps of the seeded north-star models in
+    ``dtype`` (one process without ``mesh``; else the text encoder and the
+    U-Net sharded by ``shard_params_tp`` and this rank's share of the
+    step): the losses, step 1's gradients (a rank's blocks), the U-Net's
+    sharded leaves and its parameters, seconds of steps 2.., peak memory,
+    the launches of step 2; with ``ckpt_dir``, the state saved through
+    ``CheckpointManager`` and restored, each leaf compared bit for bit."""
+    import numpy as np
+    import torch
+
+    from ldm_tf2_tpu_torch import factory
+    from ldm_tf2_tpu_torch.checkpoints.manager import CheckpointManager
+    from ldm_tf2_tpu_torch.data.tokenizer import null_condition_ids
+    from ldm_tf2_tpu_torch.parallel import shard_batch
+    from ldm_tf2_tpu_torch.parallel.sharding import shard_params_tp, sharded_leaves
+    from ldm_tf2_tpu_torch.training import ldm_trainer as lt
+
+    config = _tp_train_config(dtype)
+    torch.cuda.reset_peak_memory_stats()
+    cond, unet, ae = _train_models(config, "cuda")
+    if mesh is not None:
+        shard_params_tp(cond, mesh)
+        shard_params_tp(unet, mesh)
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(97)
+    size = TP_TRAIN_SIZE
+    images = torch.as_tensor(rng.uniform(-1, 1, (TP_TRAIN_BATCH, size, size, 3)),
+                             dtype=torch.float32 if dtype == "float32" else torch.bfloat16,
+                             device="cuda")
+    ids = torch.as_tensor(rng.integers(1000, 30000, (TP_TRAIN_BATCH, 77)), device="cuda")
+    images, ids = shard_batch(images, mesh), shard_batch(ids, mesh)
+    opt = lt.make_optimizer(**config["latent_diffusion_optimizer"])
+    grads, apply = {}, opt.step_
+
+    def step_(params, g, state, *args):
+        moved = apply(params, g, state, *args)
+        if not grads:  # step 1's, after the data mean (taken in place)
+            grads.update({k: v.detach().clone() for k, v in g.items()})
+        return moved
+
+    opt.step_ = step_
+    step = lt.make_ldm_train_step(
+        unet, cond, ae, factory.build_schedule(config), opt,
+        condition_dropout_rate=0.1, null_token_ids=null_condition_ids(1, 77)[0],
+        seed=98, mesh=mesh)
+    state = lt.init_ldm_train_state(unet, cond, opt)
+    counters = _counters()
+    losses, seconds, launches = [], [], {}
+    for i in range(TP_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        if i == 1:
+            _reset(counters)
+        t0 = time.perf_counter()
+        state, m = step(state, images, ids)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        if i:
+            seconds.append(time.perf_counter() - t0)
+        if i == 1:
+            launches = {k: v for k, v in _read(counters).items() if k in TP_TRAIN_STEP}
+            launches["paths"] = {k: dict(LAST_PATHS[k]) for k in (
+                "flash_attention", "flash_backward_dq", "flash_backward_dkv",
+                "fused_ffn_partial")}
+    out = dict(losses=losses, grads=grads, seconds=seconds, launches=launches,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               shards=sharded_leaves({"unet": unet}),
+               params={f"unet.{k}": p.detach() for k, p in unet.named_parameters()},
+               unet_bytes=sum(p.numel() * p.element_size() for p in unet.parameters()))
+    if ckpt_dir is not None:
+        saved = lt.checkpoint_state(state, unet)
+        manager = CheckpointManager(ckpt_dir, mesh=mesh, shards=out["shards"])
+        t0 = time.perf_counter()
+        path = manager.save(state.step, saved)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        step_no, restored = manager.restore_latest(map_location="cpu")
+        restore_s = time.perf_counter() - t0
+        same = step_no == state.step
+        same &= all(torch.equal(restored["unet"][k].cuda(), v) for k, v in saved["unet"].items())
+        for part in ("mu", "nu"):
+            same &= all(torch.equal(restored["opt_state"][part][k].cuda(), v)
+                        for k, v in saved["opt_state"][part].items())
+        whole = True  # the file's leaves have one process's shapes
+        if mesh.rank == 0:
+            n = mesh.size("model")
+            file = torch.load(path, map_location="cpu", weights_only=True, mmap=True)
+            for k, v in saved["unet"].items():
+                shape = list(v.shape)
+                shard = out["shards"].get(f"unet.{k}")
+                if shard is not None:
+                    shape[shard.dim] *= n
+                whole &= (list(file["unet"][k].shape) == shape
+                          == list(file["opt_state"]["mu"][f"unet.{k}"].shape))
+            del file
+        out["ckpt"] = dict(same=bool(same), whole=bool(whole), save_s=save_s,
+                           restore_s=restore_s, bytes=os.path.getsize(path))
+    return out
+
+
+def _tp_train_compare(run: dict, refs: dict | None, dtype: str, mesh) -> dict:
+    """On every rank of the model group, step 1's gradients gathered: on
+    rank 0 (``refs``: one process's step-1 gradients by dtype, on the host)
+    their rel L2 per ``_grad_group`` against one process's float32 (and, for
+    bf16, bf16) gradients and their global norm; everywhere, how many
+    replicated leaves' gradients and values are bit-equal on the peers."""
+    import torch
+    import torch.distributed as dist
+
+    group, n = mesh.group("model"), mesh.size("model")
+    sums = {d: {} for d in (("float32",) if dtype == "float32" else TP_TRAIN_DTYPES)}
+    norm_sq, same, replicated = 0.0, 0, 0
+
+    def gathered(t):
+        parts = [torch.empty_like(t) for _ in range(n)]
+        dist.all_gather(parts, t.contiguous(), group=group)
+        return parts
+
+    for k, g in run["grads"].items():
+        parts, shard = gathered(g), run["shards"].get(k)
+        if shard is None:
+            replicated += 1
+            values = gathered(run["params"][k])
+            same += all(torch.equal(p, parts[0]) for p in parts[1:]) and all(
+                torch.equal(v, values[0]) for v in values[1:])
+        whole = (torch.cat(parts, dim=shard.dim) if shard is not None else parts[0]).float()
+        norm_sq += float(whole.square().sum())
+        if refs is None:
+            continue
+        for d, acc in sums.items():
+            w = refs[d][k].to(whole.device)
+            pair = acc.setdefault(_grad_group(k), [0.0, 0.0])
+            pair[0] += float((whole - w).square().sum())
+            pair[1] += float(w.square().sum())
+    rel = {d: {g: (a / max(b, 1e-30)) ** 0.5 for g, (a, b) in acc.items()}
+           for d, acc in sums.items()}
+    return dict(rel=rel, norm=norm_sq ** 0.5, same=same, replicated=replicated)
+
+
+def _tp_train_rank(rank: int, world: int, port: int, backend: str, out_dir: str,
+                   shape: dict):
+    """One rank of ``phase_tp_train``: rank 0 first takes one process's
+    steps in each dtype (the others wait), then every rank the TP steps on
+    the mesh ``shape`` in each dtype, their gradients compared on rank 0,
+    and a checkpoint round trip after the bf16 ones."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from ldm_tf2_tpu_torch import factory
+    from ldm_tf2_tpu_torch.ops import tp
+    from ldm_tf2_tpu_torch.parallel import barrier, create_mesh
+
+    torch.cuda.set_device(rank if backend == "nccl" else 0)
+    factory.set_float32_precision()
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(minutes=5))
+    result: dict = {"ref": {}, "tp": {}}
+    try:
+        mesh = create_mesh(shape)
+        refs = None
+        with _DeterministicCudnn():
+            if rank == 0:
+                refs = {}
+                for dtype in TP_TRAIN_DTYPES:
+                    ref = _tp_train_steps(dtype, None)
+                    refs[dtype] = {k: v.float().cpu() for k, v in ref["grads"].items()}
+                    norm = float(torch.stack([g.norm() for g in refs[dtype].values()]).norm())
+                    result["ref"][dtype] = dict(
+                        losses=ref["losses"], seconds=ref["seconds"], peak_gb=ref["peak_gb"],
+                        unet_bytes=ref["unet_bytes"], norm=norm)
+                    del ref
+                    torch.cuda.empty_cache()
+                result["own"] = _group_rel(refs["bfloat16"], refs["float32"])
+            barrier(mesh)
+            tp.enable_tensor_parallel(mesh)
+            for dtype in TP_TRAIN_DTYPES:
+                ckpt = os.path.join(out_dir, "ckpt") if dtype == "bfloat16" else None
+                run = _tp_train_steps(dtype, mesh, ckpt)
+                cmp = _tp_train_compare(run, refs, dtype, mesh)
+                mine = dict(losses=run["losses"], seconds=run["seconds"],
+                            peak_gb=run["peak_gb"], ckpt=run.get("ckpt"))
+                ranks = [None] * world
+                dist.all_gather_object(ranks, mine)
+                result["tp"][dtype] = dict(cmp, ranks=ranks, launches=run["launches"],
+                                           unet_bytes=run["unet_bytes"])
+                del run
+                torch.cuda.empty_cache()
+    finally:
+        tp.enable_tensor_parallel(None)
+        if rank == 0:
+            with open(os.path.join(out_dir, "result.json"), "w") as f:
+                json.dump(result, f)
+        dist.destroy_process_group()
+
+
+def phase_tp_train(card: str) -> dict:
+    """The LDM train step under tensor parallelism at full width: two gloo
+    ranks on this one card (NCCL ranks too, one a card, where the machine
+    has two; with four, also ``{"data": 2, "model": 2}``), each calling
+    ``dist.init_process_group`` before the port, on ``{"model": 2}``,
+    against one process at the same global batch (rank 0's, before the TP
+    steps), in float32 (TF32 off) and in bf16 over float32
+    masters: step 1's gradient per group (bounds at ``TP_TRAIN_DTYPES``),
+    the global norm the clip reads, the losses, replicated leaves bit-equal
+    on the peers, the launches of one step (``TP_TRAIN_STEP``), s/step and
+    peak memory per rank, and a checkpoint saved under TP (whole leaves)
+    and restored on every rank bit for bit.  Returns the gloo run's
+    launches of one step."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    start = time.perf_counter()
+    cards = torch.cuda.device_count()
+    runs = [("gloo", {"model": 2})]
+    if cards >= 2:
+        runs.append(("nccl", {"model": 2}))
+    if cards >= 4:
+        runs.append(("nccl", {"data": 2, "model": 2}))
+    gloo = None
+    for backend, shape in runs:
+        world = shape.get("data", 1) * shape["model"]
+        out_dir = tempfile.mkdtemp(prefix="ldm_tp_train_")
+        try:
+            t0 = time.perf_counter()
+            mp.start_processes(_tp_train_rank,
+                               args=(world, _free_port(), backend, out_dir, shape),
+                               nprocs=world, join=True, start_method="spawn")
+            wall = time.perf_counter() - t0
+            with open(os.path.join(out_dir, "result.json")) as f:
+                r = json.load(f)
+        finally:
+            shutil.rmtree(out_dir, ignore_errors=True)
+        ok = True
+        for dtype in TP_TRAIN_DTYPES:
+            ref, got = r["ref"][dtype], r["tp"][dtype]
+            log(f"tp train one process on {card} (rank 0, {backend}): {dtype}, batch "
+                f"{TP_TRAIN_BATCH}, {TP_TRAIN_SIZE}^2: losses {ref['losses']}, "
+                f"{statistics.median(ref['seconds']):.4f} s/step, peak {ref['peak_gb']:.2f} GB, "
+                f"U-Net weights {ref['unet_bytes'] / 1e9:.3f} GB, global norm {ref['norm']:.6g}")
+            rel = got["rel"]["float32"]
+            bounds = {g: DP_TOL if dtype == "float32" else TP_BF16_FACTOR * r["own"][g]
+                      for g in rel}
+            loss_rel = max(abs(a - b) / abs(b) for x in got["ranks"]
+                           for a, b in zip(x["losses"], ref["losses"]))
+            launches = {k: v for k, v in got["launches"].items() if k != "paths"}
+            step_ok = (all(rel[g] < bounds[g] for g in rel) and loss_rel < DP_TOL
+                       and got["same"] == got["replicated"] and launches == TP_TRAIN_STEP
+                       and all(x["ckpt"] is None or (x["ckpt"]["same"] and x["ckpt"]["whole"])
+                               for x in got["ranks"]))
+            ok &= step_ok
+            log(f"tp train {backend} x{world} on {card}: {shape}, {dtype}: step 1 gradient "
+                "rel L2 per "
+                "group against one process's float32 step "
+                + ", ".join(f"{g} {v:.3e} (bound {bounds[g]:.3e})" for g, v in rel.items())
+                + ("" if dtype == "float32" else "; against one process's bf16 step "
+                   + ", ".join(f"{g} {v:.3e}" for g, v in got["rel"]["bfloat16"].items()))
+                + f"; global norm {got['norm']:.6g} (one process {ref['norm']:.6g}, clip "
+                f"{TP_TRAIN_CLIP:g}); losses {[x['losses'] for x in got['ranks']]} (rel "
+                f"{loss_rel:.2e}, bound {DP_TOL:g}); replicated leaves bit-equal on the peers "
+                f"{got['same']} of {got['replicated']}; launches of step 2 {launches} (want "
+                f"{TP_TRAIN_STEP}), by path {got['launches']['paths']}; s/step per rank "
+                + ", ".join(f"{statistics.median(x['seconds']):.4f}" for x in got["ranks"])
+                + f" (one process {statistics.median(ref['seconds']):.4f}); peak per rank "
+                + ", ".join(f"{x['peak_gb']:.2f}" for x in got["ranks"])
+                + f" GB (one process {ref['peak_gb']:.2f}); U-Net weights per rank "
+                f"{got['unet_bytes'] / 1e9:.3f} GB (one process {ref['unet_bytes'] / 1e9:.3f}) "
+                f"{'PASS' if step_ok else 'FAIL'}")
+            ck = [x["ckpt"] for x in got["ranks"] if x["ckpt"] is not None]
+            if ck:
+                log(f"tp train {backend} x{world}: checkpoint at step {TP_TRAIN_STEPS} (the "
+                    f"sharded U-Net leaves and their moments gathered): "
+                    f"{ck[0]['bytes'] / 1e9:.3f} GB, whole leaves {ck[0]['whole']}, saved in "
+                    f"{ck[0]['save_s']:.1f} s, restored on each rank in "
+                    + ", ".join(f"{c['restore_s']:.1f}" for c in ck)
+                    + f" s, bit-equal on every rank {all(c['same'] for c in ck)}")
+            if backend == "gloo" and dtype == "bfloat16":
+                gloo = got["launches"]
+        log(f"tp train {backend} x{world}: {wall:.1f} s")
+        check(ok, f"the TP train step over {backend} x{world} on {shape} differs from one "
+                  "process")
+    log(f"tp train: {time.perf_counter() - start:.1f} s")
+    return gloo
+
 def _ae_config(ae_type: str, compute: str = "bfloat16", image_size: int = 256,
                batch: int = 3, num_iterations: int = 2, **ae_overrides) -> dict:
     """The repo config's stage-1 sections at full width (``AE_CONFIG`` and
@@ -3953,6 +4285,7 @@ def main() -> int:
     phase_data_parallel(card, train_models)
     del train_models
     torch.cuda.empty_cache()
+    tp_train = phase_tp_train(card)
     launches.update({k: train_launches[k] for k in ("flash_backward_dq",
                                                     "flash_backward_dkv")})
     phase_ae_grad()
@@ -4001,6 +4334,8 @@ def main() -> int:
         })
         if name in by_path:  # the launches above by path (wgmma, mma.sync, fma)
             kernels[-1]["launches_by_path"] = by_path[name]
+        if name in tp_train:  # one LDM step at model 2 (rows 1-3 on local heads)
+            kernels[-1]["tp_train_step_launches"] = tp_train[name]
         if convert_launches[name]:  # the sampler CLI on the converted blob
             kernels[-1]["converted_blob_launches"] = convert_launches[name]
         per_eval = {k: v for k, v in EVAL_SUMS.items() if k.split()[0] == name}

@@ -12,12 +12,17 @@ parameters are applied in float32.
 Tensor parallelism (``parallel/sharding.py::shard_params_tp``): a module
 whose kernel holds one rank's block carries ``tp`` (the split dimension,
 the block, the number of blocks; None when whole).  A column-parallel
-``Dense`` (kernel split on its output features, bias with it) and a split
-``Projection`` (on its heads) run as they are on the local block; a
-row-parallel ``Dense`` (input features) and a merge ``Projection`` (heads)
-compute their partial product, all-reduce it over the model group
-(``ops/tp.py``) and add the bias once; a vocabulary-split ``Embed`` reads
-zero for the ids outside its rows and all-reduces.
+``Dense`` (kernel split on its output features, bias with it) takes its
+input through ``ops/tp.py::copy_to_model`` (whose backward pass sums the
+input's gradient over the model group) and runs on the local block; a split
+``Projection`` (on its heads) runs on the local block as well, its caller
+(the attention) passing the replicated input through ``copy_to_model``
+once for all of q, k and v; a row-parallel ``Dense`` (input features) and
+a merge ``Projection`` (heads) compute their partial product, all-reduce it
+over the model group (``ops/tp.py``) and add the bias once; a
+vocabulary-split ``Embed`` reads zero for the ids outside its rows and
+all-reduces.  ``dropout`` on an activation that holds one rank's block of
+its last axis draws the whole axis and keeps the block (``shard``).
 """
 
 from __future__ import annotations
@@ -35,16 +40,19 @@ def _param(*shape):
     return nn.Parameter(torch.empty(*shape))
 
 
-def dropout(x, rate: float, generator):
+def dropout(x, rate: float, generator, shard=None):
     """flax ``nn.Dropout`` in training mode: keep each element with
     probability 1 - rate (a uniform draw from ``generator``, a
     ``torch.Generator`` or a ``parallel.RowSlice``, below it) and scale the
     kept ones by 1 / (1 - rate).  Identity when ``generator`` is None (not
-    training) or the rate is 0."""
+    training) or the rate is 0.  ``shard`` (a ``TPShard`` of the module
+    whose columns ``x`` holds): ``x`` is block ``index`` of ``size`` along
+    its last axis, and the mask is that block of the whole axis's draw."""
     if generator is None or rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = rng.rand(x.shape, generator, device=x.device) < keep
+    block = None if shard is None else (x.dim() - 1, shard.index, shard.size)
+    mask = rng.rand(x.shape, generator, device=x.device, block=block) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -56,6 +64,8 @@ class Dense(nn.Module):
         self.tp = None
 
     def forward(self, x):
+        if self.tp is not None and self.tp.dim == 1:  # column-parallel
+            x = _tp.copy_to_model(x)
         y = x @ self.kernel.to(x.dtype)
         if self.tp is not None and self.tp.dim == 0:  # row-parallel
             y = _tp.all_reduce_model(y)

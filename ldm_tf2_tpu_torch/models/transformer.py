@@ -8,6 +8,10 @@ Training mode (``forward(ids, training=True, generator=g)``, used when
 ``train_cond_model`` is on) applies the JAX package's dropout at
 ``dropout_rate``: after the embeddings, after each attention and each FFN
 before its residual add, and inside the FFN after the GELU.
+Under tensor parallelism the attention passes its replicated input
+through ``ops/tp.py::copy_to_model`` once for q, k and v, the FFN's
+column-parallel filter does the same for its own, and the FFN's dropout
+keeps this rank's columns of one process's mask.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from torch import nn
 from ldm_tf2_tpu_torch.models.layers import (
     Dense, Embed, LayerNorm, Projection, dropout,
 )
+from ldm_tf2_tpu_torch.ops import tp as _tp
 from ldm_tf2_tpu_torch.ops.attention import attention
 
 LAYER_NORM_EPS = 1e-5
@@ -38,6 +43,10 @@ class Attention(nn.Module):
                                  use_bias=True, mode="merge")
 
     def forward(self, query, context):
+        if self.query.tp is not None:  # column-parallel over the heads
+            copied = _tp.copy_to_model(query)
+            context = copied if context is query else _tp.copy_to_model(context)
+            query = copied
         out = attention(
             self.query(query), self.key(context), self.value(context),
             self.scale,
@@ -54,7 +63,8 @@ class FeedForwardNetwork(nn.Module):
         self.output = Dense(filter_size, hidden_size)
 
     def forward(self, x, generator=None):
-        h = dropout(F.gelu(self.filter(x)), self.dropout_rate, generator)
+        h = dropout(F.gelu(self.filter(x)), self.dropout_rate, generator,
+                    shard=self.filter.tp)
         return self.output(h)
 
 

@@ -45,7 +45,11 @@ the rank's hidden columns, one all-reduce, then + b2, + x); a ResidualBlock
 runs its first chain on the rank's output channels (conv2d_1, its bias, the
 time embedding's dense), GroupNorm 2 on those channels with 32 / n groups,
 then conv2d_2 on them as a partial sum with no bias or residual, one
-all-reduce, then + bias and + shortcut.  The opt-in kernels (rows 5-7, 12)
+all-reduce, then + bias and + shortcut.  In training, each replicated
+tensor that enters a column-parallel computation goes through
+``ops/tp.py::copy_to_model``, so that every leaf's gradient is its block
+of one process's, and the ResBlock's dropout keeps this rank's channels of
+one process's mask.  The opt-in kernels (rows 5-7, 12)
 run on the local shards where their switches are on.
 
 Serving modes (``set_serving_modes``, set by ``factory.apply_serving_modes``
@@ -170,18 +174,24 @@ class ResidualBlock(nn.Module):
     def _forward_tp(self, x, time_embedding, generator):
         """This rank's output channels of the first chain and input channels
         of the second (``shard_params_tp``); the partial sums of conv2d_2
-        are all-reduced, then the bias and the shortcut are added."""
+        are all-reduced, then the bias and the shortcut are added.  The
+        chain's replicated inputs (x, GroupNorm 1's affine, and through the
+        column-parallel ``dense`` the time embedding) enter it through
+        ``copy_to_model``; the shortcut takes x as it is.  The dropout mask
+        is this rank's channels of one process's."""
         groups = 32 // self.conv2d_2.tp.size
         t = self.dense(F.silu(time_embedding))
+        g1, copy = self.group_norm_1, _tp.copy_to_model
         h = gn_silu_conv3x3(
-            x, self.group_norm_1.scale, self.group_norm_1.bias,
+            copy(x), copy(g1.scale), copy(g1.bias),
             self.conv2d_1.kernel, self.conv2d_1.bias, time_add=t, eps=1e-5,
         )
         shortcut = x if self.shortcut is None else self.shortcut(x)
         g2, conv = self.group_norm_2, self.conv2d_2
         if generator is not None and self.dropout_rate > 0.0:
             h = group_norm(h, g2.scale, g2.bias, groups, 1e-5, activate=True)
-            part = conv3x3(dropout(h, self.dropout_rate, generator), conv.kernel, None)
+            h = dropout(h, self.dropout_rate, generator, shard=conv.tp)
+            part = conv3x3(h, conv.kernel, None)
         else:
             part = gn_silu_conv3x3(h, g2.scale, g2.bias, conv.kernel,
                                    torch.zeros_like(conv.bias), num_groups=groups,
@@ -213,6 +223,9 @@ class CrossAttention(nn.Module):
 
     def forward(self, query, context=None, generator=None):
         is_self = context is None
+        if self.query.tp is not None:  # column-parallel over the heads
+            query = _tp.copy_to_model(query)
+            context = None if is_self else _tp.copy_to_model(context)
         context = query if is_self else context
         q, k, v = self.query(query), self.key(context), self.value(context)
         if is_self:

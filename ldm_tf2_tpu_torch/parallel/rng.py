@@ -10,7 +10,13 @@ Every draw of a train step or a sampling call goes through ``rand``,
   batch, ``world`` times the rows asked for, and keeps rows ``[rank * b,
   (rank + 1) * b)``.  So rank r of a data-parallel run sees the rows an
   unbroken one-process run at the global batch would give its slice, every
-  dropout mask included; at world 1 the draws are those of the generator.
+  dropout mask included; at world 1 the draws are those of the generator;
+* ``block=(dim, index, size)`` (tensor parallelism: an activation that
+  holds one rank's block of an axis) draws ``size`` times the asked-for
+  extent along ``dim`` and keeps block ``index``, so a rank's mask is its
+  block of one process's and the generator ends where one process's does.
+  With a ``RowSlice`` both slicings apply: the global draw, then the rows,
+  then the block.
 
 ``fork`` and ``advance`` are the replay of ``models/remat.py``: a segment
 draws from a private generator set to its entry state, and the recompute
@@ -47,19 +53,28 @@ def _parts(generator):
     return generator, 0, 1
 
 
-def _draw(fn, shape, generator, **kw):
+def _draw(fn, shape, generator, block=None, **kw):
     gen, rank, world = _parts(generator)
-    shape = tuple(shape)
-    if not isinstance(generator, RowSlice):
-        return fn(shape, generator=gen, **kw)
+    shape = list(shape)
+    if block is not None:
+        dim, index, size = block
+        extent = shape[dim]
+        shape[dim] = size * extent
     b = shape[0]
-    full = fn((world * b,) + shape[1:], generator=gen, **kw)
-    return full[rank * b:(rank + 1) * b]
+    if isinstance(generator, RowSlice):
+        shape[0] = world * b
+    full = fn(tuple(shape), generator=gen, **kw)
+    if isinstance(generator, RowSlice):
+        full = full[rank * b:(rank + 1) * b]
+    if block is not None:
+        full = full.narrow(dim, index * extent, extent)
+    return full
 
 
-def rand(shape, generator, *, device, dtype=None):
-    """U[0, 1) of ``shape`` (this rank's rows under a ``RowSlice``)."""
-    return _draw(torch.rand, shape, generator, device=device, dtype=dtype)
+def rand(shape, generator, *, device, dtype=None, block=None):
+    """U[0, 1) of ``shape`` (this rank's rows under a ``RowSlice``, its
+    block under ``block``)."""
+    return _draw(torch.rand, shape, generator, block, device=device, dtype=dtype)
 
 
 def randn(shape, generator, *, device, dtype=None):

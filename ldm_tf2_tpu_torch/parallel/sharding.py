@@ -113,7 +113,8 @@ def shard_params_tp(module: torch.nn.Module, mesh: Mesh,
     """Keep this rank's block of every parameter the rules split over the
     mesh's ``model`` axis (its ``model`` coordinate's contiguous slice, as a
     ``NamedSharding`` splits it), in place, and set ``tp`` (a ``TPShard``)
-    on each module whose ``kernel`` or ``embedding`` was split.  Run it
+    on each split parameter and on each module whose ``kernel`` or
+    ``embedding`` was split.  Run it
     after the weights are loaded and cast.  Returns ``module``."""
     n, i = mesh.size(MODEL_AXIS), mesh.index(MODEL_AXIS)
     dims = tp_param_shardings(module, n, rules)
@@ -127,6 +128,17 @@ def shard_params_tp(module: torch.nn.Module, mesh: Mesh,
         p = getattr(owner, leaf)
         size = p.shape[dim] // n
         p.data = p.data.narrow(dim, i * size, size).clone()
+        p.tp = TPShard(dim, i, n)
         if leaf in ("kernel", "embedding"):
-            owner.tp = TPShard(dim, i, n)
+            owner.tp = p.tp
     return module
+
+
+def sharded_leaves(modules) -> dict[str, TPShard]:
+    """{"<prefix>.<parameter name>": its ``TPShard``} for the parameters
+    ``shard_params_tp`` split, over ``modules`` ({prefix: module}, as
+    ``training/ldm_trainer.py::trainable_params`` names them).  What
+    ``checkpoints/manager.py`` gathers and reshards."""
+    return {f"{prefix}.{name}": p.tp for prefix, module in modules.items()
+            if module is not None for name, p in module.named_parameters()
+            if getattr(p, "tp", None) is not None}

@@ -33,7 +33,8 @@ Semantics kept from the JAX step and optax 0.2.6, not PyTorch's:
 
 ``remat_unet`` (``tpu.remat``) recomputes the U-Net forward in the
 backward pass with its dropout draws replayed (``models/remat.py``), and
-``mesh`` makes the step one rank's share of a data-parallel step
+``mesh`` makes the step one rank's share of a data-parallel step, and of a
+tensor-parallel one on models sharded over its ``model`` axis
 (``make_ldm_train_step``).
 """
 
@@ -47,6 +48,7 @@ import torch
 
 from ldm_tf2_tpu_torch.diffusion.losses import q_sample
 from ldm_tf2_tpu_torch.models import AutoencoderVQ, remat
+from ldm_tf2_tpu_torch.ops import tp as _tp
 from ldm_tf2_tpu_torch.parallel import RowSlice, all_reduce_mean_, global_mean, rng
 
 # Tensors per multi-tensor op in the optimizer: bounds its temporaries to a
@@ -117,13 +119,16 @@ class AdamW:
         return state
 
     @torch.no_grad()
-    def step_(self, params: dict, grads: dict, state: dict, reduce=None) -> bool:
+    def step_(self, params: dict, grads: dict, state: dict, reduce=None,
+              global_norm=None) -> bool:
         """Fold ``grads`` into ``state`` and update ``params`` in place.
         Returns whether the parameters moved (False on the micro-steps of
         gradient accumulation).  ``reduce`` (a data-parallel run's
         ``all_reduce_mean_``) averages, in place, the gradients the update
         uses, before the clip: under accumulation the micro-steps' running
-        mean, on the sync step only (the mean is linear)."""
+        mean, on the sync step only (the mean is linear).  ``global_norm``
+        (a tensor-parallel run's ``ops.tp.global_norm``) takes the list of
+        gradients to the clip's norm, else the norm over the list."""
         names = list(params)
         g = [grads[n] for n in names]
         if self.accum_steps > 1:
@@ -140,7 +145,8 @@ class AdamW:
         if reduce is not None:
             reduce(g)
         if self.clip:
-            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
+            norm = (global_norm(g) if global_norm is not None else
+                    torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g))))
             if not float(norm) < self.clip:
                 g = torch._foreach_div(g, norm)
                 torch._foreach_mul_(g, self.clip)
@@ -245,8 +251,18 @@ def make_ldm_train_step(unet, cond_model, autoencoder, schedule,
     rank's share of a data-parallel step: the batch is this rank's rows of
     the global batch, every draw is this rank's rows of the global batch's
     draw (``parallel.RowSlice``; rows by the ``data`` coordinate), the
-    gradients are averaged over the ``data`` axis (float32) before the clip, and the loss is the global mean, so the
-    ranks' step equals one process's at the global batch."""
+    gradients are averaged over the ``data`` axis (float32) before the
+    clip, and the loss is the global mean, so the ranks' step equals one
+    process's at the global batch.
+
+    Tensor parallelism: on models sharded by
+    ``parallel.sharding.shard_params_tp`` over the mesh's ``model`` axis,
+    with ``ops.tp.enable_tensor_parallel(mesh)`` set, the step runs each
+    rank's block of every sharded leaf (its gradient, moments and EMA are
+    that block of one process's; model peers take the same rows and
+    draws, the dropout on sharded activations their block of the mask),
+    and the clip's norm is the norm over the whole leaves
+    (``ops.tp.global_norm``)."""
     remat.check_policy(remat_unet)
     device = next(unet.parameters()).device
     in_group = mesh is not None and mesh.distributed
@@ -329,8 +345,10 @@ def make_ldm_train_step(unet, cond_model, autoencoder, schedule,
 
         params = trainable_params(unet, trained_cond)
         grads = torch.autograd.grad(loss, list(params.values()))
+        sharded = [getattr(p, "tp", None) is not None for p in params.values()]
+        norm = (lambda g: _tp.global_norm(g, sharded)) if any(sharded) else None
         applied = optimizer.step_(params, dict(zip(params, grads)), state.opt_state,
-                                  reduce)
+                                  reduce, norm)
         if ema_decay is not None and applied:
             with torch.no_grad():
                 ema = [state.ema[n] for n in params]
