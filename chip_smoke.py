@@ -97,6 +97,18 @@ final line is printed:
    in-memory stream, with the launch counts read around it and held to
    what the north-star U-Net dispatches (``SERVE_EVAL``), every int8-P.V
    launch on wgmma, every GN+SiLU+quantize launch resident;
+6a. graphs (``phase_graphs``): the sampling path's U-Net evals captured as
+   CUDA graphs and replayed (``diffusion/graphs.py``; every sampling phase
+   above already runs so, the entry points' default), each run beside its
+   eager run (``graphs=False``) on the same seed and weights: the main
+   path in turns (eager, graphed, graphed, eager), the same call at
+   bench.py's headline batch 24, PLMS, DPM-Solver++(2M) and DDPM at 20
+   steps, DDIM DeepCache at interval 3, img2img, the opt-in
+   route and one int8 ``serve()`` wave; x0 and images bit-equal, launches
+   per call equal, s per call, peak memory and each capture's seconds;
+   one eval of each route (default at CFG 4 and 48, the DeepCache shallow
+   pass, opt-in, int8) profiled eager and graphed: kernel launches per
+   eval from the trace equal, wall and busy ms per eval, idle share;
 6b. tp / sp (``phase_tp_sp``): two spawned gloo ranks on the one card
    (NCCL ranks too where the machine has two or four cards), each calling
    ``dist.init_process_group`` before the port: the collectives on CUDA
@@ -757,7 +769,7 @@ def phase_int8_kernels(results, randn):
         f"bound {counts[2]} (want 0, 0, 0)")
     check(counts == [0, 0, 0], f"gn_silu_checks {counts}")
     # stage 1 at every serving input shape, plus a map the TPU streams: one
-    # launch a call (the profiler's count), resident in the clusters' shared
+    # launch a call (``_launches_per_call``), resident in the clusters' shared
     # memory at every serving shape, re-read at the streamed map, two calls
     # bit-equal
     gn_shapes = sorted({shape for shape, _, _ in chains}) + [STREAMED_MAP]
@@ -783,8 +795,9 @@ def phase_int8_kernels(results, randn):
             plain = time_ms(lambda: qc._plain_gn_silu_quant(x, gamma, beta, 32, 1e-5))
             per_call = []
             dev = device_ms(lambda: qc.gn_silu_quant(x, gamma, beta), launches=per_call)
+            one = _launches_per_call(lambda: qc.gn_silu_quant(x, gamma, beta))
             ok = (sa_rel <= 1e-6 and codes_max <= 1 and flipped <= 1e-3 and same
-                  and mode == {**dict.fromkeys(mode, 0), want: 2} and per_call[0] == 1.0)
+                  and mode == {**dict.fromkeys(mode, 0), want: 2} and one == 1)
             n = x.numel()
             # x read, codes written; ~14 float32 operations an element
             bms, by = bound_ms(n * (x.element_size() + 1), 14.0 * n, "float32")
@@ -799,8 +812,9 @@ def phase_int8_kernels(results, randn):
                 gnq_rows[shape] = results[key][-1]
             log(f"gn_silu_quant {name} {list(shape)}: sa rel {sa_rel:.2e} (tol 1e-6), "
                 f"codes max diff {codes_max} (tol 1) on {flipped:.2e} of them (tol 1e-3), "
-                f"two calls equal {same}, path {mode} (want {want}), {per_call[0]:g} "
-                f"launches a call (want 1) {'PASS' if ok else 'FAIL'}; ms {ms:.4f} plain "
+                f"two calls equal {same}, path {mode} (want {want}), {one} launches a "
+                f"call (want 1; the trace recorded {per_call[0]:g}) "
+                f"{'PASS' if ok else 'FAIL'}; ms {ms:.4f} plain "
                 f"{plain:.4f} bound {bms:.4f} ({by}); device {dev:.4f}")
     # row 8 over one serve eval's 29 calls
     EVAL_SUMS["gn_silu_quant"] = sums = {
@@ -1000,8 +1014,8 @@ def phase_ffn_int8_kernel(results, randn):
                 if timed else None
             bf16_dev = device_ms(lambda: ff.fused_ffn(x, lns, lnb, w1v, b1v, w1g, b1g, w2,
                                                       b2)) if timed else None
-            if timed:  # the profiler sees one kernel a call (it drops one now and then)
-                ok = ok and round(per_call[0]) == 1
+            if timed:  # one kernel a call
+                ok = ok and _launches_per_call(lambda: ff.fused_ffn_int8(*args)) == 1
             # x read, out written, 3 d x F int8 weights and their scales read
             nbytes = 2 * m * d * x.element_size() + 3 * d * f + 4 * (2 * f + d)
             bms, by = bound_ms(nbytes, 6.0 * m * d * f, "int8")
@@ -1132,9 +1146,7 @@ def phase_opt_in_kernels(results, randn):
         dev = {k: (device_ms(fns[k], launches=per_call if k == "kernel" else None)
                    if timed else None) for k in ("kernel", "library")}
         if name in ("group_stats", "group_norm_fused"):  # rows 5 and 6: one launch a call
-            if not per_call:
-                device_ms(fns["kernel"], n=3, launches=per_call)
-            ok = ok and per_call[0] == 1.0
+            ok = ok and _launches_per_call(fns["kernel"]) == 1
         bms, by = bound_ms(nbytes, ops, ops_type)
         results[name].append(dict(
             shape=list(shape), dtype=dtype, max_abs_err=max_abs, rel_l2=rel, ok=ok,
@@ -2439,6 +2451,29 @@ def phase_convert_export_eval(card: str) -> dict:
     return launches
 
 
+SERVE_REQUESTS = "\n".join([
+    json.dumps({"prompt": "a virus monster is playing guitar", "n": 2,
+                "seed": 1, "guidance_scale": 5.0, "out": "s1"}),
+    json.dumps({"prompt": ["an oil painting of a harbour", "a red fox"],
+                "seed": 1, "guidance_scale": 7.5, "out": "s2"}),
+    json.dumps({"prompt": "a lighthouse at dusk", "n": 1, "seed": 2,
+                "out": "s3"}),
+    "this is not json",
+])
+
+
+def _serve_config() -> dict:
+    """The serve phase's config: the north star at batch 4 in both int8
+    serving modes."""
+    from ldm_tf2_tpu_torch.configs.loader import validate
+
+    config = json.loads(json.dumps(NORTH_STAR))
+    config["ldm_sampling"].update(
+        latent_shape=[4, 32, 32, 4], vocab_dir=os.path.join(ROOT, "bert_model"))
+    config["tpu"].update(quantize="int8", quantize_attention="int8pv")
+    return validate(config)
+
+
 def phase_serve(card: str, models):
     """The JSONL server in the int8 serving modes at the north-star widths,
     driven through ``serve()`` with an in-memory stream: two requests of
@@ -2452,13 +2487,8 @@ def phase_serve(card: str, models):
     import torch
 
     from ldm_tf2_tpu_torch.cli import serve_ldm
-    from ldm_tf2_tpu_torch.configs.loader import validate
 
-    config = json.loads(json.dumps(NORTH_STAR))
-    config["ldm_sampling"].update(
-        latent_shape=[4, 32, 32, 4], vocab_dir=os.path.join(ROOT, "bert_model"))
-    config["tpu"].update(quantize="int8", quantize_attention="int8pv")
-    config = validate(config)
+    config = _serve_config()
     steps = config["ldm"]["num_ddim_steps"]
 
     # what one pipeline call launches: SERVE_EVAL per U-Net eval, and the
@@ -2474,15 +2504,6 @@ def phase_serve(card: str, models):
     want = {k: 0 for k in _counters()}  # the opt-in switches are off
     want.update({k: calls * v for k, v in per_call.items()})
 
-    requests = "\n".join([
-        json.dumps({"prompt": "a virus monster is playing guitar", "n": 2,
-                    "seed": 1, "guidance_scale": 5.0, "out": "s1"}),
-        json.dumps({"prompt": ["an oil painting of a harbour", "a red fox"],
-                    "seed": 1, "guidance_scale": 7.5, "out": "s2"}),
-        json.dumps({"prompt": "a lighthouse at dusk", "n": 1, "seed": 2,
-                    "out": "s3"}),
-        "this is not json",
-    ])
     counters = _counters()
     out = io.StringIO()
     with tempfile.TemporaryDirectory(dir=ROOT) as out_dir:
@@ -2490,7 +2511,7 @@ def phase_serve(card: str, models):
         torch.cuda.reset_peak_memory_stats()
         _reset(counters)
         start = time.perf_counter()
-        serve_ldm.serve(config, io.StringIO(requests), out, output_dir=out_dir,
+        serve_ldm.serve(config, io.StringIO(SERVE_REQUESTS), out, output_dir=out_dir,
                         device="cuda", models=models)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - start
@@ -2522,6 +2543,308 @@ def phase_serve(card: str, models):
           f"{want['flash_attention_pv_int8']} on wgmma")
     phase_profile(models[1], (4, 32, 32, 4))  # the U-Net in its int8 modes
     return launches
+
+
+# Bench.py's headline batch (bench.py:226-231): 24 latents, CFG batch 48
+GRAPHS_HEADLINE_BATCH = 24
+# PLMS's, DPM-Solver++(2M)'s steps and DDPM's timeline in the graphs phase,
+# cut from 50 (and DDPM's 1000) to keep the phase short
+GRAPHS_SAMPLER_STEPS = 20
+# Evals timed bare (no profiler) and profiled in one window for each eval pair
+GRAPHS_EVALS = (3, 5)
+
+
+def _graph_pool_gb() -> float:
+    """Device memory held by the CUDA graphs' private pools: the segments
+    of the allocator's snapshot outside the default pool."""
+    import torch
+
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0)) / 1e9
+
+
+def _launches_per_call(fn) -> int:
+    """The kernels one call of ``fn()`` launches, counted exactly: the
+    kernel nodes of the call captured into a graph (a profiler's trace
+    drops a record now and then)."""
+    return sum(_graph_kernels(fn).values())
+
+
+def _graph_kernels(fn) -> dict:
+    """The kernel nodes by name of a CUDA graph captured from ``fn()``: the
+    launches of ``fn`` on the card, each one node, none lost (the wrappers'
+    counters are left as they were: the capture launched nothing)."""
+    import torch
+
+    from ldm_tf2_tpu_torch.diffusion import graphs
+
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    before = graphs.counts()
+    with torch.cuda.graph(graph):
+        fn()
+    graphs.add_counts(graphs.rise(before, graphs.counts()), -1)  # a capture launches nothing
+    names = dict(graphs.graph_kernels(graph))
+    del graph
+    return names
+
+
+def _eval_pair(unet, shape, what: str, cache_levels: int | None = None) -> None:
+    """One U-Net eval at the CFG batch of latent ``shape``, eager and
+    through ``graphs.graphed_eps_model``: the replay bit-equal to the eager
+    eval, the wrappers' counts of one graphed eval (read off its graph's
+    kernel nodes) equal to one eager eval's, and the graph's kernel nodes by
+    name equal to those of the eager eval captured into a graph of its own
+    (the launches of the eager eval, exactly).  Then wall ms per eval timed
+    bare in turns (eager, graphed, graphed, eager), and one profiled window
+    of each: busy ms, idle share, and the launches the trace recorded
+    (a window can lose records: they are reported beside the graph's count,
+    not held to it).  ``cache_levels``: the shallow pass, fed a fresh cache."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ldm_tf2_tpu_torch.diffusion import graphs
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    b2 = 2 * shape[0]
+    x = torch.randn((b2, *shape[1:]), generator=gen, device="cuda", dtype=unet.dtype)
+    t = torch.full((b2,), 501.0, device="cuda")
+    ctx = torch.randn(b2, 77, 1280, generator=gen, device="cuda", dtype=unet.dtype) * 0.05
+    n_bare, n_prof = GRAPHS_EVALS
+    out = {}
+    with torch.inference_mode():
+        kw = {}
+        if cache_levels:
+            cache = unet(x, t, ctx, return_cache=True, cache_levels=cache_levels)[1]
+            kw = dict(shallow_cache=cache, cache_levels=cache_levels)
+        model = graphs.graphed_eps_model(unet)
+        fns = {"eager": lambda: unet(x, t, ctx, **kw), "graphed": lambda: model(x, t, ctx, **kw)}
+        want = fns["eager"]()
+        for name, fn in fns.items():
+            fn()  # the graphed model's capture, if its key is new
+            before = graphs.counts()
+            got = fn()
+            out[name] = {"counts": graphs.rise(before, graphs.counts())}
+            check(torch.equal(got, want), f"{what}: the {name} eval differs from the eager one")
+        check(out["graphed"]["counts"] == out["eager"]["counts"],
+              f"{what}: a replay counts {out['graphed']['counts']}, an eager eval "
+              f"{out['eager']['counts']}")
+        replayed = dict(graphs.STORE.kernels(model.key(x, t, ctx, **kw)))
+        eager_nodes = _graph_kernels(fns["eager"])
+        walls = {"eager": [], "graphed": []}
+        for name in ("eager", "graphed", "graphed", "eager"):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            for _ in range(n_bare):
+                fns[name]()
+            torch.cuda.synchronize()
+            walls[name].append((time.perf_counter() - start) * 1e3 / n_bare)
+        for name, fn in fns.items():
+            wall = statistics.mean(walls[name])
+            # the device's activity only: the host's ops would add 10-15 s
+            # of the profiler's own processing to an eager window
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                start = time.perf_counter()
+                for _ in range(n_prof):
+                    fn()
+                torch.cuda.synchronize()
+                prof_ms = (time.perf_counter() - start) * 1e3
+            rep = _profile_report(prof, n_prof, f"{name} {what}", prof_ms, wall * n_prof)
+            check(rep is not None, f"{what}: the profiler recorded no device time")
+            out[name].update(wall_ms=wall, walls=walls[name], busy_ms=rep["busy_ms"],
+                             seen=rep["launches"] - rep["copies"], copies=rep["copies"],
+                             idle=1 - rep["busy_ms"] / wall)
+    e, g = out["eager"], out["graphed"]
+    n_nodes = sum(replayed.values())
+    log(f"graphs: {what} at CFG batch {b2}: wall per eval eager {e['wall_ms']:.2f} ms "
+        f"{[round(w, 2) for w in e['walls']]}, graphed {g['wall_ms']:.2f} ms "
+        f"{[round(w, 2) for w in g['walls']]} ({e['wall_ms'] / g['wall_ms']:.2f}x); device "
+        f"busy {e['busy_ms']:.2f} / {g['busy_ms']:.2f} ms, idle share {e['idle']:.1%} / "
+        f"{g['idle']:.1%}; kernel launches per eval: the replayed graph's kernel nodes "
+        f"{n_nodes} ({len(replayed)} kernels), the eager eval's {sum(eager_nodes.values())} "
+        f"(captured), the traces recorded {e['seen']:.2f} / {g['seen']:.2f} (copies and "
+        f"memsets {e['copies']:.2f} / {g['copies']:.2f}); counters per eval equal, replay "
+        f"bit-equal")
+    if replayed != eager_nodes:
+        names = set(replayed) | set(eager_nodes)
+        check(False, f"{what}: kernel nodes by name differ (replayed graph, eager eval): "
+              + "; ".join(f"{k[:80]} {replayed.get(k, 0)}, {eager_nodes.get(k, 0)}"
+                          for k in sorted(names) if replayed.get(k, 0) != eager_nodes.get(k, 0)))
+
+
+def phase_graphs(card: str, run: dict) -> None:
+    """The sampling path's U-Net evals captured as CUDA graphs and replayed
+    (``diffusion/graphs.py``), each run beside its eager run
+    (``graphs=False``) with the same seed and weights: the main path (50
+    CFG DDIM steps, batch 2, bf16) in turns (eager, graphed, graphed,
+    eager), the same call at ``GRAPHS_HEADLINE_BATCH``, the opt-in route,
+    PLMS, DPM-Solver++(2M) (karras) and DDPM (its whole timeline) at
+    ``GRAPHS_SAMPLER_STEPS``, DDIM DeepCache at interval 3, one img2img
+    call, and one ``serve()`` wave in the int8 + int8-P.V modes at batch 4
+    (``SERVE_REQUESTS``).  Each pair: x0 and images bit-equal, the launch
+    counts per call equal, s per call and peak memory allocated each side
+    (a graph's temporaries live in its pool, outside that count), the
+    graphs' pools' size, the seconds of every new capture (its eager
+    warm-up eval included).  ``_eval_pair`` profiles one eval of each
+    route (default at batch 2 and 24, opt-in, int8, the DeepCache shallow
+    pass)."""
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ldm_tf2_tpu_torch import factory
+    from ldm_tf2_tpu_torch.cli import serve_ldm
+    from ldm_tf2_tpu_torch.cli.run_ldm_sampler import sample_img2img, sample_txt2img
+    from ldm_tf2_tpu_torch.data.tokenizer import cfg_token_ids, load_tokenizer
+    from ldm_tf2_tpu_torch.diffusion import graphs
+    from ldm_tf2_tpu_torch.diffusion.schedule import make_schedule
+
+    start_phase = time.perf_counter()
+    models, ids, shape, kwargs = run["models"], run["ids"], run["shape"], run["kwargs"]
+    unet, autoencoder = models[1], models[2]
+    unet.set_serving_modes()
+    autoencoder.set_serving_modes()
+    config = run["config"]
+    sampling, ldm = config["ldm_sampling"], config["ldm"]
+    schedule = factory.build_schedule(config)
+    steps = schedule.num_ddim_steps
+    base = dict(num_steps=ldm["num_steps"], beta_start=ldm["beta_start"],
+                beta_end=ldm["beta_end"], num_ddim_steps=steps)
+    short = make_schedule(**{**base, "num_ddim_steps": 2})
+    store = graphs.STORE
+    counters = _counters()
+
+    def one(fn, on):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset(counters)
+        start = time.perf_counter()
+        outs = fn(on)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        counts = {k: v for k, v in _read(counters).items() if v}
+        return (seconds, counts, [o.float().cpu() if torch.is_tensor(o) else o for o in outs],
+                torch.cuda.max_memory_allocated() / 1e9, _graph_pool_gb())
+
+    def pair(name, fn, evals, warm=None, order=(False, True, True, False)):
+        """``fn(graphs) -> outputs`` eager and graphed in the turns of
+        ``order``, after ``warm(True)`` (a short graphed call that captures
+        the run's keys), each output held bit-equal to the first eager
+        run's."""
+        n0 = len(store.capture_seconds)
+        if warm is not None:
+            warm(True)
+        runs = {False: [], True: []}
+        for on in order:
+            runs[on].append(one(fn, on))
+        captured = store.capture_seconds[n0:]
+        ref = runs[False][0]
+        for on, got in ((on, r) for on in runs for r in runs[on]):
+            for i, (a, b) in enumerate(zip(got[2], ref[2])):
+                same = (torch.equal(a, b) if torch.is_tensor(a) else np.array_equal(a, b))
+                if not same:
+                    diff = float((torch.as_tensor(a).float() - torch.as_tensor(b).float())
+                                 .abs().max())
+                    check(False, f"graphs {name}: output {i} of a "
+                                 f"{'graphed' if on else 'eager'} run differs from the first "
+                                 f"eager run, max abs {diff:.3e}")
+            check(got[1] == ref[1], f"graphs {name}: launches {got[1]} against eager {ref[1]}")
+        e_s = statistics.mean(r[0] for r in runs[False])
+        g_s = statistics.mean(r[0] for r in runs[True])
+        peak = (max(r[3] for r in runs[False]), max(r[3] for r in runs[True]))
+        pool = max(r[4] for r in runs[True])
+        log(f"graphs: {name} on {card}: {evals} U-Net evals a call, s per call eager "
+            f"{[round(r[0], 3) for r in runs[False]]}, graphed "
+            f"{[round(r[0], 3) for r in runs[True]]} ({e_s / g_s:.2f}x), per eval "
+            f"{e_s / evals * 1e3:.2f} / {g_s / evals * 1e3:.2f} ms (encode and decode "
+            f"included); x0 and images bit-equal PASS; launches per call equal PASS "
+            f"{ref[1]}; peak allocated eager {peak[0]:.2f} GB, graphed {peak[1]:.2f} GB, "
+            f"the graphs' pools {pool:.2f} GB; {len(captured)} capture(s) "
+            f"{[round(c, 3) for c in captured]} s")
+
+    def txt2img(sched, ids_=ids, shape_=shape, **kw):
+        return lambda on: sample_txt2img(*models, sched, ids_, shape_, graphs=on,
+                                         **{**kwargs, **kw})
+
+    # the main path
+    pair("main path, DDIM", txt2img(schedule), steps, warm=txt2img(short))
+    _eval_pair(unet, shape, "default bf16 eval")
+    # bench.py's headline batch
+    tokenizer = load_tokenizer(os.path.join(ROOT, sampling["vocab_dir"]))
+    hb = GRAPHS_HEADLINE_BATCH
+    ids24 = torch.as_tensor(cfg_token_ids(tokenizer, sampling["text_prompt"], hb, 77))
+    shape24 = (hb,) + tuple(shape[1:])
+    pair(f"headline, DDIM, batch {hb}", txt2img(schedule, ids24, shape24), steps,
+         warm=txt2img(short, ids24, shape24), order=(False, True))
+    _eval_pair(unet, shape24, f"default bf16 eval, batch {hb}")
+    # the other samplers on the main path's key, at GRAPHS_SAMPLER_STEPS
+    n = GRAPHS_SAMPLER_STEPS
+    for sampler, sched in (
+            ("plms", make_schedule(**{**base, "num_ddim_steps": n})),
+            ("dpm_solver_pp_2m", make_schedule(**{**base, "num_ddim_steps": n},
+                                               timestep_spacing="karras")),
+            ("ddpm", make_schedule(**{**base, "num_steps": n, "num_ddim_steps": n}))):
+        pair(f"{sampler}, {n} steps", txt2img(sched, sampler=sampler), n, order=(False, True))
+    # DeepCache DDIM, interval 3: the cache-returning and the shallow pass
+    pair("DeepCache DDIM, interval 3", txt2img(schedule, cache_interval=3), steps,
+         warm=txt2img(short, cache_interval=2), order=(False, True))
+    _eval_pair(unet, shape, "DeepCache shallow eval", cache_levels=1)
+    # img2img at strength 0.75: 38 steps
+    pixels = np.random.default_rng(11).integers(0, 256, (shape[0], 256, 256, 3), np.uint8)
+    init_image = pixels.astype(np.float32) / 127.5 - 1.0
+    t_enc = int(round(0.75 * steps))
+    pair("img2img, strength 0.75",
+         lambda on: sample_img2img(*models, schedule, ids, init_image, strength=0.75,
+                                   graphs=on, **kwargs), t_enc, order=(False, True))
+    # the opt-in route
+    _set_switches("pallas", "pallas", True)
+    try:
+        pair("opt-in route, DDIM", txt2img(schedule), steps, warm=txt2img(short),
+             order=(False, True))
+        _eval_pair(unet, shape, "opt-in bf16 eval")
+    finally:
+        _set_switches("auto", "auto", False)
+    # one serve() wave in the int8 modes (its warm-up captures the key)
+    serve_config = _serve_config()
+
+    def serve(on):
+        out = io.StringIO()
+        with tempfile.TemporaryDirectory(dir=ROOT) as out_dir:
+            serve_ldm.serve(serve_config, io.StringIO(SERVE_REQUESTS), out,
+                            output_dir=out_dir, device="cuda", models=models, graphs=on)
+            resps = [json.loads(line) for line in out.getvalue().splitlines()]
+            check([r["ok"] for r in resps] == [True, True, True, False],
+                  f"graphs serve: responses {resps}")
+            return [np.load(r["out"]) for r in resps[:3]] + [resps[0]["latency_s"]]
+
+    n0 = len(store.capture_seconds)
+    waves = {}
+    for on in (False, True):
+        seconds, counts, outs, peak, pool = one(serve, on)
+        waves[on] = (seconds, counts, outs[:3], outs[3], peak, pool)
+    for a, b in zip(waves[True][2], waves[False][2]):
+        check(np.array_equal(a, b), "graphs serve: the graphed wave's images differ")
+    check(waves[True][1] == waves[False][1],
+          f"graphs serve: launches {waves[True][1]} against eager {waves[False][1]}")
+    captured = store.capture_seconds[n0:]
+    log(f"graphs: serve, int8 + int8-P.V, batch 4, 50 steps, on {card}: warm-up and 2 "
+        f"calls eager {waves[False][0]:.3f} s, graphed {waves[True][0]:.3f} s; the wave "
+        f"(2 calls) {waves[False][3]:.3f} / {waves[True][3]:.3f} s, "
+        f"{waves[False][3] / 2:.3f} / {waves[True][3] / 2:.3f} s per call; images "
+        f"bit-equal PASS; launches over 3 calls equal PASS {waves[True][1]}; peak "
+        f"allocated {waves[False][4]:.2f} / {waves[True][4]:.2f} GB, the graphs' pools "
+        f"{waves[True][5]:.2f} GB; "
+        f"{len(captured)} capture(s) {[round(c, 3) for c in captured]} s")
+    unet.set_serving_modes(conv_quant=True, attention_pv_int8=True)
+    try:
+        _eval_pair(unet, (4,) + tuple(shape[1:]), "int8 + int8-P.V eval")
+    finally:
+        unet.set_serving_modes()
+        autoencoder.set_serving_modes()
+    graphs.STORE.clear()
+    torch.cuda.empty_cache()
+    log(f"graphs: phase took {time.perf_counter() - start_phase:.1f} s on {card}")
 
 
 def _kernel_group(name: str) -> str:
@@ -4151,12 +4474,12 @@ def phase_ae_train(card: str):
 
 
 def _profile_report(prof, n: int, what: str, wall_ms: float,
-                    bare_ms: float | None = None) -> None:
+                    bare_ms: float | None = None) -> dict | None:
     """Device time by kernel group per unit over a profiled window of ``n``
     units, and the device's idle share of the window's wall time (and of
     ``bare_ms``, the same work timed without the profiler, when given).
-    Returns the device busy time and the launches per unit (None when the
-    window recorded no device time)."""
+    Returns the device busy time, the launches and, among them, the copies
+    and memsets per unit (None when the window recorded no device time)."""
     import torch
 
     groups: dict[str, float] = {}
@@ -4173,9 +4496,12 @@ def _profile_report(prof, n: int, what: str, wall_ms: float,
     if busy <= 0.0:
         log("profile: the profiler recorded no device time")
         return None
+    launches = sum(c for _, c in kernels.values()) / n
+    copies = sum(c for name, (_, c) in kernels.items()
+                 if "memcpy" in name.lower() or "memset" in name.lower()) / n
+    result = {"busy_ms": busy / n, "launches": launches, "copies": copies}
     parts = ", ".join(f"{k} {v / n:.2f} ms ({v / busy:.1%})"
                       for k, v in sorted(groups.items(), key=lambda kv: -kv[1]))
-    launches = sum(c for _, c in kernels.values()) / n
     bare = "" if bare_ms is None else (
         f"{bare_ms / n:.2f} ms wall per unit without the profiler, ")
     idle = "" if bare_ms is None else f"{1 - busy / bare_ms:.1%} of the unprofiled wall, "
@@ -4185,7 +4511,7 @@ def _profile_report(prof, n: int, what: str, wall_ms: float,
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
     log("profile: top kernels per unit: " + "; ".join(
         f"{name[:60]} {ms / n:.3f} ms x{c // n}" for name, (ms, c) in top))
-    return {"busy_ms": busy / n, "launches": launches}
+    return result
 
 
 def phase_profile(unet, shape, evals: int = 3, what: str | None = None,
@@ -4272,6 +4598,7 @@ def main() -> int:
     by_path["gn_silu_quant"] = dict(LAST_MODES["gn_silu_quant"])
     launches.update({k: serve[k] for k in ("gn_silu_quant", "s8_conv3x3",
                                            "flash_attention_pv_int8")})
+    phase_graphs(card, run)
     del run
     torch.cuda.empty_cache()
     # row 2's partial mode reports its launches in the TP sampler call

@@ -40,7 +40,10 @@ data coordinate samples every row.  Rank 0 writes them.  The serving modes
 ``tpu.quantize: int8`` and ``tpu.quantize_attention: int8pv`` apply here as
 in the JAX CLI, which honours both (``factory.apply_serving_modes``).  The
 text-to-image pipeline is ``sample_txt2img`` (``sample_txt2img_progressive``
-with the progress records).
+with the progress records).  On one card every loop's U-Net eval is
+captured once as a CUDA graph and replayed (``diffusion/graphs.py``, the
+JAX CLI's ``jax.jit`` of the pipeline); ``graphs=False`` runs them
+eagerly, and so does a mesh of more than one rank.
 """
 
 from __future__ import annotations
@@ -51,6 +54,7 @@ import numpy as np
 import torch
 
 from ldm_tf2_tpu_torch import factory
+from ldm_tf2_tpu_torch.diffusion.graphs import describe, eps_model_for
 from ldm_tf2_tpu_torch.diffusion.sampler import (
     ddim_img2img_loop, ddim_sample_loop, ddim_sample_loop_deepcache,
     ddim_sample_loop_progressive, ddpm_sample_loop,
@@ -138,7 +142,8 @@ def sample_txt2img(cond_model, unet, autoencoder, schedule, token_ids, shape,
                    guidance_rescale: float = 0.0, scale_factor: float = 0.18215,
                    seed: int = 0, init_noise=None, step_noises=None,
                    return_trajectory: bool = False, cache_interval: int = 1,
-                   cache_levels: int = 1, device="cuda", mesh=None):
+                   cache_levels: int = 1, device="cuda", mesh=None,
+                   graphs: bool = True):
     """Text encode -> CFG sampling loop (``sampler``, a key of
     ``SAMPLE_LOOPS``) -> decode (``decode_latents``).
 
@@ -149,7 +154,10 @@ def sample_txt2img(cond_model, unet, autoencoder, schedule, token_ids, shape,
     ``return_trajectory`` (DDIM, no DeepCache) are the loops' test hooks.
     ``mesh`` (a data-parallel rank's): token_ids and shape are this rank's
     share (``rank_rows``) and every draw is this rank's rows of the global
-    batch's draw, by its ``data`` coordinate.  Returns (images [B, H, W, 3]
+    batch's draw, by its ``data`` coordinate.  ``graphs``: on a CUDA device
+    in one process the loop's U-Net evals replay CUDA graphs
+    (``diffusion/graphs.py``); False runs them eagerly, for comparison.  The
+    text encode and the decode run eagerly.  Returns (images [B, H, W, 3]
     float, x0 latents), plus the [S, B, h, w, c] trajectory when asked.
     """
     device = factory.resolve_device(device)
@@ -171,9 +179,9 @@ def sample_txt2img(cond_model, unet, autoencoder, schedule, token_ids, shape,
         generator = _generator(device, seed, mesh)
         context = cond_model(torch.as_tensor(token_ids, device=device))
         out = loop(
-            unet, schedule, context, shape, generator,
-            guidance_scale=guidance_scale, guidance_rescale=guidance_rescale,
-            init_noise=init_noise, **hooks,
+            eps_model_for(unet, device, graphs), schedule, context, shape,
+            generator, guidance_scale=guidance_scale,
+            guidance_rescale=guidance_rescale, init_noise=init_noise, **hooks,
         )
         x0, traj = out if return_trajectory else (out, None)
         images = decode_latents(autoencoder, x0 / scale_factor)
@@ -186,7 +194,7 @@ def sample_img2img(cond_model, unet, autoencoder, schedule, token_ids, init_imag
                    mask=None, strength: float = 0.75, guidance_scale: float = 5.0,
                    guidance_rescale: float = 0.0, scale_factor: float = 0.18215,
                    seed: int = 0, enc_noise=None, init_noise=None, step_noises=None,
-                   keep_noises=None, device="cuda", mesh=None):
+                   keep_noises=None, device="cuda", mesh=None, graphs: bool = True):
     """Text encode, image encode -> ``ddim_img2img_loop`` -> decode.
 
     init_image: [B, H, W, 3] in [-1, 1]; mask: None or [B or 1, h, w, 1] at
@@ -195,9 +203,9 @@ def sample_img2img(cond_model, unet, autoencoder, schedule, token_ids, init_imag
     generator); the VQ autoencoder's latents are taken before quantization,
     as the JAX CLI does.  ``init_noise``, ``step_noises`` and
     ``keep_noises`` are the loop's test hooks.  ``mesh``: as in
-    ``sample_txt2img``, init_image and mask this rank's rows.  Returns
-    (images [B, H, W, 3] float, x0 latents, the init latents times
-    ``scale_factor``)."""
+    ``sample_txt2img``, init_image and mask this rank's rows; ``graphs`` as
+    there (the encode runs eagerly).  Returns (images [B, H, W, 3] float, x0
+    latents, the init latents times ``scale_factor``)."""
     device = factory.resolve_device(device)
     with torch.inference_mode():
         generator = _generator(device, seed, mesh)
@@ -209,10 +217,10 @@ def sample_img2img(cond_model, unet, autoencoder, schedule, token_ids, init_imag
             z = autoencoder.encode(x).sample(generator, noise=enc_noise)
         init_latent = z * scale_factor
         x0 = ddim_img2img_loop(
-            unet, schedule, context, init_latent, generator, strength=strength,
-            guidance_scale=guidance_scale, mask=mask, init_noise=init_noise,
-            guidance_rescale=guidance_rescale, step_noises=step_noises,
-            keep_noises=keep_noises,
+            eps_model_for(unet, device, graphs), schedule, context, init_latent,
+            generator, strength=strength, guidance_scale=guidance_scale, mask=mask,
+            init_noise=init_noise, guidance_rescale=guidance_rescale,
+            step_noises=step_noises, keep_noises=keep_noises,
         )
         images = decode_latents(autoencoder, x0 / scale_factor)
     return images, x0, init_latent
@@ -223,19 +231,20 @@ def sample_txt2img_progressive(cond_model, unet, autoencoder, schedule, token_id
                                guidance_rescale: float = 0.0,
                                scale_factor: float = 0.18215, seed: int = 0,
                                init_noise=None, step_noises=None, device="cuda",
-                               mesh=None):
+                               mesh=None, graphs: bool = True):
     """``sample_txt2img`` with DDIM's progress records
     (``ddim_sample_loop_progressive``, every 5th step), decoded in one
-    autoencoder call.  Returns (images [B, H, W, 3], x0, sample_progress and
-    pred_x0_progress images [B, records, H, W, 3])."""
+    autoencoder call; ``graphs`` as there.  Returns (images [B, H, W, 3], x0,
+    sample_progress and pred_x0_progress images [B, records, H, W, 3])."""
     device = factory.resolve_device(device)
     with torch.inference_mode():
         generator = _generator(device, seed, mesh)
         context = cond_model(torch.as_tensor(token_ids, device=device))
         x0, sample_prog, pred_x0_prog = ddim_sample_loop_progressive(
-            unet, schedule, context, shape, generator,
-            guidance_scale=guidance_scale, guidance_rescale=guidance_rescale,
-            init_noise=init_noise, step_noises=step_noises,
+            eps_model_for(unet, device, graphs), schedule, context, shape,
+            generator, guidance_scale=guidance_scale,
+            guidance_rescale=guidance_rescale, init_noise=init_noise,
+            step_noises=step_noises,
         )
         records = sample_prog.shape[1]
         flat = torch.cat([x0[:, None], sample_prog, pred_x0_prog], dim=1)
@@ -408,6 +417,7 @@ def main(argv=None) -> torch.Tensor | None:
     )
     say(f"[INFO] Sampling: {sampler}, {schedule.num_ddim_steps} steps, eta "
         f"{schedule.eta}, guidance {sampling['guidance_scale']} on {device}...")
+    say(f"[INFO] {describe(device)}.")
     kwargs = dict(
         guidance_scale=float(sampling["guidance_scale"]),
         guidance_rescale=float(sampling.get("guidance_rescale", 0.0)),

@@ -44,9 +44,16 @@ batch (its token rows and guidances, every draw its rows of the global
 draw, ``parallel.RowSlice``) and the images are gathered to rank 0, which
 writes the files and the responses.  ``tpu.sequence_parallel`` runs
 Ulysses attention over the ``model`` axis; tensor parallelism is never
-applied, as in the JAX server.  The JAX server's
-``--aot_cache`` has no counterpart: PyTorch runs eagerly and compiles no
-pipeline executable to cache.
+applied, as in the JAX server.
+
+As the JAX server compiles its pipeline at warm-up, this one captures the
+batch's U-Net eval as a CUDA graph at warm-up (``diffusion/graphs.py``)
+and every call of the compiled batch size replays it; stderr says how the
+evals run and how long the capture took.  On a mesh of more than one rank
+the evals run eagerly.  The JAX server's ``--aot_cache`` keeps compiled
+executables on disk; a CUDA graph cannot be written to disk, and what
+does persist across restarts is the kernels' nvcc build
+(``ops/_build.py``).
 """
 
 from __future__ import annotations
@@ -66,6 +73,7 @@ from ldm_tf2_tpu_torch.cli.run_ldm_sampler import (
     CACHE_LOOPS, apply_parallelism, rank_rows, sample_txt2img, sampler_name,
     tensor_to_image,
 )
+from ldm_tf2_tpu_torch.diffusion import graphs as _graphs
 from ldm_tf2_tpu_torch.parallel import (
     create_mesh, gather_rows, maybe_initialize_distributed,
 )
@@ -76,13 +84,15 @@ def _note(msg: str) -> None:
 
 
 def build_server(config: dict, params_blob_path: str = "", device="cuda",
-                 models=None):
+                 models=None, graphs: bool = True):
     """Returns (run_batch, warmup, batch_size): a runner of one pipeline
     call on a packed slot batch (its mesh as ``run_batch.mesh``), a warm-up
-    call, and the batch size.
+    call, which captures the U-Net eval's CUDA graph on the card, and the
+    batch size.
 
     ``models``: (cond_model, unet, autoencoder) already built on ``device``
-    with their weights, used instead of the blob at ``params_blob_path``."""
+    with their weights, used instead of the blob at ``params_blob_path``.
+    ``graphs=False`` runs every eval eagerly, for comparison."""
     from ldm_tf2_tpu_torch.data.tokenizer import (
         load_tokenizer, packed_cfg_token_ids,
     )
@@ -153,7 +163,7 @@ def build_server(config: dict, params_blob_path: str = "", device="cuda",
             guidance_rescale=guidance_rescale, cache_interval=cache_interval,
             cache_levels=cache_levels,
             scale_factor=config["ldm"]["scale_factor"], seed=int(seed),
-            device=device, mesh=rows_mesh,
+            device=device, mesh=rows_mesh, graphs=graphs,
         )
         images = gather_rows(images, rows_mesh)
         return tensor_to_image(images.float().cpu().numpy())
@@ -162,10 +172,15 @@ def build_server(config: dict, params_blob_path: str = "", device="cuda",
 
     def warmup():
         start = time.perf_counter()
+        captures = len(_graphs.STORE.capture_seconds)
         b = shape[0]
         run_batch([sampling["text_prompt"]] * b,
                   [sampling.get("negative_prompt", "")] * b,
                   [sampling["guidance_scale"]] * b, 0)
+        _note(_graphs.describe(device, graphs))
+        made = _graphs.STORE.capture_seconds[captures:]
+        if made:
+            _note(f"captured {len(made)} U-Net eval graph(s) in {sum(made):.2f}s")
         _note(f"warm in {time.perf_counter() - start:.1f}s")
 
     return run_batch, warmup, shape[0]
@@ -248,16 +263,17 @@ def _read_wave(input_stream, window_s: float):
 
 def serve(config: dict, input_stream, output_stream, output_dir: str = ".",
           batch_window_ms: int = 0, params_blob_path: str = "",
-          device="cuda", models=None) -> None:
+          device="cuda", models=None, graphs: bool = True) -> None:
     """The micro-batching request loop, apart from ``main`` so that tests
     and scripts can drive it with in-memory streams.
 
     Each wave of buffered requests is packed into full batches (slots
     grouped by seed); responses are written in request order.  On a mesh
     only rank 0 reads ``input_stream`` and writes ``output_stream`` and the
-    images; the other ranks take each wave from it."""
+    images; the other ranks take each wave from it.  ``graphs``: as for
+    ``build_server``."""
     run_batch, warmup, batch_size = build_server(
-        config, params_blob_path, device, models)
+        config, params_blob_path, device, models, graphs)
     mesh = run_batch.mesh
     sampling = config["ldm_sampling"]
     warmup()

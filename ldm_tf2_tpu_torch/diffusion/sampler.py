@@ -4,7 +4,8 @@ Counterpart of ``ldm_tf2_tpu.diffusion.sampler`` (``apply_cfg``,
 ``ddim_step``, ``ddim_update``, ``ddim_sample_loop``,
 ``ddim_sample_loop_deepcache``, ``ddim_img2img_loop``,
 ``ddim_sample_loop_progressive``, ``ddpm_step``, ``ddpm_sample_loop``).
-The JAX package's ``lax.scan`` becomes a Python loop, and its PRNG key an
+The JAX package's ``lax.scan`` becomes a Python loop (whose U-Net evals
+replay a CUDA graph on the card, ``diffusion/graphs.py``), and its PRNG key an
 explicit ``torch.Generator`` (a ``parallel.RowSlice`` on a data-parallel
 rank, which draws this rank's rows of the global batch's noise); every loop also takes the noise it would draw
 (``init_noise``, ``step_noises``), so a test can hand it the JAX package's
