@@ -124,9 +124,19 @@ final line is printed:
    masters, frozen text encoder and autoencoder in bf16, U-Net and
    condition dropout 0.1, EMA on, in-memory batches: 2 warm-up steps, then
    5 timed steps with the launch counts read around them (``TRAIN_STEP``),
-   then 2 steps under the profiler; then (7b) one step under each remat
+   then 2 steps under the profiler, every ``train`` call graphed (its first
+   step eager, then replays); then (7a) the train steps' CUDA graphs
+   (``phase_train_graphs``, ``training/graphs.py``): 4 eager and 4 graphed
+   steps from one start, cuDNN deterministic, for the LDM step (EMA, clip
+   1.0), with ``grad_accum_steps: 2`` and with remat "blocks", the VQ
+   autoencoder's GAN step and the KL autoencoder's phase-1 step (batch 3):
+   losses, parameters, moments, EMA and D's statistics bit-equal, launch
+   counts equal, the replayed graph's kernel nodes by name equal to the
+   eager step's captured into a graph, s/step, busy ms and idle share
+   each, peak memory, the graph pool and capture seconds; then (7b) one
+   step under each remat
    policy (``tpu.remat`` false, true, full, blocks, dots) from the same
-   state, the loss equal to the plain step's, the update and the gradient
+   state, graphed, the loss equal to the plain step's, the update and the gradient
    within ``GRAD_TOL`` per group, each policy's peak memory and s/step
    (``phase_remat``); the indexed loader's resume through ``train`` with
    ``deterministic_data`` (``phase_resume``: 4 steps unbroken against 2 +
@@ -153,7 +163,8 @@ final line is printed:
    PatchGAN and a seeded LPIPS VGG16, batch 3, 256^2, bf16 compute, GAN
    from step 1: 2 warm-up steps, 5 timed with the flash launch counts read
    around them (``AE_STEP_ATTENTIONS``), 1 profiled GAN step; then 3 steps
-   of the KL autoencoder with its discriminator, through both phases.
+   of the KL autoencoder with its discriminator, through both phases, all
+   graphed.
    Before it an AE gradient phase holds the phase-2 gradients of a
    full-width VQ autoencoder (64^2, attention at 8^2, S = 512), its
    discriminator's gradients and running statistics, card vs CPU in
@@ -2576,7 +2587,7 @@ def _graph_kernels(fn) -> dict:
     counters are left as they were: the capture launched nothing)."""
     import torch
 
-    from ldm_tf2_tpu_torch.diffusion import graphs
+    from ldm_tf2_tpu_torch import graphs
 
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     before = graphs.counts()
@@ -2602,6 +2613,7 @@ def _eval_pair(unet, shape, what: str, cache_levels: int | None = None) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from ldm_tf2_tpu_torch import graphs as shared
     from ldm_tf2_tpu_torch.diffusion import graphs
 
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -2621,9 +2633,9 @@ def _eval_pair(unet, shape, what: str, cache_levels: int | None = None) -> None:
         want = fns["eager"]()
         for name, fn in fns.items():
             fn()  # the graphed model's capture, if its key is new
-            before = graphs.counts()
+            before = shared.counts()
             got = fn()
-            out[name] = {"counts": graphs.rise(before, graphs.counts())}
+            out[name] = {"counts": shared.rise(before, shared.counts())}
             check(torch.equal(got, want), f"{what}: the {name} eval differs from the eager one")
         check(out["graphed"]["counts"] == out["eager"]["counts"],
               f"{what}: a replay counts {out['graphed']['counts']}, an eager eval "
@@ -2951,6 +2963,7 @@ def phase_train(card: str):
     launches = _read(counters)
     check_no_fma(f"train, {steps} steps")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    pool_gb = _graph_pool_gb()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         prof_records, prof_seconds = run(2)
     losses = [r["loss"] for r in warm + records + prof_records]
@@ -2961,7 +2974,8 @@ def phase_train(card: str):
         f"{steps} steps in {seconds:.3f} s (optimizer state and first step included); "
         f"steps 2-{steps}: {s_per_step:.4f} s/step median "
         f"({', '.join(f'{x:.4f}' for x in step_s)}), {batch / s_per_step:.3f} img/s; "
-        f"peak memory {peak_gb:.2f} GB; losses {', '.join(f'{x:.4f}' for x in losses)}; "
+        f"peak memory allocated {peak_gb:.2f} GB, graph pool {pool_gb:.2f} GB beside it; "
+        f"losses {', '.join(f'{x:.4f}' for x in losses)}; "
         f"launches over {steps} steps {launches}")
     want = {k: steps * v for k, v in TRAIN_STEP.items()}
     check(launches == want, f"train launch counts {launches}, expected {want}")
@@ -2975,6 +2989,292 @@ def phase_train(card: str):
     _profile_report(prof, 2, f"train step at batch {batch}", prof_seconds * 1e3,
                     bare_ms=2 * s_per_step * 1e3)
     return launches, models
+
+
+# Train-graphs phase: K eager and K graphed steps from one start, the steps
+# of each profiled window, and the extra LDM runs (gradient accumulation,
+# remat "blocks") with their steps
+TRAIN_GRAPH_STEPS = 4
+TRAIN_GRAPH_PROFILED = 3
+TRAIN_GRAPH_EXTRA = {"grad_accum_steps 2": (dict(accum_steps=2), False, 4),
+                     'remat "blocks"': ({}, "blocks", 3)}
+
+
+def _step_kernels(program, state, inputs) -> dict:
+    """The kernel nodes by name of one eager step of ``program`` (a
+    ``StepProgram``) captured into a graph of its own, its draws from
+    generators registered with it: the step's launches on the card, each
+    one node (the capture runs nothing and leaves the counters as they
+    were)."""
+    import torch
+
+    from ldm_tf2_tpu_torch import graphs
+    from ldm_tf2_tpu_torch.training.ldm_trainer import device_scalars
+
+    gens = [torch.Generator(device="cuda") for _ in range(program.generators)]
+    hyper = device_scalars(program.hyper(state), "cuda")
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    for gen in gens:
+        graph.register_generator_state(gen)
+    before = graphs.counts()
+    with torch.cuda.graph(graph):
+        program.body(state, gens, hyper, program.phase(state), *inputs)
+    graphs.add_counts(graphs.rise(before, graphs.counts()), -1)
+    names = dict(graphs.graph_kernels(graph))
+    del graph
+    torch.cuda.empty_cache()
+    return names
+
+
+def _host_copy(tensors: dict) -> dict:
+    return {k: v.detach().to("cpu", copy=True) for k, v in tensors.items()}
+
+
+def _max_diff(got: dict, want: dict) -> float:
+    """The largest |got - want| over every tensor (on the card, one at a
+    time)."""
+    import torch
+
+    worst = 0.0
+    for k, w in want.items():
+        g = got[k].to("cuda", torch.float64)
+        worst = max(worst, float((g - w.to("cuda", torch.float64)).abs().max()))
+    return worst
+
+
+def _graphed_vs_eager(card: str, what: str, build, inputs, steps: int,
+                      profiled: int = 0) -> dict:
+    """``steps`` steps of ``build()``'s program (``build() -> (program,
+    state, snapshot)``, each call from the same start) eagerly, then graphed
+    through a store of its own, cuDNN deterministic: the metrics and
+    ``snapshot(state)`` (parameters, moments, EMA, running statistics) bit-
+    equal, or else within a second eager run's own difference from the
+    first (printed); the launch counts of the two runs equal; the replayed
+    graph's kernel nodes by name equal to the eager step's captured into a
+    graph.  s/step (median of the steps after the first), peak allocated
+    memory, the graph pool's GB and the capture seconds; with ``profiled``,
+    busy ms and idle share over a CUDA-only profiler window of that many
+    more steps each.  Returns the report."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ldm_tf2_tpu_torch import graphs
+    from ldm_tf2_tpu_torch.training.graphs import graphed_train_step
+
+    store = graphs.GraphStore()
+    out, host = {}, {}
+    with _DeterministicCudnn():
+        for mode in ("eager", "graphed", "eager again"):
+            if mode == "eager again" and out["graphed"]["same"]:
+                break
+            torch.cuda.empty_cache()
+            program, state, snapshot = build()
+            step = graphed_train_step(program, store) if mode == "graphed" else program
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = graphs.counts()
+            metrics, walls = [], []
+            for _ in range(steps):
+                t0 = time.perf_counter()
+                state, m = step(state, *inputs)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                metrics.append({k: float(v) for k, v in m.items()})
+            rep = dict(metrics=metrics, walls=walls, s_step=statistics.median(walls[1:]),
+                       counts=graphs.rise(before, graphs.counts()),
+                       peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+            snap = snapshot(state)
+            if mode == "eager":
+                host = _host_copy(snap)
+                rep["same"] = True
+                if profiled:
+                    rep["nodes"] = _step_kernels(program, state, inputs)
+            elif mode == "graphed":
+                rep["same"] = metrics == out["eager"]["metrics"] and all(
+                    torch.equal(v, host[k].to("cuda")) for k, v in snap.items())
+                rep.update(pool_gb=_graph_pool_gb(), capture_s=list(store.capture_seconds),
+                           per_replay={f"{fn.__name__}.{attr}": n for (fn, attr), n in
+                                       next(iter(store._entries.values())).rise.items()
+                                       if attr == "launches"})
+                if not rep["same"]:
+                    rep["diff"] = _max_diff(snap, host)
+                    host_graphed = _host_copy(snap)
+                replayed = {k: dict(store.kernels(k)) for k in store._entries}
+                rep["nodes"] = replayed
+            else:
+                rep["diff"] = _max_diff(snap, host)
+                rep["graphed_vs_again"] = _max_diff(host_graphed, _host_copy(snap))
+            if profiled and mode != "eager again":
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    for _ in range(profiled):
+                        state, _ = step(state, *inputs)
+                    torch.cuda.synchronize()
+                    prof_ms = (time.perf_counter() - t0) * 1e3
+                bare = rep["s_step"] * 1e3 * profiled
+                prof_rep = _profile_report(prof, profiled, f"{mode} {what}", prof_ms, bare)
+                check(prof_rep is not None, f"{what}: the profiler recorded no device time")
+                rep.update(busy_ms=prof_rep["busy_ms"],
+                           idle=1 - prof_rep["busy_ms"] / (rep["s_step"] * 1e3))
+            out[mode] = rep
+            del program, state, snapshot, step, snap
+        store.clear()
+    torch.cuda.empty_cache()
+    e, g = out["eager"], out["graphed"]
+    counts_equal = e["counts"] == g["counts"]
+    if g["same"]:
+        same = "bit-equal"
+        ok = True
+    else:
+        again = out["eager again"]
+        same = (f"NOT bit-equal: graphed vs eager max |diff| {g['diff']:.3e}, a second "
+                f"eager run vs the first {again['diff']:.3e} (the bound: the eager path's "
+                f"own run-to-run difference), graphed vs the second {again['graphed_vs_again']:.3e}")
+        ok = again["diff"] > 0 and g["diff"] <= again["diff"]
+    line = (f"train graphs {what} on {card}: {steps} steps each from one start: eager "
+            f"{e['s_step']:.4f} s/step ({', '.join(f'{w:.4f}' for w in e['walls'])}), "
+            f"graphed {g['s_step']:.4f} s/step ({', '.join(f'{w:.4f}' for w in g['walls'])}; "
+            f"the first: eager warm-up and capture), {e['s_step'] / g['s_step']:.2f}x; "
+            f"capture s {[round(c, 3) for c in g['capture_s']]}; peak allocated "
+            f"{e['peak_gb']:.2f} GB eager, {g['peak_gb']:.2f} GB graphed; graph pool "
+            f"{g['pool_gb']:.2f} GB; losses and state {same}; launch counts equal "
+            f"{counts_equal}; per replay {g['per_replay']}")
+    if profiled:
+        line += (f"; device busy {e['busy_ms']:.2f} / {g['busy_ms']:.2f} ms a step, idle "
+                 f"share {e['idle']:.1%} / {g['idle']:.1%} (eager / graphed)")
+        (replayed,) = g["nodes"].values()
+        line += (f"; kernel nodes a step: replayed graph {sum(replayed.values())} "
+                 f"({len(replayed)} kernels), eager step captured "
+                 f"{sum(e['nodes'].values())}")
+        if replayed != e["nodes"]:
+            names = set(replayed) | set(e["nodes"])
+            check(False, f"{what}: kernel nodes by name differ (replayed graph, eager step): "
+                  + "; ".join(f"{k[:80]} {replayed.get(k, 0)}, {e['nodes'].get(k, 0)}"
+                              for k in sorted(names)
+                              if replayed.get(k, 0) != e["nodes"].get(k, 0)))
+    log(line + (" PASS" if ok and counts_equal else " FAIL"))
+    check(ok and counts_equal, f"train graphs {what}: {same}; counts {e['counts']} eager, "
+          f"{g['counts']} graphed")
+    return out
+
+
+def phase_train_graphs(card: str, models) -> dict:
+    """The train steps captured as CUDA graphs and replayed
+    (``training/graphs.py``), each beside the eager step from the same
+    start (``_graphed_vs_eager``): the LDM step at the north star (batch 8,
+    256^2, bf16 over float32 masters, EMA, clip 1.0), then with
+    ``grad_accum_steps: 2`` and with remat "blocks"; the VQ autoencoder's
+    GAN step at batch 3 and the KL autoencoder's phase-1 step.  Rows 1-3's
+    launches a step, read off the replayed graph's nodes, are held to
+    ``TRAIN_STEP`` and ``AE_STEP_ATTENTIONS``.  Returns rows 1-3's
+    launches per replayed LDM step."""
+    import numpy as np
+    import torch
+
+    from ldm_tf2_tpu_torch import factory
+    from ldm_tf2_tpu_torch.data.tokenizer import null_condition_ids
+    from ldm_tf2_tpu_torch.training import ae_trainer as at
+    from ldm_tf2_tpu_torch.training import ldm_trainer as lt
+
+    start = time.perf_counter()
+    config = _train_config(8, 256)
+    cond, unet, ae = models
+    s0 = {k: v.detach().cpu().clone() for k, v in unet.state_dict().items()}
+    rng = np.random.default_rng(87)
+    images = torch.as_tensor(rng.uniform(-1, 1, (8, 256, 256, 3)), dtype=torch.bfloat16,
+                             device="cuda")
+    ids = torch.as_tensor(rng.integers(1000, 30000, (8, 77)), device="cuda")
+    schedule = factory.build_schedule(config)
+
+    def ldm(opt_kw=None, remat=False):
+        def build():
+            unet.load_state_dict(s0)
+            opt = lt.make_optimizer(learning_rate=5e-5, clip_grad_norm=1.0, **(opt_kw or {}))
+            program = lt.make_ldm_train_step(
+                unet, cond, ae, schedule, opt, condition_dropout_rate=0.1,
+                null_token_ids=null_condition_ids(1, 77)[0], remat_unet=remat,
+                ema_decay=0.9999, seed=88)
+            state = lt.init_ldm_train_state(unet, cond, opt, ema_decay=0.9999)
+
+            def snapshot(state):
+                snap = {f"unet.{k}": p for k, p in unet.named_parameters()}
+                for part in ("mu", "nu", "acc"):
+                    snap.update({f"{part}.{k}": t for k, t in
+                                 state.opt_state.get(part, {}).items()})
+                snap.update({f"ema.{k}": t for k, t in state.ema.items()})
+                return snap
+
+            return program, state, snapshot
+        return build
+
+    try:
+        ldm_report = _graphed_vs_eager(card, "LDM step, batch 8, 256^2, bf16, EMA, clip 1.0",
+                                 ldm(), (images, ids), TRAIN_GRAPH_STEPS,
+                                 TRAIN_GRAPH_PROFILED)
+        for what, (opt_kw, remat, steps) in TRAIN_GRAPH_EXTRA.items():
+            _graphed_vs_eager(card, f"LDM step, {what}", ldm(opt_kw, remat), (images, ids),
+                              steps)
+    finally:
+        unet.load_state_dict(s0)
+    per_replay = ldm_report["graphed"]["per_replay"]
+    want = {f"{k}.launches": v for k, v in TRAIN_STEP.items() if v}
+    got = {k: per_replay.get(k, 0) for k in want}
+    check(got == want, f"train graphs: a replayed LDM step launches {got}, want {want}")
+    del images, ids
+    torch.cuda.empty_cache()
+
+    for ae_type, phase, seed in (("vq", 2, 89), ("kl", 1, 90)):
+        ae_config = _ae_config(ae_type)
+        trainer = ae_config[f"autoencoder_{ae_type}_trainer"]
+        ae_models = _ae_models(ae_config, "cuda", seed)
+        weights = [{k: v.detach().cpu().clone() for k, v in m.state_dict().items()}
+                   for m in ae_models[:2]]
+        ae_images = torch.as_tensor(rng.uniform(-1, 1, (3, 256, 256, 3)),
+                                    dtype=torch.float32, device="cuda")
+
+        def build():
+            auto, disc, lpips = ae_models
+            for m, w in zip((auto, disc), weights):
+                m.load_state_dict(w)
+            auto.requires_grad_(True).train()
+            disc.requires_grad_(True).train()
+            lpips.requires_grad_(False)
+            ae_opt = at.make_adam(**ae_config["autoencoder_optimizer"])
+            d_opt = at.make_adam(**ae_config["discriminator_optimizer"])
+            steps = at.make_ae_train_steps(
+                auto, disc, lpips, ae_opt, d_opt, lpips_weight=trainer["lpips_weight"],
+                regularization_weight=trainer["kl_weight" if ae_type == "kl"
+                                              else "codebook_weight"],
+                discriminator_weight=trainer["discriminator_weight"],
+                discriminator_factor=trainer["discriminator_factor"], seed=seed)
+            state = at.init_ae_train_state(auto, disc, ae_opt, d_opt)
+
+            def snapshot(state):
+                snap = {f"ae.{k}": v for k, v in auto.state_dict().items()}
+                snap.update({f"d.{k}": v for k, v in disc.state_dict().items()})
+                for name in ("ae_opt_state", "d_opt_state"):
+                    for part in ("mu", "nu"):
+                        snap.update({f"{name}.{part}.{k}": t for k, t in
+                                     getattr(state, name)[part].items()})
+                return snap
+
+            return steps[phase - 1], state, snapshot
+
+        what = (f"{ae_type.upper()} autoencoder "
+                f"{'GAN step' if phase == 2 else 'phase-1 step'}, batch 3, 256^2, bf16")
+        report = _graphed_vs_eager(card, what, build, (ae_images,), TRAIN_GRAPH_STEPS,
+                                   TRAIN_GRAPH_PROFILED if ae_type == "vq" else 0)
+        per_replay = report["graphed"]["per_replay"]
+        n = AE_STEP_ATTENTIONS[ae_type]
+        want = {f"{k}.launches": n for k in ("flash_attention", "flash_backward_dq",
+                                              "flash_backward_dkv")}
+        got = {k: per_replay.get(k, 0) for k in want}
+        check(got == want, f"train graphs {what}: a replay launches {got}, want {want}")
+        del ae_models, weights, ae_images
+        torch.cuda.empty_cache()
+    log(f"train graphs: {time.perf_counter() - start:.1f} s")
+    return {k.split(".")[0]: v for k, v in ldm_report["graphed"]["per_replay"].items()
+            if k.split(".")[0] in TRAIN_STEP}
 
 
 # Remat, resume and data-parallel phase: the remat policies of the LDM step
@@ -3012,28 +3312,32 @@ def _group_rel(got: dict, want: dict, base: dict | None = None) -> dict:
 def _ldm_steps(models, config, batch_images, batch_ids, policy, n: int, s0: dict,
                mesh=None):
     """``n`` LDM steps from the U-Net state ``s0`` with a fresh optimizer
-    (EMA on): (losses, U-Net params after step 1, mu after step 1 (0.1 x
+    (EMA on), graphed (``training.graphs.train_step_for``: the first step
+    eager, then replays): (losses, U-Net params after step 1, mu after step 1 (0.1 x
     the gradient), both copied to the host, seconds of steps 2..n, memory
     in GB: the most allocated before a step (``static``), the peak of a
-    step's forward and backward (read as the optimizer starts) and of a
-    whole step)."""
+    step's forward and backward (read as the optimizer starts, which it
+    does in the eager first step and the capture, not in a replay) and of
+    a whole step, and the graph pool the step's capture holds (``pool``;
+    allocated memory leaves it out))."""
     import torch
 
     from ldm_tf2_tpu_torch import factory
     from ldm_tf2_tpu_torch.data.tokenizer import null_condition_ids
     from ldm_tf2_tpu_torch.training import ldm_trainer as lt
+    from ldm_tf2_tpu_torch.training.graphs import train_step_for
 
     cond, unet, ae = models
     unet.load_state_dict(s0)
     opt = lt.make_optimizer(**config["latent_diffusion_optimizer"])
-    step = lt.make_ldm_train_step(
+    step = train_step_for(lt.make_ldm_train_step(
         unet, cond, ae, factory.build_schedule(config), opt,
         condition_dropout_rate=0.1, null_token_ids=null_condition_ids(1, 77)[0],
-        remat_unet=policy, ema_decay=0.9999, seed=83, mesh=mesh)
+        remat_unet=policy, ema_decay=0.9999, seed=83, mesh=mesh))
     state = lt.init_ldm_train_state(unet, cond, opt, ema_decay=0.9999)
     losses, seconds = [], []
     first = mu = None
-    memory = dict.fromkeys(("static", "fwd_bwd", "step"), 0.0)
+    memory = dict.fromkeys(("static", "fwd_bwd", "step", "pool"), 0.0)
     gb = lambda b: b / 1e9
     apply = opt.step_
 
@@ -3051,6 +3355,7 @@ def _ldm_steps(models, config, batch_images, batch_ids, policy, n: int, s0: dict
         losses.append(float(m["loss"]))
         torch.cuda.synchronize()
         memory["step"] = max(memory["step"], gb(torch.cuda.max_memory_allocated()))
+        memory["pool"] = max(memory["pool"], _graph_pool_gb())
         if i:
             seconds.append(time.perf_counter() - t0)
         else:
@@ -3135,14 +3440,16 @@ def phase_remat(card: str, models) -> None:
         report.append((policy, memory, s_step))
         log(f"remat {policy} on {card}: batch 8, 256^2, peak memory {memory['step']:.2f} GB "
             f"a step, {memory['fwd_bwd']:.2f} GB in its forward and backward, "
-            f"{memory['static']:.2f} GB between steps; steps 2-3 {s_step:.4f} s/step "
+            f"{memory['static']:.2f} GB between steps, graph pool {memory['pool']:.2f} GB "
+            f"beside them (peak allocated leaves the pool out); steps 2-3 {s_step:.4f} s/step "
             f"({', '.join(f'{x:.4f}' for x in seconds)}); launches over 3 steps "
             f"{launches}; {line}")
         del first, mu
     unet.load_state_dict(s0)
-    log("remat summary (peak a step / forward and backward / between steps; s/step): "
+    log("remat summary (peak allocated a step / forward and backward / between steps, "
+        "graph pool; s/step): "
         + "; ".join(f"{p}: {m['step']:.2f} / {m['fwd_bwd']:.2f} / {m['static']:.2f} GB, "
-                    f"{s:.4f} s" for p, m, s in report))
+                    f"pool {m['pool']:.2f} GB, {s:.4f} s" for p, m, s in report))
 
 
 def phase_resume(card: str, models) -> None:
@@ -3254,6 +3561,7 @@ def phase_data_parallel(card: str, models) -> None:
     from ldm_tf2_tpu_torch.configs.loader import validate
     from ldm_tf2_tpu_torch.parallel import create_mesh, gather_rows
     from ldm_tf2_tpu_torch.training import ae_trainer as at
+    from ldm_tf2_tpu_torch.training.graphs import train_step_for
 
     config = _train_config(8, 256)
     unet = models[1]
@@ -3286,6 +3594,7 @@ def phase_data_parallel(card: str, models) -> None:
             ae, disc, lpips, ae_opt, d_opt, lpips_weight=trainer["lpips_weight"],
             regularization_weight=trainer["kl_weight"],
             discriminator_weight=trainer["discriminator_weight"], seed=93, mesh=mesh)
+        step2 = train_step_for(step2)
         state = at.init_ae_train_state(ae, disc, ae_opt, d_opt)
         _, metrics = step2(state, ae_images)
         return ({k: float(v) for k, v in metrics.items()},
@@ -4606,6 +4915,7 @@ def main() -> int:
     launches["fused_ffn_partial"] = tp_call["launches"]["fused_ffn_partial"]
     by_path["fused_ffn_partial"] = tp_call["paths"]["fused_ffn_partial"]
     train_launches, train_models = phase_train(card)
+    train_graph = phase_train_graphs(card, train_models)
     by_path.update({k: dict(LAST_PATHS[k]) for k in ("flash_backward_dq", "flash_backward_dkv")})
     phase_remat(card, train_models)
     phase_resume(card, train_models)
@@ -4661,6 +4971,8 @@ def main() -> int:
         })
         if name in by_path:  # the launches above by path (wgmma, mma.sync, fma)
             kernels[-1]["launches_by_path"] = by_path[name]
+        if name in train_graph:  # a replayed LDM step's graph (rows 1-3), its nodes
+            kernels[-1]["train_graph_launches"] = train_graph[name]
         if name in tp_train:  # one LDM step at model 2 (rows 1-3 on local heads)
             kernels[-1]["tp_train_step_launches"] = tp_train[name]
         if convert_launches[name]:  # the sampler CLI on the converted blob

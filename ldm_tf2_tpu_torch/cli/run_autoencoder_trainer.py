@@ -35,6 +35,11 @@ sequence-parallel flags are not read, as in the JAX trainer.
 ``train(config, ..., batches=..., models=...)`` takes in-memory global
 batches (each rank takes its rows) and built models instead of the files
 and the blob.
+
+On one CUDA card in a process of world 1 both steps replay CUDA graphs,
+each captured once per key (``training/graphs.py``, the JAX CLI's
+``jax.jit`` of each step).  The CPU and a mesh of more than one rank run
+them eagerly.
 """
 
 from __future__ import annotations
@@ -74,6 +79,7 @@ def train(config: dict, lpips_blob=None, device="cuda", *, seed: int = 0,
     state, the logger's records)."""
     from ldm_tf2_tpu_torch.checkpoints.manager import CheckpointManager
     from ldm_tf2_tpu_torch.parallel import replicate, shard_batch
+    from ldm_tf2_tpu_torch.training.graphs import describe_steps, train_step_for
     from ldm_tf2_tpu_torch.training.ae_trainer import (
         checkpoint_state, init_ae_train_state, make_adam, make_ae_train_steps,
         restore_state,
@@ -110,6 +116,8 @@ def train(config: dict, lpips_blob=None, device="cuda", *, seed: int = 0,
         discriminator_loss_type=trainer.get("discriminator_loss_type", "hinge"),
         seed=seed, mesh=mesh,
     )
+    step_ae, step_ae_d = (train_step_for(s) for s in (step_ae, step_ae_d))
+    say(f"[INFO] {describe_steps(device)}")
     state = init_ae_train_state(autoencoder, discriminator, ae_optimizer, d_optimizer)
 
     manager = (CheckpointManager(training["ckpt_path"], mesh=mesh)

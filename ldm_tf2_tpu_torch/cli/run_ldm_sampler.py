@@ -54,7 +54,7 @@ import numpy as np
 import torch
 
 from ldm_tf2_tpu_torch import factory
-from ldm_tf2_tpu_torch.diffusion.graphs import describe, eps_model_for
+from ldm_tf2_tpu_torch.diffusion.graphs import eps_model_for
 from ldm_tf2_tpu_torch.diffusion.sampler import (
     ddim_img2img_loop, ddim_sample_loop, ddim_sample_loop_deepcache,
     ddim_sample_loop_progressive, ddpm_sample_loop,
@@ -63,6 +63,7 @@ from ldm_tf2_tpu_torch.diffusion.solvers import (
     dpm_solver_pp_2m_sample_loop, dpm_solver_pp_2m_sample_loop_deepcache,
     plms_sample_loop,
 )
+from ldm_tf2_tpu_torch.graphs import describe
 from ldm_tf2_tpu_torch.models import AutoencoderVQ
 from ldm_tf2_tpu_torch.parallel import RowSlice
 

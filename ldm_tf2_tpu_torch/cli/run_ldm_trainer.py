@@ -40,6 +40,12 @@ axis (``training/ldm_trainer.py``).  As in the JAX trainer,
 ``train(config, ..., batches=..., models=...)`` takes in-memory global
 batches (each rank takes its rows) and built models instead of the files
 and the blob.
+
+On one CUDA card in a process of world 1 each train step replays a CUDA
+graph captured once per key (``training/graphs.py``, the JAX CLI's
+``jax.jit`` of the step).  The CPU and a mesh of more than one rank run
+the steps eagerly.  Checkpoints and the logged losses are read between
+steps.
 """
 
 from __future__ import annotations
@@ -114,6 +120,7 @@ def train(config: dict, params_blob_path: str | None = None, device="cuda", *,
     from ldm_tf2_tpu_torch.configs.loader import compute_dtype
     from ldm_tf2_tpu_torch.data.tokenizer import null_condition_ids
     from ldm_tf2_tpu_torch.parallel import replicate, shard_batch
+    from ldm_tf2_tpu_torch.training.graphs import describe_steps, train_step_for
     from ldm_tf2_tpu_torch.training.ldm_trainer import (
         checkpoint_state, init_ldm_train_state, make_ldm_train_step,
         make_optimizer, restore_state,
@@ -141,7 +148,7 @@ def train(config: dict, params_blob_path: str | None = None, device="cuda", *,
     optimizer = make_optimizer(**(config.get("latent_diffusion_optimizer") or {}),
                                accum_steps=training.get("grad_accum_steps", 1))
     max_seq_len = config["cond_stage_model"]["max_seq_len"]
-    train_step = make_ldm_train_step(
+    train_step = train_step_for(make_ldm_train_step(
         unet, cond_model, autoencoder, factory.build_schedule(config), optimizer,
         scale_factor=config["ldm"]["scale_factor"],
         condition_dropout_rate=training["condition_dropout_rate"],
@@ -149,7 +156,8 @@ def train(config: dict, params_blob_path: str | None = None, device="cuda", *,
         null_token_ids=null_condition_ids(1, max_seq_len)[0],
         remat_unet=tpu["remat"], ema_decay=ema_decay,
         encode_chunks=tpu["encode_chunks"], seed=seed, mesh=mesh,
-    )
+    ))
+    say(f"[INFO] {describe_steps(device)}")
     state = init_ldm_train_state(unet, cond_model, optimizer, train_cond, ema_decay)
     trained_cond = cond_model if train_cond else None
 

@@ -74,6 +74,7 @@ from ldm_tf2_tpu_torch.cli.run_ldm_sampler import (
     tensor_to_image,
 )
 from ldm_tf2_tpu_torch.diffusion import graphs as _graphs
+from ldm_tf2_tpu_torch.graphs import describe
 from ldm_tf2_tpu_torch.parallel import (
     create_mesh, gather_rows, maybe_initialize_distributed,
 )
@@ -177,7 +178,7 @@ def build_server(config: dict, params_blob_path: str = "", device="cuda",
         run_batch([sampling["text_prompt"]] * b,
                   [sampling.get("negative_prompt", "")] * b,
                   [sampling["guidance_scale"]] * b, 0)
-        _note(_graphs.describe(device, graphs))
+        _note(describe(device, graphs))
         made = _graphs.STORE.capture_seconds[captures:]
         if made:
             _note(f"captured {len(made)} U-Net eval graph(s) in {sum(made):.2f}s")

@@ -62,12 +62,20 @@ class LPIPS(nn.Module):
         for i, ch in enumerate(_STAGE_CHANNELS):
             self.add_module(f"proj_{i}", Dense(ch, 1, bias=False))
 
+    def _constants(self, dtype, device):
+        """SHIFT and SCALE as tensors, made once per dtype and device: a
+        captured train step cannot copy them from the host."""
+        key = (dtype, device)
+        consts = self.__dict__.setdefault("_consts", {})
+        if key not in consts:
+            consts[key] = tuple(torch.tensor(v, dtype=dtype, device=device)
+                                for v in (SHIFT, SCALE))
+        return consts[key]
+
     def forward(self, images1, images2):
         """Perceptual dissimilarity [B, 1, 1, 1] of two NHWC image batches
         in [-1, 1]; computed in ``dtype``."""
-        dt = images1.dtype
-        shift = torch.tensor(SHIFT, dtype=dt, device=images1.device)
-        scale = torch.tensor(SCALE, dtype=dt, device=images1.device)
+        shift, scale = self._constants(images1.dtype, images1.device)
         feats1 = self.vgg16(((images1 - shift) / scale).to(self.dtype))
         feats2 = self.vgg16(((images2 - shift) / scale).to(self.dtype))
         total = 0.0

@@ -34,6 +34,7 @@ cuDNN convolution.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import weakref
 
@@ -113,6 +114,21 @@ def conv_plan(shape, cout: int, dtype) -> dict:
 
 # id(weight) -> (weakref to it, dtype, its _version, the relaid copy)
 _RELAID: dict = {}
+# Inside ``relayout_inside``: every call relays, past the cache
+_INSIDE = [False]
+
+
+@contextlib.contextmanager
+def relayout_inside():
+    """Every ``relaid_weight`` call inside the block relays its weight and
+    leaves the cache alone: a captured train step, whose replays update the
+    weights in place, must relay them in every replay (its eager warm-up
+    has filled the cache with the weights before its own update)."""
+    _INSIDE[0] = True
+    try:
+        yield
+    finally:
+        _INSIDE[0] = False
 
 
 def relaid_weight(w, dtype):
@@ -123,15 +139,17 @@ def relaid_weight(w, dtype):
     relays again, and the copy is freed with the weight.  Counts
     ``gn_silu_conv3x3_fused.relayouts``."""
     key = id(w)
-    hit = _RELAID.get(key)
+    hit = None if _INSIDE[0] else _RELAID.get(key)
     if hit is not None and hit[0]() is w and hit[1] == dtype and hit[2] == w._version:
         return hit[3]
     cout, cin = w.shape[:2]
     copy = w.detach().to(dtype).permute(2, 3, 0, 1).reshape(9, cout, cin).contiguous()
+    gn_silu_conv3x3_fused.relayouts += 1
+    if _INSIDE[0]:
+        return copy
     if hit is None or hit[0]() is not w:
         weakref.finalize(w, _RELAID.pop, key, None)
     _RELAID[key] = (weakref.ref(w), dtype, w._version, copy)
-    gn_silu_conv3x3_fused.relayouts += 1
     return copy
 
 

@@ -38,20 +38,27 @@ norms, and D's BatchNorm takes the global batch's statistics
 (``parallel.all_reduce_sum`` of the float32 sums), so the running
 statistics, both Adam states and the logged (global-mean) metrics equal
 one process's at the global batch.
+
+Both steps are ``StepProgram``s (``training/ldm_trainer.py``), so that
+``training/graphs.py`` can capture each once as a CUDA graph.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from ldm_tf2_tpu_torch.diffusion.losses import D_LOSS_MAP, nll_loss
+from ldm_tf2_tpu_torch.graphs import module_tensors
 from ldm_tf2_tpu_torch.models import AutoencoderKL
 from ldm_tf2_tpu_torch.parallel import (
     RowSlice, all_reduce_mean_, all_reduce_sum, global_mean,
 )
-from ldm_tf2_tpu_torch.training.ldm_trainer import AdamW, _to, step_generators
+from ldm_tf2_tpu_torch.training.ldm_trainer import (
+    HYPER, AdamW, StepProgram, _to, opt_tensors, step_generators,
+)
 
 
 def make_adam(learning_rate: float = 4.5e-6, beta_1: float = 0.5,
@@ -88,7 +95,8 @@ def make_ae_train_steps(autoencoder, discriminator, lpips, ae_optimizer: AdamW,
                         discriminator_loss_type: str = "hinge", seed: int = 0,
                         mesh=None):
     """Build ``(train_step_autoencoder, train_step_autoencoder_discriminator)``,
-    each ``(state, images, draws=None) -> (state, metrics)``.
+    each ``(state, images, draws=None) -> (state, metrics)``, a
+    ``StepProgram``.
 
     images [B, H, W, 3] in [-1, 1] on the models' device.  ``draws`` may
     inject ``posterior_noise`` (the KL latents' shape).  Metrics are
@@ -102,8 +110,8 @@ def make_ae_train_steps(autoencoder, discriminator, lpips, ae_optimizer: AdamW,
     average = lambda tensors: all_reduce_mean_(tensors, mesh)
     sum_ranks = (lambda x: all_reduce_sum(x, mesh)) if in_group else None
 
-    def recon_losses(state, images, draws):
-        noise_gen, dropout_gen = step_generators(seed, state.step, device, 2)
+    def recon_losses(gens, images, draws):
+        noise_gen, dropout_gen = gens
         if in_group:
             noise_gen = RowSlice(noise_gen, mesh.data_index, mesh.data_size)
             dropout_gen = RowSlice(dropout_gen, mesh.data_index, mesh.data_size)
@@ -119,27 +127,30 @@ def make_ae_train_steps(autoencoder, discriminator, lpips, ae_optimizer: AdamW,
         nll = nll_loss(images, outputs, lp, lpips_weight, reduce_loss=True)
         return outputs, nll, reg
 
-    def apply(optimizer, module, loss_grads, opt_state):
+    def apply(optimizer, module, loss_grads, opt_state, hyper):
         params = _params(module)
-        optimizer.step_(params, dict(zip(params, loss_grads)), opt_state,
+        optimizer.step_(params, dict(zip(params, loss_grads)), opt_state, hyper,
                         average if in_group else None)
 
     def global_metrics(metrics):
         return {k: global_mean(v.detach(), mesh) for k, v in metrics.items()}
 
-    def ae_grads(state: AETrainState, images, draws=None):
+    def gens_of(state):
+        return step_generators(seed, state.step, device, 2)
+
+    def ae_grads(state: AETrainState, images, draws=None, gens=None):
         """Phase 1's loss and gradients (autoencoder parameters, in
         ``named_parameters`` order), no update."""
-        _, nll, reg = recon_losses(state, images, draws)
+        _, nll, reg = recon_losses(gens or gens_of(state), images, draws)
         loss = nll + regularization_weight * reg
         grads = torch.autograd.grad(loss, list(_params(autoencoder).values()))
         return grads, global_metrics({"ae_loss": loss, "nll_loss": nll,
                                       "reg_loss": reg})
 
-    def gan_grads(state: AETrainState, images, draws=None):
+    def gan_grads(state: AETrainState, images, draws=None, gens=None):
         """Phase 2's gradients (autoencoder, discriminator) and metrics, no
         update: D's running statistics move, as in the step."""
-        outputs, nll, reg = recon_losses(state, images, draws)
+        outputs, nll, reg = recon_losses(gens or gens_of(state), images, draws)
         g_loss = -torch.mean(discriminator(outputs, training=False))
         last = autoencoder.last_layer()
         nll_grad, = torch.autograd.grad(nll, last, retain_graph=True)
@@ -161,20 +172,45 @@ def make_ae_train_steps(autoencoder, discriminator, lpips, ae_optimizer: AdamW,
                    "g_loss": g_loss, "adaptive_weight": weight, "d_loss": d_loss}
         return grads, d_grads, global_metrics(metrics)
 
-    def train_step_autoencoder(state: AETrainState, images, draws=None):
-        grads, metrics = ae_grads(state, images, draws)
-        apply(ae_optimizer, autoencoder, grads, state.ae_opt_state)
-        state.step += 1
-        return state, metrics
+    def body_ae(state: AETrainState, gens, hyper, phase, images, draws=None):
+        grads, metrics = ae_grads(state, images, draws, gens)
+        apply(ae_optimizer, autoencoder, grads, state.ae_opt_state, hyper)
+        return tuple(metrics.values())
 
-    def train_step_autoencoder_discriminator(state: AETrainState, images,
-                                             draws=None):
-        grads, d_grads, metrics = gan_grads(state, images, draws)
-        apply(ae_optimizer, autoencoder, grads, state.ae_opt_state)
-        apply(d_optimizer, discriminator, d_grads, state.d_opt_state)
-        state.step += 1
-        return state, metrics
+    def body_gan(state: AETrainState, gens, hyper, phase, images, draws=None):
+        grads, d_grads, metrics = gan_grads(state, images, draws, gens)
+        apply(ae_optimizer, autoencoder, grads, state.ae_opt_state, hyper[:HYPER])
+        apply(d_optimizer, discriminator, d_grads, state.d_opt_state, hyper[HYPER:])
+        return tuple(metrics.values())
 
+    def finish(names, d_too):
+        def finish(state: AETrainState, phase, outputs):
+            ae_optimizer.advance(state.ae_opt_state)
+            if d_too:
+                d_optimizer.advance(state.d_opt_state)
+            state.step += 1
+            return dict(zip(names, outputs))
+        return finish
+
+    written = lambda state: (module_tensors(autoencoder, discriminator)
+                             + opt_tensors(state.ae_opt_state) + opt_tensors(state.d_opt_state))
+
+    def program(phase, body, hyper, names, d_too):
+        return StepProgram(
+            body=body, phase=lambda state: (ae_optimizer.syncs(state.ae_opt_state),
+                                            d_optimizer.syncs(state.d_opt_state)),
+            hyper=hyper, finish=finish(names, d_too),
+            tensors=lambda state: module_tensors(lpips) + written(state), written=written,
+            key=(phase, autoencoder.dtype, discriminator_loss_type),
+            seed=seed, device=device, generators=2, inputs=1)
+
+    train_step_autoencoder = program(
+        "ae", body_ae, lambda state: ae_optimizer.hyper(state.ae_opt_state),
+        ("ae_loss", "nll_loss", "reg_loss"), False)
+    train_step_autoencoder_discriminator = program(
+        "ae_gan", body_gan, lambda state: np.concatenate([
+            ae_optimizer.hyper(state.ae_opt_state), d_optimizer.hyper(state.d_opt_state)]),
+        ("ae_loss", "nll_loss", "reg_loss", "g_loss", "adaptive_weight", "d_loss"), True)
     train_step_autoencoder.grads = ae_grads
     train_step_autoencoder_discriminator.grads = gan_grads
     return train_step_autoencoder, train_step_autoencoder_discriminator

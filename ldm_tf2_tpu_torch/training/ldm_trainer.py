@@ -20,9 +20,9 @@ Semantics kept from the JAX step and optax 0.2.6, not PyTorch's:
   read at the count before the increment (so a warm-up's first update
   uses lr(0) = 0), and ``decay_steps`` counts the warm-up; clipping keeps
   ``g`` when the global norm is below the limit, else ``g / norm * max``
-  (no epsilon); ``MultiSteps`` keeps the running mean of the micro-batch
-  gradients, and the inner count, its schedule and the EMA advance only on
-  the sync steps.
+  (no epsilon), a select on the device; ``MultiSteps`` keeps the running
+  mean of the micro-batch gradients, and the inner count, its schedule and
+  the EMA advance only on the sync steps.
 * The draws of a step (timesteps, posterior noise, condition drop mask,
   noise, dropout) come from generators seeded from ``(seed, step)`` alone,
   as the JAX step folds the step into its key, so a resumed run draws what
@@ -36,6 +36,15 @@ backward pass with its dropout draws replayed (``models/remat.py``), and
 ``mesh`` makes the step one rank's share of a data-parallel step, and of a
 tensor-parallel one on models sharded over its ``model`` axis
 (``make_ldm_train_step``).
+
+A step is a ``StepProgram``: the host's part (which program the step runs,
+the optimizer's scalars for this update, the step's generator seeds, the
+counters that advance after it) around a device part, ``body``, that reads
+no host state that changes from step to step and syncs nothing, so that
+``training/graphs.py`` can capture it once as a CUDA graph and replay it.
+The optimizer's learning rate and bias corrections are worked out on the
+host and read from a device tensor (``AdamW.hyper``), on the eager path
+too, so that the two paths compute the same bits.
 """
 
 from __future__ import annotations
@@ -47,6 +56,7 @@ import numpy as np
 import torch
 
 from ldm_tf2_tpu_torch.diffusion.losses import q_sample
+from ldm_tf2_tpu_torch.graphs import module_tensors
 from ldm_tf2_tpu_torch.models import AutoencoderVQ, remat
 from ldm_tf2_tpu_torch.ops import tp as _tp
 from ldm_tf2_tpu_torch.parallel import RowSlice, all_reduce_mean_, global_mean, rng
@@ -54,6 +64,17 @@ from ldm_tf2_tpu_torch.parallel import RowSlice, all_reduce_mean_, global_mean, 
 # Tensors per multi-tensor op in the optimizer: bounds its temporaries to a
 # slice of the parameters.
 _CHUNK = 64
+# The scalars of one AdamW update (``AdamW.hyper``)
+HYPER = 4
+
+
+def device_scalars(values, device) -> torch.Tensor:
+    """float32 ``values`` (host numbers) as a tensor on ``device``, copied
+    from pinned memory without a sync."""
+    host = torch.as_tensor(np.asarray(values, np.float32))
+    if torch.device(device).type != "cuda":
+        return host
+    return host.pin_memory().to(device, non_blocking=True)
 
 
 def _mu_dtype(name):
@@ -118,9 +139,35 @@ class AdamW:
             state["acc"] = {n: torch.zeros_like(p) for n, p in params.items()}
         return state
 
+    def syncs(self, state: dict) -> bool:
+        """Whether the next ``step_`` on ``state`` moves the parameters (not
+        a micro-step of gradient accumulation)."""
+        return self.accum_steps == 1 or state["mini_step"] == self.accum_steps - 1
+
+    def hyper(self, state: dict) -> np.ndarray:
+        """The host's scalars of the next ``step_`` on ``state``, float32:
+        -lr at the count before the increment, the bias corrections
+        ``1 - b ** (count + 1)`` and the accumulation's divisor
+        ``mini_step + 1``."""
+        count = state["count"]
+        count_inc = np.float32(count + 1)
+        return np.array([-self.learning_rate(count),
+                         np.float32(1) - np.power(np.float32(self.b1), count_inc),
+                         np.float32(1) - np.power(np.float32(self.b2), count_inc),
+                         state.get("mini_step", 0) + 1], np.float32)
+
+    def advance(self, state: dict) -> None:
+        """Advance the host counters of ``state`` past one ``step_``."""
+        if not self.syncs(state):
+            state["mini_step"] += 1
+            return
+        state["count"] += 1
+        if self.accum_steps > 1:
+            state["mini_step"] = 0
+
     @torch.no_grad()
-    def step_(self, params: dict, grads: dict, state: dict, reduce=None,
-              global_norm=None) -> bool:
+    def step_(self, params: dict, grads: dict, state: dict, hyper: torch.Tensor,
+              reduce=None, global_norm=None) -> bool:
         """Fold ``grads`` into ``state`` and update ``params`` in place.
         Returns whether the parameters moved (False on the micro-steps of
         gradient accumulation).  ``reduce`` (a data-parallel run's
@@ -128,18 +175,22 @@ class AdamW:
         uses, before the clip: under accumulation the micro-steps' running
         mean, on the sync step only (the mean is linear).  ``global_norm``
         (a tensor-parallel run's ``ops.tp.global_norm``) takes the list of
-        gradients to the clip's norm, else the norm over the list."""
+        gradients to the clip's norm, else the norm over the list.
+
+        ``hyper``: ``self.hyper(state)`` on the parameters' device.  The
+        caller advances the host counters (``advance``); nothing here reads
+        the device back.  ``grads`` are left as the data mean made them: the
+        clip scales a chunk of them at a time into a temporary."""
+        neg_lr, bc1, bc2, n_acc = hyper.unbind()
         names = list(params)
         g = [grads[n] for n in names]
         if self.accum_steps > 1:
             acc = [state["acc"][n] for n in names]
-            n_acc = state["mini_step"]
             for i in range(0, len(names), _CHUNK):
                 diff = torch._foreach_sub(g[i:i + _CHUNK], acc[i:i + _CHUNK])
-                torch._foreach_div_(diff, n_acc + 1)
+                torch._foreach_div_(diff, n_acc)
                 torch._foreach_add_(acc[i:i + _CHUNK], diff)
-            if n_acc != self.accum_steps - 1:
-                state["mini_step"] = n_acc + 1
+            if not self.syncs(state):
                 return False
             g = acc
         if reduce is not None:
@@ -147,18 +198,19 @@ class AdamW:
         if self.clip:
             norm = (global_norm(g) if global_norm is not None else
                     torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g))))
-            if not float(norm) < self.clip:
-                g = torch._foreach_div(g, norm)
-                torch._foreach_mul_(g, self.clip)
-        count = state["count"]
-        lr = self.learning_rate(count)
-        count_inc = np.float32(count + 1)
-        bc1 = float(np.float32(1) - np.power(np.float32(self.b1), count_inc))
-        bc2 = float(np.float32(1) - np.power(np.float32(self.b2), count_inc))
+            # optax's select: g where norm < clip, else g / norm * clip; as
+            # g / 1 * 1 (exact) or g / norm * clip, without reading norm back
+            keep = norm < self.clip
+            one = torch.ones_like(norm)
+            div, mul = torch.where(keep, one, norm), torch.where(
+                keep, one, torch.full_like(norm, self.clip))
         for i in range(0, len(names), _CHUNK):
             chunk = names[i:i + _CHUNK]
             p = [params[n] for n in chunk]
             gc = g[i:i + _CHUNK]
+            if self.clip:
+                gc = torch._foreach_div(gc, div)
+                torch._foreach_mul_(gc, mul)
             mu = [state["mu"][n] for n in chunk]
             nu = [state["nu"][n] for n in chunk]
             # (1 - b1) g + b1 mu, the product b1 mu taken in mu's dtype
@@ -174,15 +226,13 @@ class AdamW:
             torch._foreach_div_(upd, den)
             if self.weight_decay:
                 torch._foreach_add_(upd, p, alpha=self.weight_decay)
-            torch._foreach_mul_(upd, -lr)
+            torch._foreach_mul_(upd, neg_lr)
             torch._foreach_add_(p, upd)
             torch._foreach_copy_(mu, m_new)
             torch._foreach_copy_(nu, v_new)
-        state["count"] = count + 1
-        if self.accum_steps > 1:
+        if self.accum_steps > 1:  # the running mean starts anew
             for i in range(0, len(names), _CHUNK):
-                torch._foreach_zero_(g[i:i + _CHUNK])
-            state["mini_step"] = 0
+                torch._foreach_zero_(acc[i:i + _CHUNK])
         return True
 
 
@@ -220,12 +270,75 @@ def init_ldm_train_state(unet, cond_model, optimizer: AdamW,
     return LDMTrainState(step=0, opt_state=optimizer.init(params), ema=ema)
 
 
+def step_seeds(seed: int, step: int, count: int) -> list[int]:
+    """The seeds of ``step_generators``."""
+    return [int(s) for s in np.random.SeedSequence([seed, step]).generate_state(count)]
+
+
 def step_generators(seed: int, step: int, device, count: int = 5) -> list[torch.Generator]:
     """``count`` generators seeded from ``(seed, step)`` alone; a train step
     of this module takes five (timesteps, posterior noise, condition drop,
     noise, dropout)."""
-    states = np.random.SeedSequence([seed, step]).generate_state(count)
-    return [torch.Generator(device=device).manual_seed(int(s)) for s in states]
+    return [torch.Generator(device=device).manual_seed(s)
+            for s in step_seeds(seed, step, count)]
+
+
+def opt_tensors(opt_state: dict) -> list:
+    """The tensors of an ``AdamW`` state (both moments, the accumulator)."""
+    return [t for part in opt_state.values() if isinstance(part, dict)
+            for t in part.values()]
+
+
+@dataclasses.dataclass(eq=False)
+class StepProgram:
+    """A train step, ``step(state, *inputs, draws=None) -> (state,
+    metrics)`` (``inputs``: that many tensors, then ``draws`` by position or
+    by name), split where the host's work meets the device's:
+
+    * ``phase(state)``: which program this step runs (the accumulation's
+      micro-step or sync step), read on the host;
+    * ``hyper(state)``: the optimizers' host scalars for this update
+      (float32, ``AdamW.hyper``), which ``body`` reads from a device tensor;
+    * ``body(state, generators, hyper, phase, *inputs, draws=None)``: the
+      device work, drawing from the ``generators`` of ``step_seeds(seed,
+      state.step, generators)``; it updates the state's tensors in place,
+      reads no host value that changes from step to step (but ``phase``'s)
+      and returns a tuple of tensors;
+    * ``finish(state, phase, outputs)``: the host counters advanced, and
+      the metrics {name: 0-dim tensor} of ``outputs``.
+
+    ``tensors(state)`` is every tensor the body reads or writes by address
+    (the models' and the state's), ``written(state)`` those it updates in
+    place, and ``key`` what else fixes the body's work."""
+
+    body: object
+    phase: object
+    hyper: object
+    finish: object
+    tensors: object
+    written: object
+    key: tuple
+    seed: int
+    device: torch.device
+    generators: int
+    inputs: int
+
+    def arguments(self, args, draws):
+        """A step's (inputs, draws) from its positional arguments."""
+        if len(args) not in (self.inputs, self.inputs + 1):
+            raise TypeError(f"a train step takes {self.inputs} inputs and draws, "
+                            f"got {len(args)} arguments")
+        return args[:self.inputs], args[self.inputs] if len(args) > self.inputs else draws
+
+    def __call__(self, state, *args, draws=None):
+        """The step, eagerly."""
+        inputs, draws = self.arguments(args, draws)
+        phase = self.phase(state)
+        hyper = device_scalars(self.hyper(state), self.device)
+        gens = step_generators(self.seed, state.step, self.device, self.generators)
+        outputs = self.body(state, gens, hyper, phase, *inputs, draws=draws)
+        return state, self.finish(state, phase, outputs)
+
 
 
 def make_ldm_train_step(unet, cond_model, autoencoder, schedule,
@@ -235,7 +348,7 @@ def make_ldm_train_step(unet, cond_model, autoencoder, schedule,
                         remat_unet=False, ema_decay: float | None = None,
                         encode_chunks: int = 1, seed: int = 0, mesh=None):
     """Build ``train_step(state, images, token_ids, draws=None) -> (state,
-    {"loss": tensor})``.
+    {"loss": tensor})``, a ``StepProgram``.
 
     images [B, H, W, 3] and token_ids [B, L] on the models' device.
     ``draws`` may inject any of: ``t`` [B] int64, ``posterior_noise`` (the
@@ -313,9 +426,8 @@ def make_ldm_train_step(unet, cond_model, autoencoder, schedule,
                                 context_fn=remat.dots_context
                                 if remat_unet == "dots" else None)
 
-    def train_step(state: LDMTrainState, images, token_ids, draws=None):
+    def body(state: LDMTrainState, gens, hyper, phase, images, token_ids, draws=None):
         draws = draws or {}
-        gens = step_generators(seed, state.step, device)
         if in_group:
             gens = [RowSlice(g, rank, world) for g in gens]
         batch = images.shape[0]
@@ -348,16 +460,32 @@ def make_ldm_train_step(unet, cond_model, autoencoder, schedule,
         sharded = [getattr(p, "tp", None) is not None for p in params.values()]
         norm = (lambda g: _tp.global_norm(g, sharded)) if any(sharded) else None
         applied = optimizer.step_(params, dict(zip(params, grads)), state.opt_state,
-                                  reduce, norm)
+                                  hyper, reduce, norm)
         if ema_decay is not None and applied:
             with torch.no_grad():
                 ema = [state.ema[n] for n in params]
                 torch._foreach_mul_(ema, ema_decay)
                 torch._foreach_add_(ema, list(params.values()), alpha=1.0 - ema_decay)
-        state.step += 1
-        return state, {"loss": global_mean(loss.detach(), mesh)}
+        return (global_mean(loss.detach(), mesh),)
 
-    return train_step
+    def finish(state: LDMTrainState, phase, outputs):
+        optimizer.advance(state.opt_state)
+        state.step += 1
+        return {"loss": outputs[0]}
+
+    def state_tensors(state: LDMTrainState) -> list:
+        return opt_tensors(state.opt_state) + list((state.ema or {}).values())
+
+    modules = (unet, cond_model, autoencoder)
+    return StepProgram(
+        body=body, phase=lambda state: optimizer.syncs(state.opt_state),
+        hyper=lambda state: optimizer.hyper(state.opt_state), finish=finish,
+        tensors=lambda state: module_tensors(*modules) + state_tensors(state),
+        written=lambda state: (list(trainable_params(unet, trained_cond).values())
+                               + state_tensors(state)),
+        key=("ldm", remat_unet, train_cond_model, bool(optimizer.clip), encode_chunks,
+             unet.dtype, cond_model.dtype, autoencoder.dtype),
+        seed=seed, device=device, generators=5, inputs=2)
 
 
 def checkpoint_state(state: LDMTrainState, unet, cond_model=None,

@@ -26,6 +26,7 @@ import pytest
 import torch
 
 import golden_utils as gu
+from ldm_tf2_tpu_torch import graphs as shared
 from ldm_tf2_tpu_torch import models as tm
 from ldm_tf2_tpu_torch.checkpoints.bridge import load_params
 from ldm_tf2_tpu_torch.cli import run_ldm_sampler as cli
@@ -68,15 +69,15 @@ class StandIn:
         return None
 
     def replay(self):
-        before = graphs.counts()
+        before = shared.counts()
         fresh = self.fn()
-        graphs.add_counts(graphs.rise(before, graphs.counts()), -1)
+        shared.add_counts(shared.rise(before, shared.counts()), -1)
         for static, value in zip(self.outputs, fresh):
             static.copy_(value)
 
 
 def _store():
-    return graphs.GraphStore(runner=StandIn)
+    return shared.GraphStore(runner=StandIn)
 
 
 def _t(a):
@@ -456,7 +457,7 @@ class _CaptureOnly:
 def test_a_dead_unets_captures_are_dropped():
     import gc
 
-    store = graphs.GraphStore(runner=_CaptureOnly)
+    store = shared.GraphStore(runner=_CaptureOnly)
     unet = _seeded_unet()
     with torch.inference_mode():
         graphs.graphed_eps_model(unet, store)(*_eval_inputs())
@@ -478,8 +479,8 @@ def test_a_pool_is_new_once_every_capture_is_dropped(monkeypatch):
             pools.append(pool)
 
     monkeypatch.setattr(graphs.torch.cuda, "graph_pool_handle", lambda: next(handles))
-    monkeypatch.setattr(graphs, "CUDAGraphRunner", Runner)
-    store = graphs.GraphStore()
+    monkeypatch.setattr(shared, "CUDAGraphRunner", Runner)
+    store = shared.GraphStore()
     unet = _seeded_unet()
     x, t, c = _eval_inputs()
     with torch.inference_mode():
@@ -509,7 +510,7 @@ def test_replays_count_what_eager_evals_count():
 
     x = torch.ones(3)
     for n in range(1, 5):
-        (out,) = store.run("key", fn, (x * n,), torch.nn.Linear(1, 1))
+        (out,) = store.run("key", fn, (x * n,), shared.Session())
         assert torch.equal(out, x * 2 * n)
         assert fa.flash_attention.launches - start[0] == 3 * n
         assert fa.flash_attention.launches_by_path["wgmma"] - start[1] == 3 * n
@@ -587,7 +588,7 @@ def test_replays_count_the_graphs_kernel_nodes(monkeypatch, case):
                 monkeypatch.setattr(fn, attr, dict(value) if isinstance(value, dict) else value)
     ticks, held, agree = BACKING[case]
     monkeypatch.setattr(_Nodes, "kernels_held", held)
-    store = graphs.GraphStore(runner=_Nodes)
+    store = shared.GraphStore(runner=_Nodes)
 
     def fn(x):
         for name, attr, n, *path in ticks:
@@ -595,17 +596,17 @@ def test_replays_count_the_graphs_kernel_nodes(monkeypatch, case):
         return (x + 1,)
 
     x = torch.zeros(2)
-    start = graphs.counts()
+    start = shared.counts()
     if not agree:
         with pytest.raises(RuntimeError, match="disagree with its graph"):
-            store.run("key", fn, (x,), torch.nn.Linear(1, 1))
+            store.run("key", fn, (x,), shared.Session())
         return
-    store.run("key", fn, (x,), torch.nn.Linear(1, 1))  # the eager warm-up and capture
-    per_eval = graphs.rise(start, graphs.counts())
+    store.run("key", fn, (x,), shared.Session())  # the eager warm-up and capture
+    per_eval = shared.rise(start, shared.counts())
     for n in range(1, 3):
-        before = graphs.counts()
-        store.run("key", fn, (x,), torch.nn.Linear(1, 1))  # a replay
-        assert graphs.rise(before, graphs.counts()) == per_eval
+        before = shared.counts()
+        store.run("key", fn, (x,), shared.Session())  # a replay
+        assert shared.rise(before, shared.counts()) == per_eval
     assert store.kernels("key") == held
 
 
@@ -614,7 +615,7 @@ def test_replays_count_the_graphs_kernel_nodes(monkeypatch, case):
     (GNQ, "gn_silu_quant_cluster_kernel"), ("_ZL10ffn_kernelIfLi2EEvv", "ffn_kernel"),
     (S8, "s8_conv_wgmma_kernel"), (GEMM, GEMM)])
 def test_kernel_base_name(mangled, base):
-    assert graphs.kernel_base_name(mangled) == base
+    assert shared.kernel_base_name(mangled) == base
 
 
 def test_no_graph_on_the_cpu_or_on_a_mesh(monkeypatch, fresh_unet):
@@ -630,13 +631,13 @@ def test_no_graph_on_the_cpu_or_on_a_mesh(monkeypatch, fresh_unet):
     cli.sample_txt2img(cond, fresh_unet, decoder, schedule, torch.zeros(4, 5, dtype=torch.long),
                        SHAPE, device="cpu")
     assert StandIn.made == 0 and len(store) == 0
-    assert "no CUDA graphs on the CPU" in graphs.describe("cpu")
-    assert not graphs.graphs_apply("cpu")
-    monkeypatch.setattr(graphs, "distributed_world", lambda: 2)
-    assert not graphs.graphs_apply("cuda")
+    assert "no CUDA graphs on the CPU" in shared.describe("cpu")
+    assert not shared.graphs_apply("cpu")
+    monkeypatch.setattr(shared, "distributed_world", lambda: 2)
+    assert not shared.graphs_apply("cuda")
     assert graphs.eps_model_for(fresh_unet, "cuda") is fresh_unet
-    assert "a mesh of 2 ranks" in graphs.describe("cuda")
-    assert "graphs=False" in graphs.describe("cuda", graphs=False)
+    assert "a mesh of 2 ranks" in shared.describe("cuda")
+    assert "graphs=False" in shared.describe("cuda", graphs=False)
 
 
 # ------------------------------------------------------------------ card --
@@ -668,7 +669,7 @@ def test_replay_is_bit_equal_to_eager_on_card(route):
     want = {"default": ("flash_attention", "fused_ffn"),
             "opt-in": ("group_norm_fused", "gn_silu_conv3x3_fused", "cross_attention"),
             "int8": ("gn_silu_quant", "s8_conv3x3", "flash_attention_pv_int8")}[route]
-    store = graphs.GraphStore()
+    store = shared.GraphStore()
     undo = []
     if route == "opt-in":
         undo = [_switch("groupnorm"), _switch("fused_conv"), _switch("packed_cross")]
@@ -677,17 +678,17 @@ def test_replay_is_bit_equal_to_eager_on_card(route):
     try:
         with torch.inference_mode():
             unet(x, t, c)  # plans, relayouts, the kernels' builds
-            before = graphs.counts()
+            before = shared.counts()
             eager = unet(x, t, c)
-            per_eval = graphs.rise(before, graphs.counts())
+            per_eval = shared.rise(before, shared.counts())
             model = graphs.graphed_eps_model(unet, store)
             outs = []
             for i in range(3):  # the eager warm-up and capture, then replays
-                before = graphs.counts()
+                before = shared.counts()
                 outs.append(model(x, t, c))
-                assert graphs.rise(before, graphs.counts()) == per_eval, i
+                assert shared.rise(before, shared.counts()) == per_eval, i
             torch.cuda.synchronize()
-            held = {graphs.kernel_base_name(k) for k in store.kernels(model.key(x, t, c))}
+            held = {shared.kernel_base_name(k) for k in store.kernels(model.key(x, t, c))}
     finally:
         for u in undo:
             u()
@@ -695,7 +696,7 @@ def test_replay_is_bit_equal_to_eager_on_card(route):
     names = {fn.__name__ for fn, attr in per_eval if attr == "launches"}
     assert set(want) <= names, (route, names)
     for name in want:  # one of the wrapper's kernels among the graph's nodes
-        assert held & set(graphs._KERNELS[name].values()), (route, name, held)
+        assert held & set(shared._KERNELS[name].values()), (route, name, held)
     for out in outs:
         assert torch.equal(out, eager)
     assert len(store.capture_seconds) == 1
