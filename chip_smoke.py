@@ -76,8 +76,8 @@ final line is printed:
    1 against the main path's images; DPM-Solver++(2M) DeepCache (20 karras
    steps, interval 2, two levels); ``sample_img2img`` at strength 0.75 and
    with a mask (the kept latent exactly the init latent); a DeepCache
-   ``serve()`` request; a DeepCache call in the int8 serving modes at
-   batch 4; each call's launches held to ``eval_counts``;
+   call in the int8 serving modes at batch 4; each call's launches held
+   to ``eval_counts``;
 5e. convert, export, eval (``phase_convert_export_eval``): a CompVis
    checkpoint with every key of ``tests/goldens/compvis_key_manifest.json``
    (1,498,849,707 seeded model parameters) saved with ``torch.save``, the
@@ -96,19 +96,32 @@ final line is printed:
    north-star widths, batch 4, 50 steps, on four requests from an
    in-memory stream, with the launch counts read around it and held to
    what the north-star U-Net dispatches (``SERVE_EVAL``), every int8-P.V
-   launch on wgmma, every GN+SiLU+quantize launch resident;
+   launch on wgmma, every GN+SiLU+quantize launch resident; its warm-up
+   captures the whole call as one graph, and the two calls replay it;
 6a. graphs (``phase_graphs``): the sampling path's U-Net evals captured as
    CUDA graphs and replayed (``diffusion/graphs.py``; every sampling phase
    above already runs so, the entry points' default), each run beside its
    eager run (``graphs=False``) on the same seed and weights: the main
    path in turns (eager, graphed, graphed, eager), the same call at
-   bench.py's headline batch 24, PLMS, DPM-Solver++(2M) and DDPM at 20
-   steps, DDIM DeepCache at interval 3, img2img, the opt-in
-   route and one int8 ``serve()`` wave; x0 and images bit-equal, launches
-   per call equal, s per call, peak memory and each capture's seconds;
+   bench.py's headline batch 24, img2img and the opt-in route; x0 and
+   images bit-equal, launches per call equal, s per call, peak memory and
+   each capture's seconds;
    one eval of each route (default at CFG 4 and 48, the DeepCache shallow
    pass, opt-in, int8) profiled eager and graphed: kernel launches per
    eval from the trace equal, wall and busy ms per eval, idle share;
+6c. serve program (``phase_serve_program``, after 6a): the server's call
+   (text encode, loop, decode) as one CUDA graph at batch 4 in seven
+   configurations (``SERVE_PROGRAM_CONFIGS``: int8 + int8-P.V and bf16
+   DDIM, eta 1, DeepCache, DPM-Solver++(2M), PLMS, DDPM), through the
+   server's own ``run_batch``: the eager server's call (``graphs=False``),
+   the per-eval graphed call and the program's warm-up and three replays
+   (``SERVE_PROGRAM_CALLS``) with images bit-equal, counts equal, s per
+   call each way, capture seconds, kernel nodes, graph pool, the host's
+   ms of the program's weights check, a profiled replay where the
+   configuration says so, and a replaced U-Net tensor recapturing; first
+   the eager encode and decode (``phase_encode_decode``).  With arguments
+   the script runs named phases of this run alone (``ALONE``: ``serve``,
+   ``serve_program``, ``encode_decode``); each phase logs its seconds;
 6b. tp / sp (``phase_tp_sp``): two spawned gloo ranks on the one card
    (NCCL ranks too where the machine has two or four cards), each calling
    ``dist.init_process_group`` before the port: the collectives on CUDA
@@ -179,6 +192,7 @@ kernels JSON, the nvidia-smi line and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -1537,12 +1551,7 @@ def phase_main_path(card: str):
     config = validate(json.loads(json.dumps(NORTH_STAR)))
     sampling = config["ldm_sampling"]
     start = time.perf_counter()
-    models = [
-        factory.randomize_(build(config, device="cuda"), seed)
-        for seed, build in ((21, factory.build_cond_model),
-                            (22, factory.build_unet),
-                            (23, factory.build_autoencoder))
-    ]
+    models = _north_star_models(config)
     n_params = sum(p.numel() for m in models for p in m.parameters())
     torch.cuda.synchronize()
     log(f"main path: built {n_params / 1e9:.3f} B params (bf16) in "
@@ -1582,6 +1591,17 @@ def phase_main_path(card: str):
     run = dict(models=models, config=config, ids=ids, shape=shape, kwargs=kwargs,
                images=images, x0=x0.float().cpu(), seconds=seconds, profile=profile)
     return launches, run
+
+
+def _north_star_models(config) -> list:
+    """The north star's text encoder, U-Net and KL autoencoder on the card,
+    their weights drawn from seeds 21, 22 and 23 (``factory.randomize_``)."""
+    from ldm_tf2_tpu_torch import factory
+
+    return [factory.randomize_(build(config, device="cuda"), seed)
+            for seed, build in ((21, factory.build_cond_model),
+                                (22, factory.build_unet),
+                                (23, factory.build_autoencoder))]
 
 
 class _Count:
@@ -1982,23 +2002,20 @@ def phase_deepcache_img2img(card: str, run: dict):
     path's plain DDIM images, and with DPM-Solver++(2M) DeepCache (20
     karras steps, interval 2, two levels); ``sample_img2img`` at strength
     0.75 from a seeded uint8 image read by the CLI's loader, then with a
-    mask that keeps the left half; one ``serve()`` request with
-    cache_interval 3; one DDIM DeepCache call in the int8 serving modes at
-    batch 4.  Each call's launches are counted around it and held to what
+    mask that keeps the left half; one DDIM DeepCache call in the int8
+    serving modes at batch 4 (the server's DeepCache calls:
+    ``phase_serve_program``).  Each call's launches are counted around it and held to what
     its evals dispatch (``eval_counts``); DeepCache and plain DDIM are then
     timed in turns."""
-    import io
     import tempfile
 
     import numpy as np
     import torch
 
     from ldm_tf2_tpu_torch import factory
-    from ldm_tf2_tpu_torch.cli import serve_ldm
     from ldm_tf2_tpu_torch.cli.run_ldm_sampler import (
         load_init_image, load_mask, sample_img2img, sample_txt2img,
     )
-    from ldm_tf2_tpu_torch.configs.loader import validate
     from ldm_tf2_tpu_torch.data.tokenizer import cfg_token_ids, load_tokenizer
     from ldm_tf2_tpu_torch.diffusion.schedule import make_schedule
 
@@ -2152,30 +2169,9 @@ def phase_deepcache_img2img(card: str, run: dict):
         f"regenerated half moved by max |d| {moved:.3f} (want > 0.1)")
     check(kept and moved > 0.1, f"inpainting kept region equal {kept}, moved {moved}")
 
-    # the server with DeepCache: the warm-up call and one request
-    serve_config = json.loads(json.dumps(NORTH_STAR))
-    serve_config["ldm_sampling"].update(cache_interval=3,
-                                        vocab_dir=os.path.join(ROOT, "bert_model"))
-    serve_config = validate(serve_config)
-    out = io.StringIO()
-    with tempfile.TemporaryDirectory(dir=ROOT) as out_dir:
-        seconds, launches, _ = counted(
-            serve_ldm.serve, serve_config, io.StringIO(json.dumps(
-                {"prompt": "a lighthouse at dusk", "seed": 3, "out": "c"})), out,
-            output_dir=out_dir, device="cuda", models=models)
-        resp = json.loads(out.getvalue().splitlines()[0])
-        ok = resp["ok"] and np.load(resp["out"]).shape == (2, 256, 256, 3)
-    nf, ns = _deepcache_evals(steps, 3)
-    want = {k: 2 * v for k, v in want_of(nf, ns, 1).items()}
-    log(f"serve with cache_interval 3: warm-up and one request in {seconds:.3f} s, the "
-        f"request {resp.get('latency_s')} s {'PASS' if ok else 'FAIL'}; launches over 2 "
-        f"calls {launches}")
-    check(ok, f"serve with DeepCache: {resp}")
-    check(launches == want, f"serve DeepCache launch counts {launches}, expected {want}")
-
-    # DDIM DeepCache in the int8 serving modes at batch 4 (CFG 8)
-    int8_config = json.loads(json.dumps(serve_config))
-    int8_config["tpu"].update(quantize="int8", quantize_attention="int8pv")
+    # DDIM DeepCache in the int8 serving modes at batch 4 (CFG 8); the
+    # server with DeepCache is phase_serve_program's
+    int8_config = {"tpu": dict(quantize="int8", quantize_attention="int8pv")}
     shape4 = (4, *shape[1:])
     ids4 = torch.as_tensor(cfg_token_ids(load_tokenizer(os.path.join(ROOT, "bert_model")),
                                          NORTH_STAR["ldm_sampling"]["text_prompt"], 4, 77))
@@ -2490,7 +2486,10 @@ def phase_serve(card: str, models):
     driven through ``serve()`` with an in-memory stream: two requests of
     seed 1 that pack into one batch-4 call, one of seed 2 (a padded call),
     one malformed line.  Counts are read around the whole run: the warm-up
-    call and the two request calls."""
+    call and the two request calls.  The warm-up captures the whole call
+    as one graph (``diffusion/graphs.py::SamplingProgram``) and the two
+    request calls replay it: one capture, two replays, and stderr's report
+    of the capture, its seconds and its kernel nodes."""
     import io
     import tempfile
 
@@ -2498,6 +2497,7 @@ def phase_serve(card: str, models):
     import torch
 
     from ldm_tf2_tpu_torch.cli import serve_ldm
+    from ldm_tf2_tpu_torch.diffusion import graphs
 
     config = _serve_config()
     steps = config["ldm"]["num_ddim_steps"]
@@ -2516,18 +2516,27 @@ def phase_serve(card: str, models):
     want.update({k: calls * v for k, v in per_call.items()})
 
     counters = _counters()
-    out = io.StringIO()
+    out, err = io.StringIO(), io.StringIO()
+    store = graphs.STORE
+    made, replays = len(store.capture_seconds), store.replays
     with tempfile.TemporaryDirectory(dir=ROOT) as out_dir:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _reset(counters)
         start = time.perf_counter()
-        serve_ldm.serve(config, io.StringIO(SERVE_REQUESTS), out, output_dir=out_dir,
-                        device="cuda", models=models)
+        with contextlib.redirect_stderr(err):
+            serve_ldm.serve(config, io.StringIO(SERVE_REQUESTS), out, output_dir=out_dir,
+                            device="cuda", models=models)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - start
         launches = _read(counters)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        made, replays = len(store.capture_seconds) - made, store.replays - replays
+        for line in err.getvalue().splitlines():
+            log(f"serve stderr: {line}")
+        check(made == 1 and replays == 2 and "captured 1 call graph(s)" in err.getvalue(),
+              f"serve: {made} capture(s) and {replays} replay(s), expected the warm-up's "
+              "one capture of the whole call and a replay for each of the 2 calls")
         resps = [json.loads(line) for line in out.getvalue().splitlines()]
         check(len(resps) == 4, f"{len(resps)} responses, expected 4")
         check([r["ok"] for r in resps] == [True, True, True, False]
@@ -2542,7 +2551,8 @@ def phase_serve(card: str, models):
         f"call and model setup {seconds - wave_s:.3f} s, one wave of 3 requests "
         f"(5 images) in 2 calls {wave_s:.3f} s = {wave_s / 2:.3f} s per call, "
         f"{5 / wave_s:.3f} requested img/s ({8 / wave_s:.3f} slot img/s), peak "
-        f"memory {peak_gb:.2f} GB; launches over {calls} calls {launches}")
+        f"memory {peak_gb:.2f} GB; {made} capture of the whole call, {replays} replays; "
+        f"launches over {calls} calls {launches}")
     check(launches == want, f"serve launch counts {launches}, expected {want}")
     check_no_fma("serve")
     gnq = LAST_MODES["gn_silu_quant"]
@@ -2558,9 +2568,6 @@ def phase_serve(card: str, models):
 
 # Bench.py's headline batch (bench.py:226-231): 24 latents, CFG batch 48
 GRAPHS_HEADLINE_BATCH = 24
-# PLMS's, DPM-Solver++(2M)'s steps and DDPM's timeline in the graphs phase,
-# cut from 50 (and DDPM's 1000) to keep the phase short
-GRAPHS_SAMPLER_STEPS = 20
 # Evals timed bare (no profiler) and profiled in one window for each eval pair
 GRAPHS_EVALS = (3, 5)
 
@@ -2688,25 +2695,20 @@ def phase_graphs(card: str, run: dict) -> None:
     (``diffusion/graphs.py``), each run beside its eager run
     (``graphs=False``) with the same seed and weights: the main path (50
     CFG DDIM steps, batch 2, bf16) in turns (eager, graphed, graphed,
-    eager), the same call at ``GRAPHS_HEADLINE_BATCH``, the opt-in route,
-    PLMS, DPM-Solver++(2M) (karras) and DDPM (its whole timeline) at
-    ``GRAPHS_SAMPLER_STEPS``, DDIM DeepCache at interval 3, one img2img
-    call, and one ``serve()`` wave in the int8 + int8-P.V modes at batch 4
-    (``SERVE_REQUESTS``).  Each pair: x0 and images bit-equal, the launch
+    eager), the same call at ``GRAPHS_HEADLINE_BATCH``, the opt-in route
+    and one img2img call (PLMS, DPM-Solver++(2M), DDPM and DDIM DeepCache
+    are held to their eager calls in ``phase_serve_program``, where the
+    server's calls are one graph each).  Each pair: x0 and images bit-equal, the launch
     counts per call equal, s per call and peak memory allocated each side
     (a graph's temporaries live in its pool, outside that count), the
     graphs' pools' size, the seconds of every new capture (its eager
     warm-up eval included).  ``_eval_pair`` profiles one eval of each
     route (default at batch 2 and 24, opt-in, int8, the DeepCache shallow
     pass)."""
-    import io
-    import tempfile
-
     import numpy as np
     import torch
 
     from ldm_tf2_tpu_torch import factory
-    from ldm_tf2_tpu_torch.cli import serve_ldm
     from ldm_tf2_tpu_torch.cli.run_ldm_sampler import sample_img2img, sample_txt2img
     from ldm_tf2_tpu_torch.data.tokenizer import cfg_token_ids, load_tokenizer
     from ldm_tf2_tpu_torch.diffusion import graphs
@@ -2790,17 +2792,8 @@ def phase_graphs(card: str, run: dict) -> None:
     pair(f"headline, DDIM, batch {hb}", txt2img(schedule, ids24, shape24), steps,
          warm=txt2img(short, ids24, shape24), order=(False, True))
     _eval_pair(unet, shape24, f"default bf16 eval, batch {hb}")
-    # the other samplers on the main path's key, at GRAPHS_SAMPLER_STEPS
-    n = GRAPHS_SAMPLER_STEPS
-    for sampler, sched in (
-            ("plms", make_schedule(**{**base, "num_ddim_steps": n})),
-            ("dpm_solver_pp_2m", make_schedule(**{**base, "num_ddim_steps": n},
-                                               timestep_spacing="karras")),
-            ("ddpm", make_schedule(**{**base, "num_steps": n, "num_ddim_steps": n}))):
-        pair(f"{sampler}, {n} steps", txt2img(sched, sampler=sampler), n, order=(False, True))
-    # DeepCache DDIM, interval 3: the cache-returning and the shallow pass
-    pair("DeepCache DDIM, interval 3", txt2img(schedule, cache_interval=3), steps,
-         warm=txt2img(short, cache_interval=2), order=(False, True))
+    # PLMS, DPM-Solver++(2M), DDPM and DeepCache: the per-eval graphed call
+    # against the eager one in phase_serve_program, at batch 4
     _eval_pair(unet, shape, "DeepCache shallow eval", cache_levels=1)
     # img2img at strength 0.75: 38 steps
     pixels = np.random.default_rng(11).integers(0, 256, (shape[0], 256, 256, 3), np.uint8)
@@ -2817,37 +2810,6 @@ def phase_graphs(card: str, run: dict) -> None:
         _eval_pair(unet, shape, "opt-in bf16 eval")
     finally:
         _set_switches("auto", "auto", False)
-    # one serve() wave in the int8 modes (its warm-up captures the key)
-    serve_config = _serve_config()
-
-    def serve(on):
-        out = io.StringIO()
-        with tempfile.TemporaryDirectory(dir=ROOT) as out_dir:
-            serve_ldm.serve(serve_config, io.StringIO(SERVE_REQUESTS), out,
-                            output_dir=out_dir, device="cuda", models=models, graphs=on)
-            resps = [json.loads(line) for line in out.getvalue().splitlines()]
-            check([r["ok"] for r in resps] == [True, True, True, False],
-                  f"graphs serve: responses {resps}")
-            return [np.load(r["out"]) for r in resps[:3]] + [resps[0]["latency_s"]]
-
-    n0 = len(store.capture_seconds)
-    waves = {}
-    for on in (False, True):
-        seconds, counts, outs, peak, pool = one(serve, on)
-        waves[on] = (seconds, counts, outs[:3], outs[3], peak, pool)
-    for a, b in zip(waves[True][2], waves[False][2]):
-        check(np.array_equal(a, b), "graphs serve: the graphed wave's images differ")
-    check(waves[True][1] == waves[False][1],
-          f"graphs serve: launches {waves[True][1]} against eager {waves[False][1]}")
-    captured = store.capture_seconds[n0:]
-    log(f"graphs: serve, int8 + int8-P.V, batch 4, 50 steps, on {card}: warm-up and 2 "
-        f"calls eager {waves[False][0]:.3f} s, graphed {waves[True][0]:.3f} s; the wave "
-        f"(2 calls) {waves[False][3]:.3f} / {waves[True][3]:.3f} s, "
-        f"{waves[False][3] / 2:.3f} / {waves[True][3] / 2:.3f} s per call; images "
-        f"bit-equal PASS; launches over 3 calls equal PASS {waves[True][1]}; peak "
-        f"allocated {waves[False][4]:.2f} / {waves[True][4]:.2f} GB, the graphs' pools "
-        f"{waves[True][5]:.2f} GB; "
-        f"{len(captured)} capture(s) {[round(c, 3) for c in captured]} s")
     unet.set_serving_modes(conv_quant=True, attention_pv_int8=True)
     try:
         _eval_pair(unet, (4,) + tuple(shape[1:]), "int8 + int8-P.V eval")
@@ -2857,6 +2819,312 @@ def phase_graphs(card: str, run: dict) -> None:
     graphs.STORE.clear()
     torch.cuda.empty_cache()
     log(f"graphs: phase took {time.perf_counter() - start_phase:.1f} s on {card}")
+
+
+# The serve program phase's configurations, batch 4 (CFG 8), 256^2, one
+# card: (name, tpu serving modes, ldm_sampling keys, ldm keys, whether a
+# replay is profiled); PLMS at phase_samplers' 50 steps, DDPM on its
+# 100-step timeline.  A profiler window costs about 0.16 ms of host time a
+# kernel (42 s for DDPM's 262,524): the bf16 DDIM, DeepCache, PLMS and
+# DDPM replays, whose evals are the profiled bf16 ones, go unprofiled to
+# keep the script in its time limit
+SERVE_PROGRAM_CONFIGS = (
+    ("int8 + int8-P.V DDIM, 50 steps", dict(quantize="int8", quantize_attention="int8pv"),
+     {}, {}, True),
+    ("bf16 DDIM, 50 steps", {}, {}, {}, False),
+    ("bf16 DDIM eta 1, 10 steps", {}, {}, dict(eta=1.0, num_ddim_steps=10), True),
+    ("bf16 DDIM DeepCache, interval 3", {}, dict(cache_interval=3), {}, False),
+    ("bf16 DPM-Solver++(2M), 8 karras steps", {}, dict(sampler="dpm_solver_pp_2m"),
+     dict(num_ddim_steps=8, timestep_spacing="karras"), True),
+    ("bf16 PLMS, 50 steps", {}, dict(sampler="plms"), {}, False),
+    ("bf16 DDPM, T = 100", {}, dict(sampler="ddpm"), dict(num_steps=100), False),
+)
+# The calls after a program's warm-up (which takes the first's inputs):
+# two seeds, two per-slot guidance vectors
+SERVE_PROGRAM_CALLS = ((1, (5.0, 7.5, 3.0, 5.0)), (2, (5.0, 7.5, 3.0, 5.0)),
+                       (1, (2.0, 9.0, 5.0, 4.5)))
+SERVE_PROGRAM_PROMPTS = ["a virus monster is playing guitar", "an oil painting of a harbour",
+                         "a red fox", "a lighthouse at dusk"]
+
+
+def _program_config(tpu: dict, sampling: dict, ldm: dict) -> dict:
+    """The north star at batch 4 with ``tpu``'s serving modes and the
+    sampling and schedule keys given."""
+    from ldm_tf2_tpu_torch.configs.loader import validate
+
+    config = json.loads(json.dumps(NORTH_STAR))
+    config["ldm_sampling"].update(latent_shape=[4, 32, 32, 4],
+                                  vocab_dir=os.path.join(ROOT, "bert_model"), **sampling)
+    config["ldm"].update(ldm)
+    config["tpu"].update(tpu)
+    return validate(config)
+
+
+def _program_ids():
+    """The token ids [8, 77] of ``SERVE_PROGRAM_PROMPTS`` on the card."""
+    import torch
+
+    from ldm_tf2_tpu_torch.data.tokenizer import load_tokenizer, packed_cfg_token_ids
+
+    tokenizer = load_tokenizer(os.path.join(ROOT, "bert_model"))
+    return torch.as_tensor(packed_cfg_token_ids(tokenizer, SERVE_PROGRAM_PROMPTS,
+                                                [""] * 4, 77), device="cuda")
+
+
+def _timed(fn):
+    """(seconds, fn()) with the card synchronized on both sides."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - start, out
+
+
+def _window(fn, n: int, what: str, bare_ms: float) -> dict:
+    """``n`` calls of ``fn`` in one CUDA-only profiler window:
+    ``_profile_report``'s busy ms, launches and copies per call, beside
+    ``bare_ms``, the wall of a call without the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - start) * 1e3
+    rep = _profile_report(prof, n, what, prof_ms, bare_ms * n)
+    check(rep is not None, f"{what}: the profiler recorded no device time")
+    return rep
+
+
+def phase_encode_decode(card: str, models, ids) -> dict:
+    """The eager text encode of a batch-4 serving call (token ids [8, 77])
+    and its eager decode (latents [4, 32, 32, 4] to [4, 256, 256, 3]), in
+    bf16 and with the decoder's attention in int8 P.V: wall ms per call
+    (the mean of 5, bare) and one CUDA-only profiler window of 3 calls each
+    (busy ms, idle share, time by kernel group)."""
+    import torch
+
+    from ldm_tf2_tpu_torch.cli.run_ldm_sampler import decode_latents
+
+    cond, _, autoencoder = models
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    z = torch.randn(4, 32, 32, 4, generator=gen, device="cuda") / 0.18215
+    out = {}
+    runs = (("text encode", lambda: cond(ids), False),
+            ("decode, bf16 attention", lambda: decode_latents(autoencoder, z), False),
+            ("decode, int8-P.V attention", lambda: decode_latents(autoencoder, z), True))
+    try:
+        with torch.inference_mode():
+            for what, fn, pv8 in runs:
+                autoencoder.set_serving_modes(attention_pv_int8=pv8)
+                fn()
+                walls = [_timed(fn)[0] * 1e3 for _ in range(5)]
+                wall = statistics.mean(walls)
+                rep = _window(fn, 3, f"eager {what} at batch 4", wall)
+                out[what] = dict(wall_ms=wall, busy_ms=rep["busy_ms"],
+                                 idle=1 - rep["busy_ms"] / wall)
+                log(f"encode / decode on {card}: eager {what}, batch 4: wall "
+                    f"{wall:.2f} ms {[round(w, 2) for w in walls]}, busy "
+                    f"{rep['busy_ms']:.2f} ms in {rep['launches']:.0f} launches, idle "
+                    f"{out[what]['idle']:.1%}")
+    finally:
+        autoencoder.set_serving_modes()
+    return out
+
+
+def _on_wgmma(rise: dict) -> dict:
+    """The counted launches of ``rise`` (a ``graphs.rise``) by path that
+    are not on ``wgmma`` (a plan's modes left out)."""
+    from ldm_tf2_tpu_torch import graphs as shared
+
+    modes = [name for name, paths in shared._KERNELS.items() if None in paths]
+    return {fn.__name__: paths for (fn, attr), paths in rise.items()
+            if attr == "launches_by_path" and fn.__name__ not in modes
+            and sum(paths.values()) != paths.get("wgmma", 0)}
+
+
+@contextlib.contextmanager
+def _served_images(seen: list):
+    """The server's float images, as its ``run_batch`` hands them to
+    ``tensor_to_image`` on their way to uint8, appended to ``seen``."""
+    from ldm_tf2_tpu_torch.cli import serve_ldm
+
+    real = serve_ldm.tensor_to_image
+    serve_ldm.tensor_to_image = lambda images: seen.append(images.copy()) or real(images)
+    try:
+        yield seen
+    finally:
+        serve_ldm.tensor_to_image = real
+
+
+# Host seconds of the program's weights check, timed over this many calls
+STAMP_CALLS = 20
+
+
+def phase_serve_program(card: str, models) -> None:
+    """The server's call as one CUDA graph (``diffusion/graphs.py::
+    SamplingProgram``), at the north-star widths, batch 4, 256^2, on one
+    card, for each of ``SERVE_PROGRAM_CONFIGS``, through the server's own
+    ``run_batch`` (``cli/serve_ldm.py::build_server``: its settings, its
+    token ids, guidance and seed), its float images read where it turns
+    them to uint8: the eager encode and decode first
+    (``phase_encode_decode``); then per configuration the eager server's
+    call (``graphs=False``, on the first of ``SERVE_PROGRAM_CALLS``) and the
+    per-eval graphed call (``sample_txt2img(..., graphs=True)`` with the
+    server's settings, on each call), the program's warm-up (its one
+    capture, on the first call's inputs) and a replay on each call: images
+    bit-equal among the three, a replay's launch counts equal to the
+    per-eval graphed call's (read off the graph's kernel nodes) and every
+    counted launch on ``wgmma``; s per call each way, the capture's seconds
+    (eager warm-up call included), the graph's kernel nodes, peak allocated
+    in the replays beside the graph pool, the host's ms of the program's
+    weights check a call (``STAMP_CALLS`` timed), and, where the
+    configuration says so, one replay in a CUDA-only profiler window (busy
+    ms, idle share).  Then one U-Net tensor replaced: the next call
+    captures anew, bit-equal to the replays before."""
+    import io
+
+    import numpy as np
+    import torch
+
+    from ldm_tf2_tpu_torch import factory
+    from ldm_tf2_tpu_torch import graphs as shared
+    from ldm_tf2_tpu_torch.cli import serve_ldm
+    from ldm_tf2_tpu_torch.cli.run_ldm_sampler import sample_txt2img
+    from ldm_tf2_tpu_torch.diffusion import graphs
+
+    start_phase = time.perf_counter()
+    store = graphs.STORE
+    store.clear()
+    ids = _program_ids()
+    phase_encode_decode(card, models, ids)
+    unet = models[1]
+    prompts, negatives = SERVE_PROGRAM_PROMPTS, [""] * len(SERVE_PROGRAM_PROMPTS)
+
+    def counted(fn):
+        before = shared.counts()
+        seconds, out = _timed(fn)
+        return seconds, out, shared.rise(before, shared.counts())
+
+    def served(run_batch, seed, guidance):
+        """(seconds, float images, counts) of one server call."""
+        seen = []
+        with _served_images(seen):
+            seconds, _, rise = counted(lambda: run_batch(prompts, negatives, list(guidance),
+                                                         seed))
+        return seconds, seen[0], rise
+
+    for n_config, (name, tpu, sampling, ldm, profiled) in enumerate(SERVE_PROGRAM_CONFIGS):
+        config = _program_config(tpu, sampling, ldm)
+        with contextlib.redirect_stderr(io.StringIO()):
+            eager_batch, _, _ = serve_ldm.build_server(config, device="cuda", models=models,
+                                                       graphs=False)
+            run_batch, _, _ = serve_ldm.build_server(config, device="cuda", models=models)
+        program, settings = run_batch.program, run_batch.settings
+        check(eager_batch.program is None and program is not None,
+              f"serve program {name}: the server on one card made no program, or its "
+              "graphs=False twin made one")
+        schedule = factory.build_schedule(config)
+        shape = tuple(config["ldm_sampling"]["latent_shape"])
+        evals = (schedule.num_steps if settings["sampler"] == "ddpm"
+                 else len(schedule.ddim_steps))
+        calls = SERVE_PROGRAM_CALLS
+
+        def per_eval(seed, guidance):
+            g = torch.tensor(guidance, device="cuda").reshape(len(guidance), 1, 1, 1)
+            images, _ = sample_txt2img(*models, schedule, ids, shape, guidance_scale=g,
+                                       seed=seed, device="cuda", graphs=True, **settings)
+            return images.float().cpu().numpy()
+
+        start_config = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        refs = {"eager": [served(eager_batch, *calls[0])]}
+        eager_peak = torch.cuda.max_memory_allocated() / 1e9
+        with torch.inference_mode():
+            refs["per-eval graphed"] = [counted(lambda: per_eval(*c)) for c in calls]
+        made, replays = len(store.capture_seconds), store.replays
+        warm = served(run_batch, *calls[0])
+        torch.cuda.reset_peak_memory_stats()
+        got = [served(run_batch, *c) for c in calls]
+        peak, pool = torch.cuda.max_memory_allocated() / 1e9, _graph_pool_gb()
+        made, replays = len(store.capture_seconds) - made, store.replays - replays
+        check(made == 1 and replays == len(calls),
+              f"serve program {name}: {made} capture(s), {replays} replay(s)")
+        capture_s = store.capture_seconds[-1]
+        nodes = sum(store.kernels(program.last_key).values())
+        for i, ref in enumerate(refs["per-eval graphed"]):
+            runs = [("replay", got[i])]
+            if i == 0:
+                runs += [("warm-up", warm), ("eager server", refs["eager"][0])]
+            for way, run in runs:
+                check(np.array_equal(run[1], ref[1]), f"serve program {name}: the images of "
+                      f"the {way} call {i} differ from the per-eval graphed call's, max abs "
+                      f"{float(np.abs(run[1] - ref[1]).max()):.3e}")
+                check(run[2] == ref[2], f"serve program {name}: the {way} call {i} counts "
+                                        f"{run[2]}, the per-eval graphed call {ref[2]}")
+            off = _on_wgmma(got[i][2])
+            check(not off, f"serve program {name}: launches off wgmma {off}")
+        check(not np.array_equal(got[0][1], got[1][1])
+              and not np.array_equal(got[0][1], got[2][1]),
+              f"serve program {name}: another seed or guidance gave the same images")
+        tensors = len(shared.module_tensors(*program.models))
+        start_stamp = time.perf_counter()
+        for _ in range(STAMP_CALLS):
+            store.check_weights(program, shared.stamp(shared.module_tensors(*program.models)))
+        stamp_ms = (time.perf_counter() - start_stamp) * 1e3 / STAMP_CALLS
+        secs = {way: [r[0] for r in refs[way]] for way in refs}
+        secs["program"] = [r[0] for r in got]
+        mean = {way: statistics.mean(v) for way, v in secs.items()}
+        busy = "replay not profiled"
+        if profiled:
+            start_window = time.perf_counter()
+            seed, guidance = calls[1]
+            rep = _window(lambda: run_batch(prompts, negatives, list(guidance), seed),
+                          1, f"program replay, {name}", mean["program"] * 1e3)
+            busy = (f"replay busy {rep['busy_ms']:.2f} ms, idle "
+                    f"{1 - rep['busy_ms'] / (mean['program'] * 1e3):.1%} (the window "
+                    f"{time.perf_counter() - start_window:.1f} s)")
+        counts = {fn.__name__: n for (fn, attr), n in got[0][2].items() if attr == "launches"}
+        log(f"serve program on {card}: {name}, {evals} U-Net evals a call, through the "
+            f"server's run_batch: s per call eager server "
+            f"{[round(x, 4) for x in secs['eager']]}, per-eval graphed "
+            f"{[round(x, 4) for x in secs['per-eval graphed']]}, program replay "
+            f"{[round(x, 4) for x in secs['program']]} (eager / program "
+            f"{mean['eager'] / mean['program']:.2f}x, per-eval / program "
+            f"{mean['per-eval graphed'] / mean['program']:.2f}x); {busy}; the weights check "
+            f"{stamp_ms:.3f} ms a call over {tensors} tensors; warm-up call "
+            f"{warm[0]:.3f} s, capture {capture_s:.3f} s (eager warm-up call "
+            f"included), {nodes} kernel nodes; peak allocated eager {eager_peak:.2f} GB, "
+            f"in the replays {peak:.2f} GB, graph pool {pool:.2f} GB; images bit-equal "
+            f"(warm-up, 3 replays, eager server, per-eval graphed) PASS; launches a "
+            f"replay {counts}, equal to the per-eval graphed call's, on wgmma PASS; the "
+            f"configuration took {time.perf_counter() - start_config:.1f} s")
+        if n_config == 4:  # a cheap capture: one U-Net tensor replaced
+            old = unet.conv_out.bias
+            unet.conv_out.bias = torch.nn.Parameter(old.detach().clone(), requires_grad=False)
+            try:
+                made = len(store.capture_seconds)
+                again = served(run_batch, *calls[0])
+                check(len(store.capture_seconds) == made + 1,
+                      f"serve program: a replaced U-Net tensor made "
+                      f"{len(store.capture_seconds) - made} captures, expected 1")
+                check(np.array_equal(again[1], got[0][1]),
+                      "serve program: the recaptured call differs")
+                log(f"serve program: a replaced U-Net tensor (conv_out.bias) dropped the "
+                    f"capture; the next call captured anew in {store.capture_seconds[-1]:.3f}"
+                    f" s, bit-equal PASS")
+            finally:
+                unet.conv_out.bias = old
+        del run_batch, eager_batch, program
+        store.clear()
+        torch.cuda.empty_cache()
+    unet.set_serving_modes()
+    models[2].set_serving_modes()
+    log(f"serve program: phase took {time.perf_counter() - start_phase:.1f} s on {card}")
 
 
 def _kernel_group(name: str) -> str:
@@ -4864,7 +5132,25 @@ def phase_profile(unet, shape, evals: int = 3, what: str | None = None,
                            bare_ms)
 
 
-def main() -> int:
+# The phases a run with arguments can take alone (``python3 chip_smoke.py
+# serve_program``), each on the north star's seeded models; the run with no
+# arguments drives each of them too
+ALONE = {"encode_decode": lambda card, models: phase_encode_decode(card, models,
+                                                                   _program_ids()),
+         "serve": phase_serve, "serve_program": phase_serve_program}
+
+
+def _phase(fn, *args):
+    """``fn(*args)``, a phase of the run, with the seconds it took logged,
+    so that a run shows where its time limit goes."""
+    start = time.perf_counter()
+    try:
+        return fn(*args)
+    finally:
+        log(f"{fn.__name__} took {time.perf_counter() - start:.1f} s")
+
+
+def main(argv=()) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -4877,56 +5163,69 @@ def main() -> int:
     from ldm_tf2_tpu_torch import factory
     from ldm_tf2_tpu_torch.ops import _build
 
+    unknown = [a for a in argv if a not in ALONE]
+    if unknown:
+        log(f"FAIL: unknown phase(s) {unknown}; phases run alone: {sorted(ALONE)}")
+        return 2
     factory.set_float32_precision()
     seconds = _build.build(SOURCES)
     log("build: " + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()))
+    if argv:  # the named phases alone, on the north star's models
+        from ldm_tf2_tpu_torch.configs.loader import validate
 
-    results = phase_kernels()
-    phase_tp_layers(card)
+        models = _north_star_models(validate(json.loads(json.dumps(NORTH_STAR))))
+        for name in argv:
+            _phase(ALONE[name], card, models)
+        print(card, flush=True)
+        return 0
+
+    results = _phase(phase_kernels)
+    _phase(phase_tp_layers, card)
     from ldm_tf2_tpu_torch.ops.fused_ffn import fused_ffn_int8
 
     ffn8_checked = fused_ffn_int8.launches  # the kernels phase's own launches
     ffn8_paths = dict(fused_ffn_int8.launches_by_path)
-    phase_unet()
-    phase_grad()
-    launches, run = phase_main_path(card)
+    _phase(phase_unet)
+    _phase(phase_grad)
+    launches, run = _phase(phase_main_path, card)
     by_path = {k: dict(LAST_PATHS[k]) for k in ("flash_attention", "fused_ffn")}
     # the opt-in kernels report their launches in the opt-in main path (the
     # stats kernel in its GroupNorm "stats" run), the serving path's in the
     # serve run, the backward kernels theirs in the LDM train run (5 steps)
-    opt_in, stats, opt_paths = phase_opt_in(card, run)
+    opt_in, stats, opt_paths = _phase(phase_opt_in, card, run)
     by_path.update(opt_paths)
     launches.update({k: opt_in[k] for k in ("group_norm_fused", "gn_silu_conv3x3_fused",
                                             "cross_attention")})
     launches["group_stats"] = stats["group_stats"]
-    phase_samplers(card, run)
-    phase_deepcache_img2img(card, run)
-    convert_launches = phase_convert_export_eval(card)
-    serve = phase_serve(card, run["models"])
+    _phase(phase_samplers, card, run)
+    _phase(phase_deepcache_img2img, card, run)
+    convert_launches = _phase(phase_convert_export_eval, card)
+    serve = _phase(phase_serve, card, run["models"])
     by_path.update({k: dict(LAST_PATHS[k]) for k in ("flash_attention_pv_int8", "s8_conv3x3")})
     by_path["gn_silu_quant"] = dict(LAST_MODES["gn_silu_quant"])
     launches.update({k: serve[k] for k in ("gn_silu_quant", "s8_conv3x3",
                                            "flash_attention_pv_int8")})
-    phase_graphs(card, run)
+    _phase(phase_graphs, card, run)
+    _phase(phase_serve_program, card, run["models"])
     del run
     torch.cuda.empty_cache()
     # row 2's partial mode reports its launches in the TP sampler call
-    tp_call = phase_tp_sp(card)
+    tp_call = _phase(phase_tp_sp, card)
     launches["fused_ffn_partial"] = tp_call["launches"]["fused_ffn_partial"]
     by_path["fused_ffn_partial"] = tp_call["paths"]["fused_ffn_partial"]
-    train_launches, train_models = phase_train(card)
-    train_graph = phase_train_graphs(card, train_models)
+    train_launches, train_models = _phase(phase_train, card)
+    train_graph = _phase(phase_train_graphs, card, train_models)
     by_path.update({k: dict(LAST_PATHS[k]) for k in ("flash_backward_dq", "flash_backward_dkv")})
-    phase_remat(card, train_models)
-    phase_resume(card, train_models)
-    phase_data_parallel(card, train_models)
+    _phase(phase_remat, card, train_models)
+    _phase(phase_resume, card, train_models)
+    _phase(phase_data_parallel, card, train_models)
     del train_models
     torch.cuda.empty_cache()
-    tp_train = phase_tp_train(card)
+    tp_train = _phase(phase_tp_train, card)
     launches.update({k: train_launches[k] for k in ("flash_backward_dq",
                                                     "flash_backward_dkv")})
-    phase_ae_grad()
-    phase_ae_train(card)
+    _phase(phase_ae_grad)
+    _phase(phase_ae_train, card)
     # row 4 is dispatched on no path, as in the JAX package: its count is
     # the sum over every path run; rows 9 and 10 count the serve run's
     # launches of rows 8 and 11 at the shapes where the TPU ran them
@@ -4997,7 +5296,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        sys.exit(main())
+        sys.exit(main(sys.argv[1:]))
     except SmokeFailure as e:
         log(f"FAIL: {e}")
         sys.exit(1)

@@ -4,12 +4,15 @@
 conv (row 11, ``s8_conv3x3``) at ``chip_smoke.SERVE_CHAINS``, its
 GN+SiLU+quantize (rows 8 and 9,
 ``gn_silu_quant``) at the distinct ``SERVE_CHAINS`` inputs and the map the
-TPU streams, and its fused GroupNorm (row 5, ``group_norm_fused``) at
+TPU streams, its fused GroupNorm (row 5, ``group_norm_fused``) at
 ``chip_smoke.OPT_GN``: per call and per kernel launched, from
 ``torch.profiler`` through ``chip_smoke.device_ms``, on random inputs made
-from a seed.  Needs a CUDA card.  Run from the root of a checkout:
+from a seed; and its bf16 flash forward (row 1, ``flash_attention``) at the
+decoder's mid-block attention of a batch-4 serving call, ``DECODER_ATTENTION``,
+beside SDPA, wall (``chip_smoke.time_ms``) and device time, with its bound.
+Needs a CUDA card.  Run from the root of a checkout:
 
-    python3 kernel_times.py [ffn] [ffn8] [s8conv] [gnq] [gn] [--rounds N]
+    python3 kernel_times.py [ffn] [ffn8] [s8conv] [gnq] [gn] [flash] [--rounds N]
 
 It prints one JSON line per shape and round, then the card's name and power
 limit.  To compare two trees on one card, copy this script into the root of
@@ -130,19 +133,49 @@ def gn_times(gen):
                    launches=per_call[0])
 
 
+# (B, T, H, S) of the autoencoder's mid-block attention when a batch-4
+# serving call decodes at 256^2
+DECODER_ATTENTION = (4, 1024, 1, 512)
+
+
+def flash_times(gen):
+    import torch
+    import torch.nn.functional as F
+
+    from ldm_tf2_tpu_torch.ops.flash_attention import flash_attention
+
+    b, t, h, s = DECODER_ATTENTION
+    q, k, v = (torch.randn(b, t, h, s, generator=gen, device="cuda").bfloat16()
+               for _ in range(3))
+    scale = s**-0.5
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    kernel = lambda: flash_attention(q, k, v, scale)
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale)
+    err = float((kernel().float() - sdpa().transpose(1, 2).float()).abs().max())
+    ops = 2 * 2.0 * b * h * t * t * s  # q k^T and p v
+    t_ops = ops / chip_smoke.PEAK_OPS["bfloat16"]
+    t_bytes = 4 * q.numel() * q.element_size() / chip_smoke.PEAK_BYTES
+    yield dict(kernel="flash_attention", shape=[b, t, h, s], dtype="bfloat16",
+               ms=chip_smoke.time_ms(kernel), device_ms=chip_smoke.device_ms(kernel),
+               library_ms=chip_smoke.time_ms(sdpa),
+               library_device_ms=chip_smoke.device_ms(sdpa), bound_ms=max(t_ops, t_bytes) * 1e3,
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               max_abs_against_sdpa=err)
+
+
 def main() -> int:
     import torch
 
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("kernels", nargs="*", choices=("ffn", "ffn8", "s8conv", "gnq", "gn"),
-                   default=["ffn", "ffn8", "s8conv", "gnq", "gn"])
+    kinds = ("ffn", "ffn8", "s8conv", "gnq", "gn", "flash")
+    p.add_argument("kernels", nargs="*", choices=kinds, default=list(kinds))
     p.add_argument("--rounds", type=int, default=1)
     args = p.parse_args()
     if not torch.cuda.is_available():
         print("kernel_times.py needs a CUDA card", file=sys.stderr)
         return 1
     times = {"ffn": ffn_times, "ffn8": ffn8_times, "s8conv": s8conv_times, "gnq": gnq_times,
-             "gn": gn_times}
+             "gn": gn_times, "flash": flash_times}
     for rnd in range(args.rounds):
         for name in args.kernels:
             for row in times[name](torch.Generator(device="cuda").manual_seed(1234)):

@@ -138,6 +138,42 @@ def decode_latents(autoencoder, z):
     return autoencoder.decode(z)
 
 
+def txt2img_body(cond_model, unet, autoencoder, schedule, token_ids, generator,
+                 guidance_scale, shape, *, sampler: str = "ddim",
+                 guidance_rescale: float = 0.0, scale_factor: float = 0.18215,
+                 cache_interval: int = 1, cache_levels: int = 1, eps_model=None,
+                 init_noise=None, **hooks):
+    """The device part of a txt2img call: text encode -> CFG sampling loop
+    (``SAMPLE_LOOPS[sampler]``, or with ``cache_interval`` > 1 the
+    sampler's DeepCache loop, ``CACHE_LOOPS``, with ``cache_levels``
+    shallow levels) -> decode (``decode_latents``), with no copy from the
+    host and no read of a device value on the host, so that a server can
+    capture it whole (``diffusion/graphs.py::SamplingProgram``).
+
+    token_ids: [2B, L] on the models' device; generator: the call's draws;
+    guidance_scale: a number or a per-slot [B, 1, 1, 1] tensor on the
+    device; ``eps_model``: what the loop calls (the U-Net when None).
+    ``init_noise`` and ``hooks`` (``step_noises``, ``return_trajectory``)
+    are the loops' test hooks.  Returns (images, x0), plus the trajectory
+    with ``return_trajectory``."""
+    loop = SAMPLE_LOOPS[sampler]
+    if cache_interval > 1:
+        cached = CACHE_LOOPS[sampler]
+        loop = lambda model, *args, **kw: cached(
+            lambda x, t, c: model(x, t, c, return_cache=True,
+                                  cache_levels=cache_levels),
+            lambda x, t, c, cache: model(x, t, c, shallow_cache=cache,
+                                         cache_levels=cache_levels),
+            *args, cache_interval=cache_interval, **kw)
+    context = cond_model(token_ids)
+    out = loop(unet if eps_model is None else eps_model, schedule, context, shape,
+               generator, guidance_scale=guidance_scale,
+               guidance_rescale=guidance_rescale, init_noise=init_noise, **hooks)
+    x0, traj = out if hooks.get("return_trajectory") else (out, None)
+    images = decode_latents(autoencoder, x0 / scale_factor)
+    return (images, x0) if traj is None else (images, x0, traj)
+
+
 def sample_txt2img(cond_model, unet, autoencoder, schedule, token_ids, shape,
                    *, sampler: str = "ddim", guidance_scale: float = 5.0,
                    guidance_rescale: float = 0.0, scale_factor: float = 0.18215,
@@ -146,7 +182,9 @@ def sample_txt2img(cond_model, unet, autoencoder, schedule, token_ids, shape,
                    cache_levels: int = 1, device="cuda", mesh=None,
                    graphs: bool = True):
     """Text encode -> CFG sampling loop (``sampler``, a key of
-    ``SAMPLE_LOOPS``) -> decode (``decode_latents``).
+    ``SAMPLE_LOOPS``) -> decode (``decode_latents``): the host's part (the
+    device, the generator, the token ids copied to the card) around
+    ``txt2img_body``.
 
     token_ids: [2B, L] (unconditional rows first); shape: latent [B, h, w, c].
     The models must already be on ``device``.  ``cache_interval`` > 1 runs
@@ -162,33 +200,19 @@ def sample_txt2img(cond_model, unet, autoencoder, schedule, token_ids, shape,
     float, x0 latents), plus the [S, B, h, w, c] trajectory when asked.
     """
     device = factory.resolve_device(device)
-    loop = SAMPLE_LOOPS[sampler]
-    if cache_interval > 1:
-        cached = CACHE_LOOPS[sampler]
-        loop = lambda model, *args, **kw: cached(
-            lambda x, t, c: model(x, t, c, return_cache=True,
-                                  cache_levels=cache_levels),
-            lambda x, t, c, cache: model(x, t, c, shallow_cache=cache,
-                                         cache_levels=cache_levels),
-            *args, cache_interval=cache_interval, **kw)
     hooks = {}
     if step_noises is not None:
         hooks["step_noises"] = step_noises
     if return_trajectory:
         hooks["return_trajectory"] = True
     with torch.inference_mode():
-        generator = _generator(device, seed, mesh)
-        context = cond_model(torch.as_tensor(token_ids, device=device))
-        out = loop(
-            eps_model_for(unet, device, graphs), schedule, context, shape,
-            generator, guidance_scale=guidance_scale,
-            guidance_rescale=guidance_rescale, init_noise=init_noise, **hooks,
-        )
-        x0, traj = out if return_trajectory else (out, None)
-        images = decode_latents(autoencoder, x0 / scale_factor)
-    if return_trajectory:
-        return images, x0, traj
-    return images, x0
+        return txt2img_body(
+            cond_model, unet, autoencoder, schedule,
+            torch.as_tensor(token_ids, device=device), _generator(device, seed, mesh),
+            guidance_scale, shape, sampler=sampler, guidance_rescale=guidance_rescale,
+            scale_factor=scale_factor, cache_interval=cache_interval,
+            cache_levels=cache_levels, eps_model=eps_model_for(unet, device, graphs),
+            init_noise=init_noise, **hooks)
 
 
 def sample_img2img(cond_model, unet, autoencoder, schedule, token_ids, init_image, *,

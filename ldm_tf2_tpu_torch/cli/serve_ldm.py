@@ -46,14 +46,18 @@ writes the files and the responses.  ``tpu.sequence_parallel`` runs
 Ulysses attention over the ``model`` axis; tensor parallelism is never
 applied, as in the JAX server.
 
-As the JAX server compiles its pipeline at warm-up, this one captures the
-batch's U-Net eval as a CUDA graph at warm-up (``diffusion/graphs.py``)
-and every call of the compiled batch size replays it; stderr says how the
-evals run and how long the capture took.  On a mesh of more than one rank
-the evals run eagerly.  The JAX server's ``--aot_cache`` keeps compiled
-executables on disk; a CUDA graph cannot be written to disk, and what
-does persist across restarts is the kernels' nvcc build
-(``ops/_build.py``).
+As the JAX server jits its whole pipeline once and compiles it at
+warm-up, this one captures its whole call (text encode, the sampling loop,
+DeepCache's included, and the decode) as one CUDA graph at warm-up
+(``diffusion/graphs.py::SamplingProgram``), on one card in a process of
+world 1, and every later call of the compiled batch replays it: the host
+copies the token ids and the guidance in, seeds the call's generator and
+launches one graph.  stderr says how the calls run, how long the capture
+took and how many kernel nodes its graph holds.  On the CPU and on a mesh
+of more than one rank the calls run eagerly, as does ``graphs=False``.
+The JAX server's ``--aot_cache`` keeps compiled executables on disk; a
+CUDA graph cannot be written to disk, and what does persist across
+restarts is the kernels' nvcc build (``ops/_build.py``).
 """
 
 from __future__ import annotations
@@ -87,13 +91,15 @@ def _note(msg: str) -> None:
 def build_server(config: dict, params_blob_path: str = "", device="cuda",
                  models=None, graphs: bool = True):
     """Returns (run_batch, warmup, batch_size): a runner of one pipeline
-    call on a packed slot batch (its mesh as ``run_batch.mesh``), a warm-up
-    call, which captures the U-Net eval's CUDA graph on the card, and the
-    batch size.
+    call on a packed slot batch (its mesh as ``run_batch.mesh``, its
+    ``SamplingProgram`` as ``run_batch.program``, None where the calls run
+    eagerly, and the sampling keywords it hands ``sample_txt2img`` or the
+    program as ``run_batch.settings``), a warm-up call, which captures
+    the whole call as a CUDA graph on the card, and the batch size.
 
     ``models``: (cond_model, unet, autoencoder) already built on ``device``
     with their weights, used instead of the blob at ``params_blob_path``.
-    ``graphs=False`` runs every eval eagerly, for comparison."""
+    ``graphs=False`` runs every call eagerly, for comparison."""
     from ldm_tf2_tpu_torch.data.tokenizer import (
         load_tokenizer, packed_cfg_token_ids,
     )
@@ -143,6 +149,11 @@ def build_server(config: dict, params_blob_path: str = "", device="cuda",
     _note(f"params ready in {time.perf_counter() - start:.1f}s; sampler {sampler}")
     schedule = factory.build_schedule(config)
     tokenizer = load_tokenizer(sampling["vocab_dir"])
+    settings = dict(sampler=sampler, guidance_rescale=guidance_rescale,
+                    cache_interval=cache_interval, cache_levels=cache_levels,
+                    scale_factor=config["ldm"]["scale_factor"])
+    program = (_graphs.graphed_program(models)
+               if graphs and _graphs.graphs_apply(device) else None)
 
     def run_batch(prompts, negatives, guidances, seed):
         """One pipeline call on a packed slot batch: length-B prompt,
@@ -153,6 +164,10 @@ def build_server(config: dict, params_blob_path: str = "", device="cuda",
         guidance = torch.as_tensor(
             np.asarray(guidances, np.float32).reshape(shape[0], 1, 1, 1),
             device=device)
+        if program is not None:
+            images, _ = program(schedule, token_ids.to(device), guidance, shape,
+                                int(seed), **settings)
+            return tensor_to_image(images.float().cpu().numpy())
         rows_shape = shape
         if rows_mesh is not None:
             token_ids, b = rank_rows(token_ids, shape[0], rows_mesh)
@@ -160,28 +175,31 @@ def build_server(config: dict, params_blob_path: str = "", device="cuda",
             rows_shape = (b,) + shape[1:]
         images, _ = sample_txt2img(
             cond_model, unet, autoencoder, schedule, token_ids, rows_shape,
-            sampler=sampler, guidance_scale=guidance,
-            guidance_rescale=guidance_rescale, cache_interval=cache_interval,
-            cache_levels=cache_levels,
-            scale_factor=config["ldm"]["scale_factor"], seed=int(seed),
-            device=device, mesh=rows_mesh, graphs=graphs,
-        )
+            guidance_scale=guidance, seed=int(seed), device=device, mesh=rows_mesh,
+            graphs=False, **settings)
         images = gather_rows(images, rows_mesh)
         return tensor_to_image(images.float().cpu().numpy())
 
     run_batch.mesh = mesh
+    run_batch.program = program
+    run_batch.settings = settings
 
     def warmup():
         start = time.perf_counter()
-        captures = len(_graphs.STORE.capture_seconds)
+        store = _graphs.STORE
+        captures = len(store.capture_seconds)
         b = shape[0]
         run_batch([sampling["text_prompt"]] * b,
                   [sampling.get("negative_prompt", "")] * b,
                   [sampling["guidance_scale"]] * b, 0)
-        _note(describe(device, graphs))
-        made = _graphs.STORE.capture_seconds[captures:]
+        _note(describe(device, graphs,
+                       "serving calls (text encode, sampling loop, decode)"))
+        made = store.capture_seconds[captures:]
         if made:
-            _note(f"captured {len(made)} U-Net eval graph(s) in {sum(made):.2f}s")
+            nodes = store.kernels(program.last_key)
+            nodes = "" if nodes is None else f", {sum(nodes.values())} kernel nodes"
+            _note(f"captured {len(made)} call graph(s) in {sum(made):.2f}s (eager "
+                  f"warm-up call included){nodes}")
         _note(f"warm in {time.perf_counter() - start:.1f}s")
 
     return run_batch, warmup, shape[0]

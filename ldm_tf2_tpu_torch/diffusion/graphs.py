@@ -1,24 +1,46 @@
-"""The sampling loops' U-Net eval, captured once as a CUDA graph and replayed.
+"""Sampling captured as CUDA graphs and replayed: a loop's U-Net eval, or a
+server's whole call.
 
 Counterpart of the JAX package's compiled sampling program: its
 ``jax.jit`` of the pipeline (``cli/run_ldm_sampler.py``, the server's
 warm-up compile), the ``lax.scan`` of every loop and the server's
-``--aot_cache``.  One U-Net eval is captured once per shape key (at the
-server's warm-up, or at a call's first eval) and every later eval with
-that key replays it, through the store of ``ldm_tf2_tpu_torch/graphs.py``
-(the machinery the train steps' graphs share: keys, weights by address,
-cloned outputs, the pool, launch counts off the graph's kernel nodes).
-The loops themselves stay Python (``diffusion/sampler.py``,
-``diffusion/solvers.py``): they call the graphed model as they call the
-U-Net.
+``--aot_cache``.  Both kinds run through the store of
+``ldm_tf2_tpu_torch/graphs.py`` (the machinery the train steps' graphs
+share: keys, weights by address, cloned outputs, the pool, launch counts
+off the graph's kernel nodes), this module's ``STORE``.
 
-``graphed_eps_model(unet)`` is that model: ``(x2 [2B, h, w, c], t [2B],
-context [2B, S, D]) -> eps``, and the DeepCache variants of the U-Net's
-own signature (``return_cache=True`` -> ``(eps, cache)``,
-``shallow_cache=cache``, ``cache_levels``).  ``eps_model_for`` picks it or
-the eager U-Net for a sampling call.
+**The server's call** (``SamplingProgram``, the JAX server's one jitted
+``pipeline(params, token_ids, key, guidance_scale)``): text encode, the
+whole sampling loop (DeepCache's included) and the decode
+(``cli/run_ldm_sampler.py::txt2img_body``) captured once per key at the
+server's warm-up, every later call of the key one replay.  Its static
+inputs are the token ids [2B, L] and the per-slot guidance [B, 1, 1, 1];
+its draws (the initial latent, the per-step noise at eta > 0) come from
+one generator of its own, registered with the graph and seeded with the
+call's seed on the host before each replay, so a call draws what a fresh
+``torch.Generator(device).manual_seed(seed)`` draws; its outputs, the
+images and x0, are cloned out.  Everything the body needs from the host
+is a Python number baked into the capture (the schedule's coefficients)
+or a static input.  Its key: the program, the schedule (its betas,
+``num_ddim_steps``, eta, ``v_posterior``, spacing), the latent shape, the
+call's settings (sampler, ``guidance_rescale``, ``scale_factor``,
+``cache_interval``, ``cache_levels``), the inputs' shapes, dtypes and
+device, the autoencoder's type, the text encoder's and the autoencoder's
+compute dtypes, the autoencoder's int8-P.V mode and ``modes(unet)``.  A
+replaced or updated tensor of any of the three models drops the
+program's captures.
 
-**A capture's key** is everything that changes the captured work: the
+**A loop's U-Net eval** (``graphed_eps_model(unet)``, the sampler CLI's):
+``(x2 [2B, h, w, c], t [2B], context [2B, S, D]) -> eps``, and the
+DeepCache variants of the U-Net's own signature (``return_cache=True`` ->
+``(eps, cache)``, ``shallow_cache=cache``, ``cache_levels``), captured
+once per shape key at a call's first eval, every later eval with that key
+a replay; the loops themselves stay Python (``diffusion/sampler.py``,
+``diffusion/solvers.py``) and call the graphed model as they call the
+U-Net; the text encode and the decode run eagerly.  ``eps_model_for``
+picks it or the eager U-Net for a sampling call.
+
+**An eval's key** is everything that changes the captured work: the
 U-Net's identity and compute dtype, the variant and ``cache_levels``, every
 input's shape, dtype and device, and the modes in force (``unet``'s int8
 serving modes, and the process's ``switches``: ``tpu.attention_impl``,
@@ -27,33 +49,37 @@ the opt-in switches of ``ops.group_norm``, ``ops.fused_conv`` and
 flags).  A key already captured replays; a new key captures.
 
 **Weights are read by address.**  A graph holds the addresses of the
-U-Net's parameters and buffers (the int8 weights ``set_serving_modes``
+models' parameters and buffers (the int8 weights ``set_serving_modes``
 derives among them) and of the copies derived from them on the way (the
 fused conv's relaid weights, ``ops.fused_conv.relaid_weight``; the
 GroupNorm statistics workspace), and keeps those copies alive.  So a U-Net
 whose tensors were replaced, or updated in place, since a capture has
 every capture of it **dropped**, never replayed: the next eval captures
-anew.  The full check (every tensor's identity, address and version) runs
-when ``graphed_eps_model`` is called, once a sampling call; every eval
-checks the versions of the tensors it found then.  An inference tensor
-(one made under ``torch.inference_mode``) has no version, so only its
-replacement is seen: update such a weight by replacing it.  A graphed
-train step bumps the versions of what it updates, so a sampling call
-after it captures anew.
+anew.  For an eval the full check (every tensor's identity, address and
+version) runs when ``graphed_eps_model`` is called, once a sampling call;
+every eval checks the versions of the tensors it found then; a program
+makes the full check at every call.  An inference tensor (one made under
+``torch.inference_mode``) has no version, so only its replacement is seen:
+update such a weight by replacing it.  A graphed train step bumps the
+versions of what it updates, so a sampling call after it captures anew.
 
 **Outputs** are cloned out of the graph after each replay, so a later
 replay never overwrites what a loop keeps (PLMS's eps history,
-DPM-Solver++(2M)'s ``x0_last``, DeepCache's cache).  The first eval of a
-key runs eagerly (counted as an eager eval), then the same eval is
+DPM-Solver++(2M)'s ``x0_last``, DeepCache's cache).  The first call of a
+key runs eagerly (counted as an eager call), then the same call is
 captured under ``torch.inference_mode``.
 
-On the CPU there is no graph: ``eps_model_for`` returns the U-Net itself.
-Nor on a mesh of more than one rank (tensor, sequence or data parallelism
-over ``torch.distributed``): those calls run eagerly.
+On the CPU there is no graph: ``eps_model_for`` returns the U-Net itself,
+and the server runs its calls eagerly.  Nor on a mesh of more than one
+rank (tensor, sequence or data parallelism over ``torch.distributed``):
+those calls run eagerly.
 """
 
 from __future__ import annotations
 
+import hashlib
+
+import numpy as np
 import torch
 
 from ldm_tf2_tpu_torch.graphs import (
@@ -129,3 +155,79 @@ def eps_model_for(unet, device, graphs: bool = True):
         return graphed_eps_model(unet)
     return unet
 
+
+def schedule_key(schedule) -> tuple:
+    """What of a ``DiffusionSchedule`` a sampling call's capture bakes in:
+    its betas (by digest), ``num_ddim_steps``, eta, ``v_posterior`` and
+    spacing, from which every table the loops read is made."""
+    betas = hashlib.sha1(np.ascontiguousarray(schedule.betas).tobytes()).hexdigest()
+    return (betas, schedule.num_ddim_steps, float(schedule.eta),
+            float(schedule.v_posterior), schedule.timestep_spacing)
+
+
+class ProgramSession(Session):
+    """A server call's capture: the generator its draws come from,
+    registered with the graph and seeded on the host before each replay
+    (``seed``), and the three models' derived copies, kept alive."""
+
+    def __init__(self, models, device):
+        super().__init__(*models)
+        self.generator = torch.Generator(device=device)
+
+    def seed(self, seed: int) -> None:
+        """Set the generator for a call of ``seed``: it then draws what a
+        fresh generator seeded so draws."""
+        self.generator.manual_seed(int(seed))
+
+    def prepare(self, runner) -> None:
+        """Between the warm-up and the capture: the generator registered
+        with the graph, and the warm-up's cached blocks handed back to the
+        card, since the capture allocates from the store's pool."""
+        runner.register_generators([self.generator])
+        if self.generator.device.type == "cuda":
+            torch.cuda.empty_cache()
+
+
+class SamplingProgram:
+    """A server's call through ``store`` (``graphed_program``): ``(schedule,
+    token_ids [2B, L], guidance [B, 1, 1, 1], shape, seed, **settings) ->
+    (images, x0)``, the text encode, the loop and the decode captured as
+    one graph per key (the module docstring).  ``settings``: the sampling
+    keywords of ``cli/run_ldm_sampler.py::txt2img_body`` (``sampler``,
+    ``guidance_rescale``, ``scale_factor``, ``cache_interval``,
+    ``cache_levels``).  ``last_key``: the key of the last call."""
+
+    def __init__(self, models, store: GraphStore):
+        self.models, self.store = tuple(models), store
+        self.last_key = None
+
+    def key(self, schedule, token_ids, guidance, shape, **settings) -> tuple:
+        """The key of a capture of this call (the module docstring)."""
+        cond, unet, ae = self.models
+        inputs = tuple((tuple(v.shape), v.dtype, v.device) for v in (token_ids, guidance))
+        return (id(self), schedule_key(schedule), tuple(shape),
+                tuple(sorted(settings.items())), inputs, type(ae).__name__, cond.dtype,
+                ae.dtype, ae.attention_pv_int8, modes(unet))
+
+    def __call__(self, schedule, token_ids, guidance, shape, seed, **settings):
+        from ldm_tf2_tpu_torch.cli.run_ldm_sampler import txt2img_body
+
+        store = self.store
+        store.check_weights(self, stamp(module_tensors(*self.models)))
+        key = self.last_key = self.key(schedule, token_ids, guidance, shape, **settings)
+        session = store.session(key) or ProgramSession(self.models, token_ids.device)
+        session.seed(seed)
+
+        def fn(ids, g):
+            return txt2img_body(*self.models, schedule, ids, session.generator, g, shape,
+                                **settings)
+
+        with torch.inference_mode():
+            return store.run(key, fn, (token_ids, guidance), session)
+
+
+def graphed_program(models, store: GraphStore | None = None) -> SamplingProgram:
+    """A server's calls on ``models`` (text encoder, U-Net, autoencoder)
+    captured and replayed whole through ``store`` (the process's ``STORE``
+    when None)."""
+    return SamplingProgram(models, STORE if store is None else store)

@@ -2,8 +2,8 @@
 
 Counterpart of the JAX package's ``jax.jit``: the JAX package pays its
 dispatch once, when it compiles; here a unit of device work (a sampling
-call's U-Net eval, ``diffusion/graphs.py``; a train step,
-``training/graphs.py``) is captured once per key and every later call with
+call's U-Net eval, or a server's whole call, ``diffusion/graphs.py``; a
+train step, ``training/graphs.py``) is captured once per key and every later call with
 that key replays it, so the host launches one graph instead of the call's
 thousands of kernels.  This module is the machinery both share.
 
@@ -18,6 +18,10 @@ tensors it reads.  ``GraphStore.check_weights(owner, stamp(tensors))``
 drops every capture of ``owner`` whose tensors changed since they were
 made (replaced or moved; with the versions in the stamp, also updated in
 place), so a stale address is never replayed: the next call captures anew.
+An owner may read several modules (a serving call reads the text encoder,
+the U-Net and the autoencoder): its stamp covers them all
+(``module_tensors(*modules)``), and so do the derived copies its captures
+keep alive (``derived(*modules)``).
 
 **Outputs** are cloned out of the graph's static tensors after each
 replay, so a later replay never overwrites what a caller keeps.  The
@@ -28,7 +32,8 @@ nothing is read from a graph's static outputs after a later replay.
 
 **Capture discipline.**  The first call of a key runs eagerly on a side
 stream (it builds the kernels, makes every plan, and is that call's
-result), then the same call is captured.  A capture or replay that fails
+result), then the same call is captured and the graph instantiated, so
+the first replay costs what every replay does.  A capture or replay that fails
 raises: there is no eager fallback on the card.  A capture carries a
 ``Session``: its hooks around the warm-up and the capture, what it keeps
 alive, and what runs after each replay.
@@ -294,14 +299,14 @@ def stamp(tensors, versions: bool = True) -> tuple:
                  for t in tensors)
 
 
-def derived(module) -> list:
+def derived(*modules) -> list:
     """The copies a capture reads that are derived from the weights of
-    ``module`` (None for none) and cached outside it: the fused conv's
-    relaid weights of its parameters, and the GroupNorm statistics
-    workspaces.  A capture keeps them alive."""
+    ``modules`` and cached outside them: the fused conv's relaid weights of
+    their parameters, and the GroupNorm statistics workspaces.  A capture
+    keeps them alive."""
     from ldm_tf2_tpu_torch.ops import fused_conv, group_norm
 
-    mine = set() if module is None else {id(p) for p in module.parameters()}
+    mine = {id(p) for module in modules for p in module.parameters()}
     held = [hit[3] for key, hit in list(fused_conv._RELAID.items()) if key in mine]
     for pair in list(group_norm._WORKSPACES.values()):
         held.extend(t for t in pair if t is not None)
@@ -310,16 +315,16 @@ def derived(module) -> list:
 
 class Session:
     """What a capture carries besides its graph, and its hooks; this one
-    adds nothing, as a sampling eval needs.  ``module``: whose derived
-    copies the capture keeps alive (``derived``; None: only the GroupNorm
-    workspaces), held by a weak reference so that a capture never keeps
-    its owner alive.  ``relayouts``: whether the capture relays conv
+    adds nothing, as a sampling eval needs.  ``modules``: those whose
+    derived copies the capture keeps alive (``derived``; none: only the
+    GroupNorm workspaces), held by weak references so that a capture never
+    keeps its owner alive.  ``relayouts``: whether the capture relays conv
     weights inside it (``backed_rise``)."""
 
     relayouts = False
 
-    def __init__(self, module=None):
-        self._module = None if module is None else weakref.ref(module)
+    def __init__(self, *modules):
+        self._modules = [weakref.ref(m) for m in modules]
 
     def warmup(self, fn):
         """``fn`` as the eager warm-up runs it."""
@@ -334,7 +339,7 @@ class Session:
 
     def held(self) -> list:
         """The tensors outside the graph that it reads and keeps alive."""
-        return derived(None if self._module is None else self._module())
+        return derived(*(m for m in (ref() for ref in self._modules) if m is not None))
 
     def after_replay(self) -> None:
         """Runs after each replay."""
@@ -342,8 +347,10 @@ class Session:
 
 class CUDAGraphRunner:
     """One ``torch.cuda.CUDAGraph`` in the store's memory pool: an eager
-    warm-up on a side stream, one capture, its kernel nodes, replays on the
-    current stream."""
+    warm-up on a side stream, one capture, instantiated at once (a graph
+    kept for its nodes is otherwise instantiated at its first replay, which
+    would then pay for it: over a second for a serving call's 100,000
+    nodes), its kernel nodes, replays on the current stream."""
 
     def __init__(self, pool):
         self.graph = torch.cuda.CUDAGraph(keep_graph=True)
@@ -361,6 +368,7 @@ class CUDAGraphRunner:
     def capture(self, fn):
         with torch.cuda.graph(self.graph, pool=self.pool):
             out = fn()
+        self.graph.instantiate()
         return out
 
     def register_generators(self, generators) -> None:
@@ -392,7 +400,8 @@ class GraphStore:
     graph's kernel nodes by name, or None for a stand-in, ``replay()``);
     None: ``CUDAGraphRunner`` in one memory pool shared by the store's
     graphs.  ``capture_seconds`` lists the seconds of each capture made,
-    dropped ones included (its eager warm-up included)."""
+    dropped ones included (its eager warm-up included), and ``replays``
+    counts the replays made."""
 
     def __init__(self, runner=None):
         self._runner = runner
@@ -400,6 +409,7 @@ class GraphStore:
         self._entries: dict = {}
         self._stamps: dict = {}  # id(owner) -> its stamp
         self.capture_seconds: list = []
+        self.replays = 0
 
     def __len__(self) -> int:
         return len(self._entries)
@@ -461,6 +471,7 @@ class GraphStore:
         for static, value in zip(cap.inputs, inputs):
             static.copy_(value)
         cap.runner.replay()
+        self.replays += 1
         add_counts(cap.rise)
         cap.session.after_replay()
         return tuple(out.clone() for out in cap.outputs)
