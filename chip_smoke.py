@@ -112,7 +112,9 @@ final line is printed:
 6c. serve program (``phase_serve_program``, after 6a): the server's call
    (text encode, loop, decode) as one CUDA graph at batch 4 in seven
    configurations (``SERVE_PROGRAM_CONFIGS``: int8 + int8-P.V and bf16
-   DDIM, eta 1, DeepCache, DPM-Solver++(2M), PLMS, DDPM), through the
+   DDIM, eta 1, DeepCache, DPM-Solver++(2M), PLMS, DDPM; DDPM's call as
+   its encode, a graph of ``DDPM_RUN_STEPS`` steps replayed in turn and its
+   decode, ``diffusion/graphs.py``), through the
    server's own ``run_batch``: the eager server's call (``graphs=False``),
    the per-eval graphed call and the program's warm-up and three replays
    (``SERVE_PROGRAM_CALLS``) with images bit-equal, counts equal, s per
@@ -121,7 +123,8 @@ final line is printed:
    configuration says so, and a replaced U-Net tensor recapturing; first
    the eager encode and decode (``phase_encode_decode``).  With arguments
    the script runs named phases of this run alone (``ALONE``: ``serve``,
-   ``serve_program``, ``encode_decode``); each phase logs its seconds;
+   ``serve_program``, ``encode_decode``, ``loader``); each phase logs its
+   seconds;
 6b. tp / sp (``phase_tp_sp``): two spawned gloo ranks on the one card
    (NCCL ranks too where the machine has two or four cards), each calling
    ``dist.init_process_group`` before the port: the collectives on CUDA
@@ -153,7 +156,13 @@ final line is printed:
    within ``GRAD_TOL`` per group, each policy's peak memory and s/step
    (``phase_remat``); the indexed loader's resume through ``train`` with
    ``deterministic_data`` (``phase_resume``: 4 steps unbroken against 2 +
-   2 resumed from a checkpoint, the batches bit-equal); and the
+   2 resumed from a checkpoint, the batches bit-equal); the native reader
+   (``phase_loader``, ``data/native``, built from the checkout's source
+   and required): 256 seeded 256^2 JPEG records, its framing index,
+   ``pread`` bytes and captions against the Python path's, one epoch of
+   the indexed and the streaming loader native against Python (equal, or
+   within one code with the differing values counted), img/s each way,
+   and 2 graphed LDM steps at batch 8 fed by the native indexed loader; and the
    data-parallel code at world 1 in an NCCL group of one process, the LDM
    step, the AE GAN step and a CFG sampler call each bit-equal to the
    plain run, then two ranks against one process when the machine has two
@@ -3052,10 +3061,15 @@ def phase_serve_program(card: str, models) -> None:
         got = [served(run_batch, *c) for c in calls]
         peak, pool = torch.cuda.max_memory_allocated() / 1e9, _graph_pool_gb()
         made, replays = len(store.capture_seconds) - made, store.replays - replays
-        check(made == 1 and replays == len(calls),
-              f"serve program {name}: {made} capture(s), {replays} replay(s)")
-        capture_s = store.capture_seconds[-1]
-        nodes = sum(store.kernels(program.last_key).values())
+        # a call's graphs: one, or DDPM's encode, runs of DDPM_RUN_STEPS and decode
+        graphed = program.last_graphs
+        per_call = sum(graphed.values())
+        check(made == len(graphed) and replays == (len(calls) + 1) * per_call - made,
+              f"serve program {name}: {made} capture(s), {replays} replay(s) for "
+              f"{len(graphed)} graph(s) replayed {per_call} times a call")
+        capture_s = sum(store.capture_seconds[-made:])
+        nodes = program.call_nodes()
+        graph_nodes = [sum(store.kernels(k).values()) for k in graphed]
         for i, ref in enumerate(refs["per-eval graphed"]):
             runs = [("replay", got[i])]
             if i == 0:
@@ -3098,7 +3112,9 @@ def phase_serve_program(card: str, models) -> None:
             f"{mean['per-eval graphed'] / mean['program']:.2f}x); {busy}; the weights check "
             f"{stamp_ms:.3f} ms a call over {tensors} tensors; warm-up call "
             f"{warm[0]:.3f} s, capture {capture_s:.3f} s (eager warm-up call "
-            f"included), {nodes} kernel nodes; peak allocated eager {eager_peak:.2f} GB, "
+            f"included), {nodes} kernel nodes a call in {len(graphed)} graph(s) of "
+            f"{graph_nodes} nodes replayed {list(graphed.values())} times; peak allocated "
+            f"eager {eager_peak:.2f} GB, "
             f"in the replays {peak:.2f} GB, graph pool {pool:.2f} GB; images bit-equal "
             f"(warm-up, 3 replays, eager server, per-eval graphed) PASS; launches a "
             f"replay {counts}, equal to the per-eval graphed call's, on wgmma PASS; the "
@@ -3632,9 +3648,10 @@ def _ldm_steps(models, config, batch_images, batch_ids, policy, n: int, s0: dict
     return losses, first, mu, seconds, memory
 
 
-def _write_jpeg_records(directory: str, n: int, seed: int) -> None:
-    """``n`` Example records (a random JPEG 200-320 px a side, a caption of
-    77 ids) in 4 TFRecord files, with the port's writers."""
+def _write_jpeg_records(directory: str, n: int, seed: int, side: int | None = None) -> None:
+    """``n`` Example records (a random JPEG 200-320 px a side, or ``side``
+    square, a caption of 21 ids) in 4 TFRecord files, with the port's
+    writers."""
     import io
 
     import numpy as np
@@ -3649,6 +3666,8 @@ def _write_jpeg_records(directory: str, n: int, seed: int) -> None:
                for i in range(4)]
     for i in range(n):
         h, w = (int(x) for x in rng.integers(200, 320, 2))
+        if side is not None:
+            h = w = side
         buf = io.BytesIO()
         Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)).save(buf, "JPEG")
         ids = [101] + [int(x) for x in rng.integers(1000, 30000, 19)] + [102]
@@ -3786,6 +3805,152 @@ def phase_resume(card: str, models) -> None:
         f"{RESUME_STEP4_TOL:g}, bit-equal {resumed[4] == unbroken[4]}); "
         f"{time.perf_counter() - start:.1f} s {'PASS' if ok else 'FAIL'}")
     check(ok, "the resumed run differs from the unbroken one")
+
+
+# phase_loader: seeded records, batch, and the steps fed from the indexed loader
+LOADER_RECORDS, LOADER_SIDE, LOADER_BATCH, LOADER_STEPS = 256, 256, 8, 2
+LOADER_CODE = 2 / 255  # one code of a uint8 pixel after /127.5 - 1
+
+
+def phase_loader(card: str, models) -> dict:
+    """The native reader (``ldm_tf2_tpu_torch/data/native``) on the card's
+    host, built from the checkout's source at first use and required
+    (``native.require()``; where the host lacks libjpeg, the framing, CRC
+    and Example part, and the missing decode printed): ``LOADER_RECORDS``
+    seeded ``LOADER_SIDE``^2 JPEG records with captions written by the
+    port's writers; the framing index, every record's ``pread`` bytes and
+    every caption equal to the Python path's; one epoch of batches of the
+    indexed and the streaming loader, native against Python, equal (or the
+    values that differ counted, each within ``LOADER_CODE``), each timed in
+    img/s; then ``LOADER_STEPS`` graphed LDM train steps at batch
+    ``LOADER_BATCH`` through ``cli/run_ldm_trainer.train`` fed by the native
+    indexed loader (``deterministic_data``), its decodes counted, rows 1-3's
+    launches read around them."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from ldm_tf2_tpu_torch import graphs as shared
+    from ldm_tf2_tpu_torch.cli.run_ldm_trainer import train
+    from ldm_tf2_tpu_torch.data import dataset, indexed, native
+    from ldm_tf2_tpu_torch.data.example_proto import decode_example
+
+    start = time.perf_counter()
+    native.available()  # builds the library
+    build_s = time.perf_counter() - start
+    try:
+        native.require()
+        decode = "libjpeg decode"
+    except RuntimeError as e:
+        log(f"loader on {card}: the native reader lacks its JPEG decode on this host; "
+            f"images decode in Python ({e})")
+        native.require(decode=False)
+        decode = "NO native decode (libjpeg missing)"
+    log(f"loader: native reader built in {build_s:.1f} s ({native.library_path()}), "
+        f"{decode}")
+    unet = models[1]
+    s0 = {k: v.detach().cpu().clone() for k, v in unet.state_dict().items()}
+    tmp = tempfile.mkdtemp(prefix="ldm_loader_")
+    root = os.path.join(tmp, "records")
+    out = {}
+    try:
+        _write_jpeg_records(root, LOADER_RECORDS, 91, side=LOADER_SIDE)
+        files = dataset.list_tfrecords(root)
+        index = indexed.build_index(files, native=True)
+        check(np.array_equal(index, indexed.build_index(files, native=False))
+              and len(index) == LOADER_RECORDS, "loader: the native framing index differs")
+        for file_idx, offset, length in index:
+            path = files[int(file_idx)]
+            record = native.pread(path, int(offset), int(length))
+            check(record == indexed._read_record(path, int(offset), int(length)),
+                  f"loader: pread of {path}@{offset} differs")
+            want = np.asarray(decode_example(record)["caption"], np.int64)
+            got = native.example_caption(record, 77)
+            check(np.array_equal(got[:len(want)], want) and not got[len(want):].any(),
+                  "loader: a native caption differs")
+        steps = LOADER_RECORDS // LOADER_BATCH
+        kw = dict(batch_size=LOADER_BATCH, image_size=LOADER_SIDE, flip=True,
+                  random_seed=5)
+        loaders = {"indexed": lambda nat: indexed.create_indexed_dataset(files, native=nat,
+                                                                         **kw),
+                   "streaming": lambda nat: dataset.create_dataset(files, native=nat, **kw)}
+        fallbacks = native.fallbacks
+        for name, make in loaders.items():
+            runs = {}
+            for nat in (True, False):
+                t0 = time.perf_counter()
+                it = iter(make(nat))
+                batches = [next(it) for _ in range(steps)]
+                seconds = time.perf_counter() - t0
+                it.close()
+                runs[nat] = (batches, LOADER_RECORDS / seconds)
+            diff = [np.abs(a[0] - b[0]) for a, b in zip(runs[True][0], runs[False][0])]
+            differ = int(sum((d > 0).sum() for d in diff))
+            worst = float(max(d.max() for d in diff))
+            captions = all(np.array_equal(a[1], b[1])
+                           for a, b in zip(runs[True][0], runs[False][0]))
+            out[name] = dict(native_img_s=runs[True][1], python_img_s=runs[False][1],
+                             values_differ=differ, max_abs=worst)
+            log(f"loader on {card}: {name}, {steps} batches of {LOADER_BATCH} at "
+                f"{LOADER_SIDE}^2 (one epoch, flips on, 8 decode threads): native "
+                f"{runs[True][1]:.1f} img/s, Python {runs[False][1]:.1f} img/s "
+                f"({runs[True][1] / runs[False][1]:.2f}x); images "
+                f"{'bit-equal' if differ == 0 else f'{differ} values differ, max {worst:.3e}'}"
+                f", captions equal {captions}")
+            check(captions and worst <= LOADER_CODE,
+                  f"loader: {name} native batches differ from Python's by {worst:.3e}")
+        check(native.fallbacks == fallbacks,
+              f"loader: {native.fallbacks - fallbacks} record(s) fell through to Python")
+        # what the trainer's loader ran natively: each record's fetch, and
+        # its decode where the host's library has one
+        fetched, decoded = [], []
+        real_fetch, real_decode = native.pread, dataset._make_example_native
+
+        def fetch(*args):
+            fetched.append(1)
+            return real_fetch(*args)
+
+        def decode_one(*args):
+            decoded.append(1)
+            return real_decode(*args)
+
+        config = _train_config(LOADER_BATCH, LOADER_SIDE, root_path=root, ckpt_path=None,
+                               num_iterations=LOADER_STEPS, ema_decay=None)
+        config["ldm_training"]["params"]["flip"] = True
+        config["tpu"].update(deterministic_data=True)
+        config["latent_diffusion_optimizer"]["mu_dtype"] = "bfloat16"
+        native.pread, dataset._make_example_native = fetch, decode_one
+        try:
+            before = shared.counts()
+            t0 = time.perf_counter()
+            _, records = train(config, device="cuda", seed=92, models=models)
+            train_s = time.perf_counter() - t0
+            rise = shared.rise(before, shared.counts())
+        finally:
+            native.pread, dataset._make_example_native = real_fetch, real_decode
+        launches = {fn.__name__: n for (fn, attr), n in rise.items() if attr == "launches"}
+        losses = [r["loss"] for r in records]
+        rows = ("flash_attention", "fused_ffn", "flash_backward_dq", "flash_backward_dkv")
+        fed = LOADER_STEPS * LOADER_BATCH
+        check(len(losses) == LOADER_STEPS and all(np.isfinite(losses))
+              and len(fetched) >= fed
+              and (len(decoded) >= fed or not native.has_decode())
+              and all(launches.get(k, 0) > 0 for k in rows),
+              f"loader: the native-fed train steps: losses {losses}, {len(fetched)} native "
+              f"fetches, {len(decoded)} native decodes, launches {launches}")
+        out["train"] = dict(losses=losses, fetched=len(fetched), decoded=len(decoded),
+                            launches=launches)
+        log(f"loader on {card}: {LOADER_STEPS} graphed LDM steps at batch {LOADER_BATCH}, "
+            f"{LOADER_SIDE}^2, fed by the native indexed loader ({len(fetched)} native "
+            f"fetches, {len(decoded)} native decodes, {decode}, "
+            f"{native.fallbacks - fallbacks} fell through): losses {losses}, launches "
+            f"{launches}, {train_s:.1f} s with the capture; phase "
+            f"{time.perf_counter() - start:.1f} s PASS")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        unet.load_state_dict(s0)
+    return out
 
 
 class _DeterministicCudnn:
@@ -5137,7 +5302,9 @@ def phase_profile(unet, shape, evals: int = 3, what: str | None = None,
 # arguments drives each of them too
 ALONE = {"encode_decode": lambda card, models: phase_encode_decode(card, models,
                                                                    _program_ids()),
-         "serve": phase_serve, "serve_program": phase_serve_program}
+         "serve": phase_serve, "serve_program": phase_serve_program,
+         "loader": lambda card, _: phase_loader(card, _train_models(
+             _train_config(LOADER_BATCH, LOADER_SIDE), "cuda"))}
 
 
 def _phase(fn, *args):
@@ -5218,6 +5385,7 @@ def main(argv=()) -> int:
     by_path.update({k: dict(LAST_PATHS[k]) for k in ("flash_backward_dq", "flash_backward_dkv")})
     _phase(phase_remat, card, train_models)
     _phase(phase_resume, card, train_models)
+    _phase(phase_loader, card, train_models)
     _phase(phase_data_parallel, card, train_models)
     del train_models
     torch.cuda.empty_cache()

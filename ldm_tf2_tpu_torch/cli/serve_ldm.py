@@ -52,8 +52,9 @@ DeepCache's included, and the decode) as one CUDA graph at warm-up
 (``diffusion/graphs.py::SamplingProgram``), on one card in a process of
 world 1, and every later call of the compiled batch replays it: the host
 copies the token ids and the guidance in, seeds the call's generator and
-launches one graph.  stderr says how the calls run, how long the capture
-took and how many kernel nodes its graph holds.  On the CPU and on a mesh
+launches one graph (DDPM: its encode, its run of ``DDPM_RUN_STEPS`` steps
+replayed in turn, and its decode).  stderr says how the calls run, how long
+the captures took and how many kernel nodes a call launches.  On the CPU and on a mesh
 of more than one rank the calls run eagerly, as does ``graphs=False``.
 The JAX server's ``--aot_cache`` keeps compiled executables on disk; a
 CUDA graph cannot be written to disk, and what does persist across
@@ -196,10 +197,12 @@ def build_server(config: dict, params_blob_path: str = "", device="cuda",
                        "serving calls (text encode, sampling loop, decode)"))
         made = store.capture_seconds[captures:]
         if made:
-            nodes = store.kernels(program.last_key)
-            nodes = "" if nodes is None else f", {sum(nodes.values())} kernel nodes"
+            nodes = program.call_nodes()
+            nodes = "" if nodes is None else f", {nodes} kernel nodes a call"
+            replays = sum(program.last_graphs.values())
+            runs = "" if replays == len(made) else f", replayed {replays} times a call"
             _note(f"captured {len(made)} call graph(s) in {sum(made):.2f}s (eager "
-                  f"warm-up call included){nodes}")
+                  f"warm-up call included){nodes}{runs}")
         _note(f"warm in {time.perf_counter() - start:.1f}s")
 
     return run_batch, warmup, shape[0]

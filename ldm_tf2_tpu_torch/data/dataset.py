@@ -16,10 +16,15 @@ raised by the consumer).  The record order is a function of the seed alone, so t
 batches equal the JAX package's Python path batch for batch.  One
 difference: the flip coin is drawn in record order in the producer, where
 the JAX package draws it in its decode workers (whose order varies with
-thread timing), so here flipped runs repeat too.  The JAX package's native
-C++ decoder is not used.  ``shard_for_process`` splits the files over the
-ranks of a data-parallel run; ``data/indexed.py`` is the deterministic,
-resumable loader.
+thread timing), so here flipped runs repeat too.  The decode workers take
+the native reader (``data/native``: the Example walk, libjpeg's decode and
+the transform in C++, outside the GIL) where it is available, as the JAX
+package's do; a record libjpeg rejects is decoded in Python (counted in
+``native.fallbacks``), and its batch equals the Python path's.
+``native=False`` takes the Python path, ``native=True`` requires the
+reader.  ``shard_for_process`` splits the files over the ranks of a
+data-parallel run; ``data/indexed.py`` is the deterministic, resumable
+loader.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from typing import Iterator, Sequence
 
 import numpy as np
 
+from ldm_tf2_tpu_torch.data import native as _native
 from ldm_tf2_tpu_torch.data.example_proto import decode_example, encode_example
 from ldm_tf2_tpu_torch.data.tfrecord import TFRecordReader, TFRecordWriter
 
@@ -183,6 +189,25 @@ def _make_example(record: bytes, image_size: int, flip: bool,
     return image, caption
 
 
+def _make_example_native(record: bytes, image_size: int, flip: bool,
+                         with_captions: bool, max_seq_len: int):
+    """``_make_example`` through the native reader's walk and decode; a
+    record it cannot decode goes to the Python path (``native.fallbacks``)."""
+    item = _native.decode_or_none(record, image_size, flip, with_captions, max_seq_len)
+    if item is None:
+        return _make_example(record, image_size, flip, with_captions, max_seq_len)
+    return item
+
+
+def example_maker(native: bool | None = None):
+    """The decode a loader's workers run: ``_make_example_native`` where the
+    native reader is taken (``native.use(native)``) and holds its decode,
+    else ``_make_example``."""
+    if _native.use(native) and _native.has_decode():
+        return _make_example_native
+    return _make_example
+
+
 def create_dataset(
     filenames: Sequence[str],
     batch_size: int = 1,
@@ -191,13 +216,16 @@ def create_dataset(
     flip: bool = False,
     max_seq_len: int = 77,
     random_seed: int | None = None,
+    native: bool | None = None,
 ) -> Iterator:
     """Infinite iterator of numpy batches: ``images [B, S, S, 3] float32``,
     or ``(images, captions [B, L] int64)`` when "caption" is in ``keys``.
-    Decoding runs in a thread pool; ``PREFETCH`` batches are staged ahead
-    of the consumer."""
+    Decoding runs in a thread pool (natively where ``native`` takes the
+    reader: None where it is available, True required, False never);
+    ``PREFETCH`` batches are staged ahead of the consumer."""
     from concurrent.futures import ThreadPoolExecutor
 
+    make = example_maker(native)
     rng = random.Random(random_seed)
     with_captions = "caption" in keys
     records = _record_stream(filenames, random_seed, BUFFER_SIZE)
@@ -220,7 +248,7 @@ def create_dataset(
             try:
                 while not stop.is_set():
                     futures = [
-                        pool.submit(_make_example, next(records), image_size,
+                        pool.submit(make, next(records), image_size,
                                     flip and rng.random() < 0.5, with_captions,
                                     max_seq_len)
                         for _ in range(batch_size)

@@ -16,12 +16,16 @@
 * A record is flipped when ``random.Random(f"{seed}/{epoch}/{index}")``'s
   first draw is below 0.5.
 
-These decide which data a step sees and are copied as definitions.
-Decoding is the streaming loader's (``dataset._make_example``: PIL, then
-the JAX transform chain); the JAX package's C++ scanner and decoder are not
-ported.  A thread pool decodes, a producer thread stages ``prefetch``
-batches ahead, and closing the iterator stops the producer; an error in
-decoding is raised by the consumer.
+These decide which data a step sees and are copied as definitions.  The
+reading is the native reader's where it is taken (``native``: None where
+it is available, as in the JAX package, True required, False never):
+``build_index`` scans with ``native.scan_index``, a record is fetched with
+``native.pread`` and decoded as the streaming loader decodes it
+(``dataset.example_maker``: libjpeg and the transform in C++, a record it
+rejects in Python; else PIL, then the JAX transform chain).  The batches
+are the same either way.  A thread pool decodes, a producer thread stages
+``prefetch`` batches ahead, and closing the iterator stops the producer;
+an error in decoding is raised by the consumer.
 """
 
 from __future__ import annotations
@@ -34,14 +38,23 @@ from typing import Iterator, Sequence
 
 import numpy as np
 
-from ldm_tf2_tpu_torch.data.dataset import NUM_WORKERS, PREFETCH, _make_example
+from ldm_tf2_tpu_torch.data import native as _native
+from ldm_tf2_tpu_torch.data.dataset import NUM_WORKERS, PREFETCH, example_maker
 
 
-def build_index(filenames: Sequence[str]) -> np.ndarray:
+def build_index(filenames: Sequence[str], native: bool | None = None) -> np.ndarray:
     """[N, 3] int64 (file index, payload offset, payload length), read from
-    the record framing alone."""
+    the record framing alone (by ``native.scan_index`` where ``native``
+    takes the reader)."""
+    use_native = _native.use(native)
     entries = []
     for file_idx, path in enumerate(filenames):
+        scanned = _native.scan_index(path) if use_native else None
+        if scanned is not None:
+            if len(scanned):
+                col = np.full((len(scanned), 1), file_idx, np.int64)
+                entries.append(np.concatenate([col, scanned], axis=1))
+            continue
         rows = []
         with open(path, "rb") as f:
             offset = 0
@@ -60,7 +73,10 @@ def build_index(filenames: Sequence[str]) -> np.ndarray:
     return np.concatenate(entries, axis=0)
 
 
-def _read_record(path: str, offset: int, length: int) -> bytes:
+def _read_record(path: str, offset: int, length: int, use_native: bool = False) -> bytes:
+    data = _native.pread(path, offset, length) if use_native else None
+    if data is not None:
+        return data
     with open(path, "rb") as f:
         f.seek(offset)
         return f.read(length)
@@ -83,18 +99,22 @@ def create_indexed_dataset(
     num_workers: int = NUM_WORKERS,
     shard_index: int = 0,
     shard_count: int = 1,
+    native: bool | None = None,
 ) -> Iterator:
     """Infinite deterministic iterator from global step ``start_step``; the
     element spec of ``dataset.create_dataset``.  Shard ``shard_index`` of
     ``shard_count`` yields its ``batch_size`` rows of the global batch of
     ``batch_size * shard_count``: the shards' batches concatenated in shard
-    order are the one-shard run's."""
+    order are the one-shard run's.  ``native``: whether the reader is taken
+    (the module docstring)."""
     from concurrent.futures import ThreadPoolExecutor
 
     if not (0 <= shard_index < shard_count):
         raise ValueError(f"shard {shard_index} not in [0, {shard_count})")
     seed = 0 if random_seed is None else int(random_seed)
-    index = build_index(filenames)
+    use_native = _native.use(native)
+    make = example_maker(use_native)
+    index = build_index(filenames, use_native)
     n = len(index)
     global_batch = batch_size * shard_count
     if n < global_batch:
@@ -105,9 +125,9 @@ def create_indexed_dataset(
 
     def load_one(epoch: int, rec_idx: int):
         file_idx, offset, length = (int(v) for v in index[rec_idx])
-        record = _read_record(filenames[file_idx], offset, length)
+        record = _read_record(filenames[file_idx], offset, length, use_native)
         do_flip = flip and _flip_coin(seed, epoch, rec_idx)
-        return _make_example(record, image_size, do_flip, with_captions, max_seq_len)
+        return make(record, image_size, do_flip, with_captions, max_seq_len)
 
     def batches():
         q: queue.Queue = queue.Queue(maxsize=prefetch)

@@ -21,7 +21,23 @@ call's seed on the host before each replay, so a call draws what a fresh
 ``torch.Generator(device).manual_seed(seed)`` draws; its outputs, the
 images and x0, are cloned out.  Everything the body needs from the host
 is a Python number baked into the capture (the schedule's coefficients)
-or a static input.  Its key: the program, the schedule (its betas,
+or a static input.
+
+**DDPM's call is a run of steps, replayed in turn**, as the JAX server
+compiles one ``lax.scan`` body: a whole-call graph of its T U-Net evals
+would hold millions of kernel nodes.  Its graphs: the text encode and the
+initial draw (which also sets a device step counter to 0); **one graph of
+``DDPM_RUN_STEPS`` steps**, replayed ``T // DDPM_RUN_STEPS`` times, each
+step reading its coefficients (in x's dtype) and U-Net timesteps from
+device tables at the counter and advancing it (``sampler.ddpm_run``);
+a graph of the remaining ``T % DDPM_RUN_STEPS`` steps, where there are
+any (``sampler.ddpm_runs``); and the decode.  All register the one
+generator, so each replay advances it by what its steps draw and the
+call draws what the eager loop draws (every step draws, the t = 0 one
+multiplied by 0, as in JAX).  Each graph's key is the call's plus its part
+(and a run's length), so each replay counts its own graph's nodes and a
+call counts what the eager call counts.  ``SamplingProgram.last_graphs``
+says which graphs the last call ran and how often.  Its key: the program, the schedule (its betas,
 ``num_ddim_steps``, eta, ``v_posterior``, spacing), the latent shape, the
 call's settings (sampler, ``guidance_rescale``, ``scale_factor``,
 ``cache_interval``, ``cache_levels``), the inputs' shapes, dtypes and
@@ -168,11 +184,13 @@ def schedule_key(schedule) -> tuple:
 class ProgramSession(Session):
     """A server call's capture: the generator its draws come from,
     registered with the graph and seeded on the host before each replay
-    (``seed``), and the three models' derived copies, kept alive."""
+    (``seed``), the three models' derived copies, and DDPM's device tables
+    (``tables``), kept alive."""
 
     def __init__(self, models, device):
         super().__init__(*models)
         self.generator = torch.Generator(device=device)
+        self.tables = None
 
     def seed(self, seed: int) -> None:
         """Set the generator for a call of ``seed``: it then draws what a
@@ -188,18 +206,29 @@ class ProgramSession(Session):
             torch.cuda.empty_cache()
 
 
+# DDPM steps a server's run graph holds (the module docstring): the
+# smallest of 25, 50 and 100 whose replays come within 1% of the largest's
+# on the card (`program_probe.py`; PERF.md: at T = 1000, bf16, batch 4 on an
+# H100, 65,050 kernel nodes a run graph, a replayed call 14.74 s)
+DDPM_RUN_STEPS = 25
+
+
 class SamplingProgram:
     """A server's call through ``store`` (``graphed_program``): ``(schedule,
     token_ids [2B, L], guidance [B, 1, 1, 1], shape, seed, **settings) ->
     (images, x0)``, the text encode, the loop and the decode captured as
-    one graph per key (the module docstring).  ``settings``: the sampling
-    keywords of ``cli/run_ldm_sampler.py::txt2img_body`` (``sampler``,
+    one graph per key, DDPM's as a run of steps replayed in turn (the module
+    docstring).  ``settings``: the sampling keywords of
+    ``cli/run_ldm_sampler.py::txt2img_body`` (``sampler``,
     ``guidance_rescale``, ``scale_factor``, ``cache_interval``,
-    ``cache_levels``).  ``last_key``: the key of the last call."""
+    ``cache_levels``).  ``last_key``: the key of the last call;
+    ``last_graphs``: {store key: replays} of the graphs it ran (captures
+    included), in order."""
 
     def __init__(self, models, store: GraphStore):
         self.models, self.store = tuple(models), store
         self.last_key = None
+        self.last_graphs: dict = {}
 
     def key(self, schedule, token_ids, guidance, shape, **settings) -> tuple:
         """The key of a capture of this call (the module docstring)."""
@@ -215,15 +244,65 @@ class SamplingProgram:
         store = self.store
         store.check_weights(self, stamp(module_tensors(*self.models)))
         key = self.last_key = self.key(schedule, token_ids, guidance, shape, **settings)
-        session = store.session(key) or ProgramSession(self.models, token_ids.device)
+        ddpm = settings.get("sampler") == "ddpm"
+        first = key + ("encode",) if ddpm else key
+        session = store.session(first) or ProgramSession(self.models, token_ids.device)
         session.seed(seed)
-
-        def fn(ids, g):
-            return txt2img_body(*self.models, schedule, ids, session.generator, g, shape,
-                                **settings)
-
+        self.last_graphs = {}
         with torch.inference_mode():
-            return store.run(key, fn, (token_ids, guidance), session)
+            if ddpm:
+                return self._ddpm(key, session, schedule, token_ids, guidance, shape,
+                                  **settings)
+
+            def fn(ids, g):
+                return txt2img_body(*self.models, schedule, ids, session.generator, g, shape,
+                                    **settings)
+
+            return self._run(key, fn, (token_ids, guidance), session)
+
+    def call_nodes(self) -> int | None:
+        """The kernel nodes the last call launched: each of its graphs'
+        nodes times its replays (None for a stand-in's)."""
+        held = [(self.store.kernels(k), n) for k, n in self.last_graphs.items()]
+        if any(nodes is None for nodes, _ in held):
+            return None
+        return sum(sum(nodes.values()) * n for nodes, n in held)
+
+    def _run(self, key, fn, inputs, session):
+        self.last_graphs[key] = self.last_graphs.get(key, 0) + 1
+        return self.store.run(key, fn, inputs, session)
+
+    def _ddpm(self, key, session, schedule, token_ids, guidance, shape, *, sampler,
+              guidance_rescale=0.0, scale_factor=0.18215, **_):
+        """DDPM's call as its graphs (the module docstring): the encode and
+        initial draw, the runs of ``DDPM_RUN_STEPS`` steps and the
+        remainder's, the decode."""
+        from ldm_tf2_tpu_torch.cli.run_ldm_sampler import decode_latents
+        from ldm_tf2_tpu_torch.diffusion import sampler as loops
+
+        cond, unet, ae = self.models
+        gen = session.generator
+
+        def encode(ids):
+            context = cond(ids)
+            step = torch.zeros(1, dtype=torch.long, device=ids.device)
+            return context, loops._initial(context, shape, gen, None), step
+
+        context, xt, step = self._run(key + ("encode",), encode, (token_ids,), session)
+        if session.tables is None:  # read by address: the session keeps them
+            session.tables = loops.ddpm_device_tables(schedule, xt.dtype, xt.device)
+        tables = session.tables
+        for _, steps in loops.ddpm_runs(schedule.num_steps, DDPM_RUN_STEPS):
+            def run(x, c, g, n, steps=steps):
+                return loops.ddpm_run(unet, tables, x, c, n, steps, gen, g,
+                                      guidance_rescale=guidance_rescale)
+
+            xt, step = self._run(key + ("run", steps), run, (xt, context, guidance, step),
+                                 session)
+        (images,) = self._run(key + ("decode",),
+                              lambda x: (decode_latents(ae, x / scale_factor),), (xt,),
+                              session)
+        return images, xt
 
 
 def graphed_program(models, store: GraphStore | None = None) -> SamplingProgram:

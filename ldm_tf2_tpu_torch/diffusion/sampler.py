@@ -11,6 +11,20 @@ rank, which draws this rank's rows of the global batch's noise); every loop also
 (``init_noise``, ``step_noises``), so a test can hand it the JAX package's
 draws.  CFG runs one U-Net call on the doubled [2B] batch, unconditional
 half first; the split comes from the batch, not a fixed size.
+
+The per-step update keeps the JAX package's arithmetic in every dtype:
+each table entry is taken in float32 and cast to x's dtype, and every sum,
+product and square root of the coefficients is rounded to that dtype, in
+JAX's order (``ddim_coefficients``, ``ddpm_table``); each coefficient is
+then a number x's dtype holds exactly, so a bf16 step is JAX's bit for bit
+and a float32 step is the float32 one.  DDPM's std is ``nonzero *
+exp(0.5 * log_var)`` in x's dtype and every DDPM step draws its noise, the
+t = 0 step's multiplied by 0, as in JAX.  The one departure is where JAX's
+own arithmetic gives NaN: bf16 DDIM at eta > 0, where ``acp_prev`` at
+index 0 rounds to 1.0 and ``1 - acp_prev - sigma^2`` below 0; it is
+clamped at 0 here.  ``ddpm_run`` is DDPM's steps with the coefficients and
+timesteps read from device tables at a device step counter, which a CUDA
+graph of k steps replays in turn (``diffusion/graphs.py``).
 """
 
 from __future__ import annotations
@@ -52,27 +66,49 @@ def apply_cfg(eps2, guidance_scale, guidance_rescale: float = 0.0):
     return phi * (eps * (std_cond / std_cfg)) + (1.0 - phi) * eps
 
 
+def in_dtype(values, dtype) -> np.ndarray:
+    """float32 ``values`` rounded to ``dtype`` (a torch dtype), as float32
+    again: each a number ``dtype`` holds exactly."""
+    return torch.as_tensor(np.asarray(values, np.float32)).to(dtype).float().numpy()
+
+
+def ddim_coefficients(schedule: DiffusionSchedule, index: int, dtype,
+                      with_sigma: bool = True) -> tuple:
+    """DDIM's coefficients at ``index`` as the JAX package forms them in
+    x's ``dtype``: (sqrt_recip_acp, sqrt_recipm1_acp, sqrt(acp_prev),
+    sqrt(1 - acp_prev - sigma^2), sigma), each entry cast to ``dtype`` and
+    each step rounded to it (the float32 arithmetic in numpy, whose square
+    root is correctly rounded), as Python floats.  ``with_sigma=False``:
+    the direction coefficient is ``sqrt(1 - acp_prev)`` (PLMS's).  Where
+    JAX's radicand is below 0 (its sqrt NaN) it is clamped at 0."""
+    r = lambda v: in_dtype(v, dtype)
+    take = lambda tbl: r(np.float32(tbl[index]))
+    acp_prev, sigma = take(schedule.ddim_alphas_cumprod_prev), take(schedule.ddim_sigmas)
+    radicand = r(np.float32(1.0) - acp_prev)
+    if with_sigma:
+        radicand = r(radicand - r(sigma * sigma))
+    return tuple(float(v) for v in (
+        take(schedule.ddim_sqrt_recip_alphas_cumprod),
+        take(schedule.ddim_sqrt_recipm1_alphas_cumprod), r(np.sqrt(acp_prev)),
+        r(np.sqrt(np.maximum(radicand, np.float32(0.0)))), sigma))
+
+
 def ddim_update(schedule: DiffusionSchedule, xt, eps, index: int,
                 generator: torch.Generator | None = None,
                 clip_denoised: bool = False, noise=None):
     """The post-epsilon DDIM update: pred_x0 from the recip-alpha tables,
-    the DDIM mean, and the eta noise.  Returns (sample, pred_x0)."""
-    f32 = lambda tbl: np.float32(tbl[index])
-    pred_x0 = (
-        float(f32(schedule.ddim_sqrt_recip_alphas_cumprod)) * xt
-        - float(f32(schedule.ddim_sqrt_recipm1_alphas_cumprod)) * eps
-    )
+    the DDIM mean, and the eta noise, in JAX's arithmetic
+    (``ddim_coefficients``).  Returns (sample, pred_x0)."""
+    recip, recipm1, c_x0, c_dir, sigma = ddim_coefficients(schedule, index, xt.dtype)
+    pred_x0 = recip * xt - recipm1 * eps
     if clip_denoised:
         pred_x0 = torch.clamp(pred_x0, -1.0, 1.0)
-    acp_prev = f32(schedule.ddim_alphas_cumprod_prev)
-    sigma = f32(schedule.ddim_sigmas)
-    dir_coef = np.sqrt(np.float32(1.0) - acp_prev - sigma * sigma)
-    mean = float(np.sqrt(acp_prev)) * pred_x0 + float(dir_coef) * eps
+    mean = c_x0 * pred_x0 + c_dir * eps
     if noise is None:
         if sigma == 0.0:
             return mean, pred_x0
         noise = rng.randn(xt.shape, generator, device=xt.device, dtype=xt.dtype)
-    return mean + float(sigma) * noise.to(xt.dtype), pred_x0
+    return mean + sigma * noise.to(xt.dtype), pred_x0
 
 
 def ddim_step(eps_model: EpsModel, schedule: DiffusionSchedule, xt, cond,
@@ -260,29 +296,54 @@ def ddim_sample_loop_progressive(eps_model: EpsModel, schedule: DiffusionSchedul
     return xt, stack(samples), stack(pred_x0s)
 
 
-def ddpm_step(eps_model: EpsModel, schedule: DiffusionSchedule, xt, cond, t: int,
-              generator: torch.Generator | None = None, guidance_scale: float = 1.0,
-              clip_denoised: bool = True, guidance_rescale: float = 0.0, noise=None):
-    """One ancestral (DDPM) reverse step at timestep ``t`` of the full
-    timeline, from the posterior tables.  ``noise``: the standard normal
-    draw (else drawn from ``generator``).  Returns (sample, pred_x0)."""
-    t_vec = torch.full((xt.shape[0] * 2,), float(t), dtype=torch.float32,
-                       device=xt.device)
-    eps = apply_cfg(eps_model(torch.cat([xt, xt], dim=0), t_vec, cond),
-                    guidance_scale, guidance_rescale).to(xt.dtype)
-    f32 = lambda tbl: np.float32(tbl[t])
-    pred_x0 = (float(f32(schedule.sqrt_recip_alphas_cumprod)) * xt
-               - float(f32(schedule.sqrt_recipm1_alphas_cumprod)) * eps)
+def ddpm_table(schedule: DiffusionSchedule, dtype) -> np.ndarray:
+    """DDPM's coefficients [T, 5] by timestep t as the JAX package forms them
+    in x's ``dtype``: (sqrt_recip_acp, sqrt_recipm1_acp, posterior_mean_coef1,
+    posterior_mean_coef2, std), each entry cast to ``dtype``, std =
+    ``nonzero * exp(0.5 * log_var)`` rounded to it at each step (0 at t = 0),
+    as float32 numbers ``dtype`` holds exactly."""
+    take = lambda tbl: in_dtype(tbl, dtype)
+    half = in_dtype(np.float32(0.5) * take(schedule.posterior_log_variance_clipped), dtype)
+    std = in_dtype(np.exp(half), dtype) * (np.arange(schedule.num_steps) > 0)
+    return np.stack([take(schedule.sqrt_recip_alphas_cumprod),
+                     take(schedule.sqrt_recipm1_alphas_cumprod),
+                     take(schedule.posterior_mean_coef1),
+                     take(schedule.posterior_mean_coef2), std], axis=1).astype(np.float32)
+
+
+def _ddpm_eps(eps_model, xt, cond, t_vec, guidance_scale, guidance_rescale):
+    return apply_cfg(eps_model(torch.cat([xt, xt], dim=0), t_vec, cond),
+                     guidance_scale, guidance_rescale).to(xt.dtype)
+
+
+def _ddpm_update(xt, eps, coefficients, noise, clip_denoised: bool):
+    """The posterior mean and the noise from ``coefficients`` (a row of
+    ``ddpm_table``: numbers, or tensors of x's dtype)."""
+    recip, recipm1, coef1, coef2, std = coefficients
+    pred_x0 = recip * xt - recipm1 * eps
     if clip_denoised:
         pred_x0 = torch.clamp(pred_x0, -1.0, 1.0)
-    mean = (float(f32(schedule.posterior_mean_coef1)) * pred_x0
-            + float(f32(schedule.posterior_mean_coef2)) * xt)
-    if t == 0:
-        return mean, pred_x0
+    mean = coef1 * pred_x0 + coef2 * xt
+    return mean + std * noise.to(xt.dtype), pred_x0
+
+
+def ddpm_step(eps_model: EpsModel, schedule: DiffusionSchedule, xt, cond, t: int,
+              generator: torch.Generator | None = None, guidance_scale: float = 1.0,
+              clip_denoised: bool = True, guidance_rescale: float = 0.0, noise=None,
+              table=None):
+    """One ancestral (DDPM) reverse step at timestep ``t`` of the full
+    timeline, from the posterior tables in JAX's arithmetic (``table``:
+    ``ddpm_table(schedule, xt.dtype)``, made when None).  ``noise``: the
+    standard normal draw (else drawn from ``generator``; drawn at t = 0
+    too, where the std is 0).  Returns (sample, pred_x0)."""
+    if table is None:
+        table = ddpm_table(schedule, xt.dtype)
+    t_vec = torch.full((xt.shape[0] * 2,), float(t), dtype=torch.float32,
+                       device=xt.device)
+    eps = _ddpm_eps(eps_model, xt, cond, t_vec, guidance_scale, guidance_rescale)
     if noise is None:
         noise = rng.randn(xt.shape, generator, device=xt.device, dtype=xt.dtype)
-    std = np.exp(np.float32(0.5) * f32(schedule.posterior_log_variance_clipped))
-    return mean + float(std) * noise.to(xt.dtype), pred_x0
+    return _ddpm_update(xt, eps, [float(c) for c in table[t]], noise, clip_denoised)
 
 
 def ddpm_sample_loop(eps_model: EpsModel, schedule: DiffusionSchedule, context, shape,
@@ -293,8 +354,47 @@ def ddpm_sample_loop(eps_model: EpsModel, schedule: DiffusionSchedule, context, 
     step_noises: [T, B, h, w, c] draws in loop order (t = T-1 .. 0); None
     draws from ``generator``.  Returns x0 [B, h, w, c]."""
     xt = _initial(context, shape, generator, init_noise)
+    table = ddpm_table(schedule, xt.dtype)
     for n, t in enumerate(range(schedule.num_steps - 1, -1, -1)):
         noise = None if step_noises is None else step_noises[n].to(xt.device)
         xt, _ = ddpm_step(eps_model, schedule, xt, context, t, generator,
-                          guidance_scale, clip_denoised, guidance_rescale, noise)
+                          guidance_scale, clip_denoised, guidance_rescale, noise, table)
     return xt
+
+
+def ddpm_runs(num_steps: int, run_steps: int) -> list[tuple[int, int]]:
+    """DDPM's T steps as runs of ``run_steps`` in loop order, then the
+    remainder: [(first loop position, steps)], loop position n being
+    timestep T - 1 - n."""
+    full, tail = divmod(num_steps, run_steps)
+    runs = [(n * run_steps, run_steps) for n in range(full)]
+    return runs + ([(full * run_steps, tail)] if tail else [])
+
+
+def ddpm_device_tables(schedule: DiffusionSchedule, dtype, device):
+    """(coefficients [T, 5] in ``dtype``, U-Net timesteps [T] float32) on
+    ``device``, by loop position (row n is timestep T - 1 - n): what
+    ``ddpm_run`` reads at its step counter."""
+    table = ddpm_table(schedule, dtype)[::-1].copy()
+    t = np.arange(schedule.num_steps - 1, -1, -1, dtype=np.float32)
+    return (torch.as_tensor(table, device=device).to(dtype),
+            torch.as_tensor(t, device=device))
+
+
+def ddpm_run(eps_model: EpsModel, tables, xt, context, step, steps: int,
+             generator: torch.Generator | None = None, guidance_scale=5.0,
+             clip_denoised: bool = True, guidance_rescale: float = 0.0):
+    """``steps`` DDPM steps from loop position ``step`` (a device int64
+    [1]), each step's coefficients and U-Net timesteps read from ``tables``
+    (``ddpm_device_tables``) at the counter, which advances a step at a
+    time, with no host read: the same arithmetic and draws as
+    ``ddpm_step``'s.  Returns (xt, step + steps)."""
+    table, timesteps = tables
+    for _ in range(steps):
+        t_vec = timesteps.index_select(0, step).expand(xt.shape[0] * 2)
+        eps = _ddpm_eps(eps_model, xt, context, t_vec, guidance_scale, guidance_rescale)
+        noise = rng.randn(xt.shape, generator, device=xt.device, dtype=xt.dtype)
+        row = table.index_select(0, step)[0]
+        xt, _ = _ddpm_update(xt, eps, row.unbind(), noise, clip_denoised)
+        step = step + 1
+    return xt, step

@@ -8,7 +8,9 @@ classifier-free guidance on the doubled [2B] batch as in
 ``sampler.ddim_step``.  The JAX package's
 ``lax.scan`` carry becomes Python state; its schedule arithmetic, done in
 float32 on the device there, is done in float32 numpy on the host here and
-applied as Python numbers.
+applied as Python numbers, each cast to x's dtype first as JAX casts it
+(``sampler.in_dtype``; PLMS's DDIM update is ``sampler.ddim_coefficients``),
+so that a bf16 step rounds as JAX's does.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import numpy as np
 import torch
 
 from ldm_tf2_tpu_torch.diffusion.sampler import (
-    EpsModel, _initial, apply_cfg, deepcache_model,
+    EpsModel, _initial, apply_cfg, ddim_coefficients, deepcache_model, in_dtype,
 )
 from ldm_tf2_tpu_torch.diffusion.schedule import DiffusionSchedule
 
@@ -33,15 +35,14 @@ def _cfg_eps(eps_model, schedule, xt, cond, index, guidance_scale,
 
 
 def _ddim_update(schedule, xt, eps, index, clip_denoised):
-    """The deterministic (eta = 0) DDIM transition with a given eps."""
-    f32 = lambda tbl: np.float32(tbl[index])
-    pred_x0 = (float(f32(schedule.ddim_sqrt_recip_alphas_cumprod)) * xt
-               - float(f32(schedule.ddim_sqrt_recipm1_alphas_cumprod)) * eps)
+    """The deterministic (eta = 0) DDIM transition with a given eps, in
+    JAX's arithmetic: ``sqrt(1 - acp_prev)`` in x's dtype."""
+    recip, recipm1, c_x0, c_eps, _ = ddim_coefficients(schedule, index, xt.dtype,
+                                                       with_sigma=False)
+    pred_x0 = recip * xt - recipm1 * eps
     if clip_denoised:
         pred_x0 = torch.clamp(pred_x0, -1.0, 1.0)
-    acp_prev = f32(schedule.ddim_alphas_cumprod_prev)
-    return (float(np.sqrt(acp_prev)) * pred_x0
-            + float(np.sqrt(np.float32(1.0) - acp_prev)) * eps)
+    return c_x0 * pred_x0 + c_eps * eps
 
 
 def plms_sample_loop(eps_model: EpsModel, schedule: DiffusionSchedule, context, shape,
@@ -93,10 +94,11 @@ def dpm_solver_pp_2m_sample_loop(eps_model: EpsModel, schedule: DiffusionSchedul
     alpha_p, sigma_p = np.sqrt(acp_prev), np.sqrt(one - acp_prev)
     lam, lam_p = np.log(alpha / sigma), np.log(alpha_p / sigma_p)
     x0_last, h_last = None, one
+    c = lambda v: float(in_dtype(v, xt.dtype))  # a coefficient in x's dtype
     for index in range(len(schedule.ddim_steps) - 1, -1, -1):
         e = _cfg_eps(eps_model, schedule, xt, context, index, guidance_scale,
                      guidance_rescale)
-        x0 = (xt - float(sigma[index]) * e) / float(alpha[index])
+        x0 = (xt - c(sigma[index]) * e) / c(alpha[index])
         if clip_denoised:
             x0 = torch.clamp(x0, -1.0, 1.0)
         h = lam_p[index] - lam[index]
@@ -104,9 +106,9 @@ def dpm_solver_pp_2m_sample_loop(eps_model: EpsModel, schedule: DiffusionSchedul
             d = x0
         else:
             coef = one / (np.float32(2.0) * (h_last / h))
-            d = float(one + coef) * x0 - float(coef) * x0_last
-        xt = (float(sigma_p[index] / sigma[index]) * xt
-              - float(alpha_p[index] * np.expm1(-h)) * d)
+            d = c(one + coef) * x0 - c(coef) * x0_last
+        xt = (c(sigma_p[index] / sigma[index]) * xt
+              - c(alpha_p[index] * np.expm1(-h)) * d)
         x0_last, h_last = x0, h
     return xt
 

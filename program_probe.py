@@ -1,19 +1,20 @@
-"""The server's call as one CUDA graph (``diffusion/graphs.py::
-SamplingProgram``) with DDPM on the north star's whole 1000-step timeline,
-bf16, batch 4, 256^2, on the seeded north-star models: each capture's
-seconds (its eager warm-up call and the instantiation included), its
-graph's kernel nodes, a replay's seconds and the replay bit-equal to the
-warm-up call; then the capture dropped (``STORE.clear()``) and made again,
-``CAPTURES`` times in all, with the host's resident set (``VmRSS``)
-before the first capture and after each capture and each drop, so that a
-run shows whether a server that recaptures (a new key, or updated weights)
-holds more host memory with every capture.  Needs a CUDA card.  Run from
-the root of a checkout:
+"""DDPM's server program (``diffusion/graphs.py::SamplingProgram``: the
+encode, a graph of k DDPM steps replayed in turn, the decode) on the north
+star's whole 1000-step timeline, bf16, batch 4, 256^2, on the seeded
+north-star models, for each k of ``RUN_STEPS`` (``DDPM_RUN_STEPS`` set in
+turn): the run graph's kernel nodes and every graph's, the seconds of the
+call's captures (each with its eager warm-up and its instantiation), the
+warm-up call's seconds and what it took over a replay (a capture's seconds
+also hold the wait for the work queued before it: the decode's for the
+runs'), a replayed call's seconds and its images bit-equal
+to the warm-up call's (and to the first k's), and the host's resident set
+(``VmRSS``) before the capture, after it and after ``STORE.clear()``.  The
+module constant is the smallest k whose replay comes within 1% of the
+largest k's.  Needs a CUDA card.  Run from the root of a checkout:
 
-    python3 program_probe.py
+    python3 program_probe.py [k ...]
 
-It prints one JSON line per capture, then the card's name and power
-limit."""
+It prints one JSON line per k, then the card's name and power limit."""
 
 import contextlib
 import gc
@@ -26,8 +27,8 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import chip_smoke  # noqa: E402
 
-# Captures made and dropped in turn, and the DDPM timeline's length
-CAPTURES, NUM_STEPS = 2, 1000
+# The run lengths tried, and the DDPM timeline's length
+RUN_STEPS, NUM_STEPS = (25, 50, 100), 1000
 
 
 def rss_gb() -> float:
@@ -39,7 +40,8 @@ def rss_gb() -> float:
     return float("nan")
 
 
-def probe(captures: int, num_steps: int):
+def probe(run_steps, num_steps: int):
+    import numpy as np
     import torch
 
     from ldm_tf2_tpu_torch import factory
@@ -55,27 +57,35 @@ def probe(captures: int, num_steps: int):
     config = chip_smoke._program_config({}, dict(sampler="ddpm"), dict(num_steps=num_steps))
     with contextlib.redirect_stderr(io.StringIO()):
         run_batch, _, batch = serve_ldm.build_server(config, device="cuda", models=models)
-    store = graphs.STORE
+    program, store = run_batch.program, graphs.STORE
     prompts = chip_smoke.SERVE_PROGRAM_PROMPTS[:batch]
     call = lambda: run_batch(prompts, [""] * batch, [5.0] * batch, 1)
-    before = rss_gb()
     first = None
-    for n in range(captures):
+    for k in run_steps:
+        graphs.DDPM_RUN_STEPS = k
+        gc.collect()
+        before = rss_gb()
         made = len(store.capture_seconds)
         warm_s, warm = chip_smoke._timed(call)
-        assert len(store.capture_seconds) == made + 1, "the call did not capture"
-        nodes = sum(store.kernels(run_batch.program.last_key).values())
+        captures = store.capture_seconds[made:]
+        assert len(captures) == len(program.last_graphs), "the call did not capture"
+        nodes = {"/".join(str(p) for p in key[len(program.last_key):]):
+                 sum(store.kernels(key).values()) for key in program.last_graphs}
+        call_nodes = program.call_nodes()
         captured = rss_gb()
         replay_s, replay = chip_smoke._timed(call)
-        assert (replay == warm).all(), "the replay differs from the warm-up call"
-        assert first is None or (warm == first).all(), "the recapture differs"
+        assert np.array_equal(replay, warm), "the replay differs from the warm-up call"
+        assert first is None or np.array_equal(warm, first), "another k gave other images"
         first = warm
         store.clear()
         gc.collect()
         torch.cuda.empty_cache()
-        yield dict(capture=n + 1, evals=num_steps, warm_up_call_s=warm_s,
-                   capture_s=store.capture_seconds[-1], kernel_nodes=nodes,
-                   replay_s=replay_s, rss_gb_before_first=before, rss_gb_captured=captured,
+        yield dict(run_steps=k, evals=num_steps, run_graph_nodes=nodes.get(f"run/{k}"),
+                   graph_nodes=nodes, replays=list(program.last_graphs.values()),
+                   call_nodes=call_nodes, capture_s=sum(captures),
+                   captures_s=captures, warm_up_call_s=warm_s, replay_s=replay_s,
+                   warm_up_over_replay_s=warm_s - replay_s,
+                   rss_gb_before=before, rss_gb_captured=captured,
                    rss_gb_dropped=rss_gb(), replay_equal_to_warm_up=True)
 
 
@@ -85,8 +95,16 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("program_probe.py needs a CUDA card", file=sys.stderr)
         return 1
-    for row in probe(CAPTURES, NUM_STEPS):
+    run_steps = [int(a) for a in sys.argv[1:]] or RUN_STEPS
+    rows = []
+    for row in probe(run_steps, NUM_STEPS):
+        rows.append(row)
         print(json.dumps(row), flush=True)
+    fastest = min(r["replay_s"] for r in rows)
+    largest = max(rows, key=lambda r: r["run_steps"])["replay_s"]
+    keep = min(r["run_steps"] for r in rows if r["replay_s"] <= 1.01 * largest)
+    print(json.dumps(dict(keep_run_steps=keep, largest_k_replay_s=largest,
+                          fastest_replay_s=fastest)), flush=True)
     print(chip_smoke.card_line(), flush=True)
     return 0
 

@@ -52,10 +52,20 @@ CALLS = ((4, [5.0, 2.5]), (9, [7.5, 1.0]), (4, [3.0, 3.0]))
 
 class Runner(StandIn):
     """``StandIn`` with the generators it is handed kept, as a CUDA graph
-    registers them."""
+    registers them, and left where they were by the capture, as a CUDA
+    graph's capture leaves them (its replays advance them)."""
+
+    generators = ()
 
     def register_generators(self, generators):
         self.generators = list(generators)
+
+    def capture(self, fn):
+        states = [gen.get_state() for gen in self.generators]
+        out = super().capture(fn)
+        for gen, state in zip(self.generators, states):
+            gen.set_state(state)
+        return out
 
 
 def _config(sampler="ddim", eta=0.0, steps=2, num_steps=50, spacing="uniform",
@@ -130,8 +140,11 @@ LOOPS = {"ddim": ("ddim", 0.0, 3, 50, 1), "ddim_eta1": ("ddim", 1.0, 3, 50, 1),
 @pytest.mark.parametrize("loop", list(LOOPS))
 def test_replays_equal_the_eager_server(monkeypatch, store, loop, dtype):
     """The warm-up captures the whole call once; the three calls after it
-    replay it, each bit-equal to the eager server's call."""
+    replay it, each bit-equal to the eager server's call.  DDPM's call (6
+    steps, runs of 4 here) is its encode, a run of 4 steps, the remaining
+    2 and the decode, each captured once and replayed once a call."""
     sampler, eta, steps, num_steps, interval = LOOPS[loop]
+    monkeypatch.setattr(graphs, "DDPM_RUN_STEPS", 4)
     config = _config(sampler, eta, steps, num_steps, cache_interval=interval, dtype=dtype)
     models = _models(config)
     eager, none = _served(monkeypatch, config, models, False)
@@ -141,12 +154,72 @@ def test_replays_equal_the_eager_server(monkeypatch, store, loop, dtype):
     for g, e in zip(got, eager):
         assert np.array_equal(g, e)
     assert not np.array_equal(got[1], got[2])  # the seeds and guidances tell
-    assert len(store.capture_seconds) == len(store) == 1
-    assert store.replays == len(CALLS)
-    (key,) = store._entries
-    assert key == program.last_key and key[0] == id(program)  # no U-Net eval capture
-    runner = store._entries[key].runner
-    assert runner.generators == [store.session(key).generator]
+    parts = ([("encode",), ("run", 4), ("run", 2), ("decode",)] if sampler == "ddpm"
+             else [()])
+    keys = [program.last_key + part for part in parts]
+    assert list(program.last_graphs) == keys and set(program.last_graphs.values()) == {1}
+    assert len(store.capture_seconds) == len(store) == len(keys)
+    assert store.replays == len(CALLS) * len(keys)
+    assert set(store._entries) == set(keys)
+    for key in keys:
+        assert key[0] == id(program)  # no U-Net eval capture
+        runner = store._entries[key].runner
+        assert runner.generators == [store.session(key).generator]
+    assert len({id(store.session(key)) for key in keys}) == 1  # one generator
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ddpm_runs_cover_the_timeline_in_turn(monkeypatch, store, dtype):
+    """DDPM at T = 12 in runs of k = 5: two runs of 5 steps, then the 2 that
+    remain (t = 1 and t = 0); each run reads the tables at the device
+    counter, advances it by its steps, and is bit-equal, with the same
+    draws, to ``ddpm_step``'s eager steps; the program captures the run of
+    5 once and replays it, and its call equals the eager server's."""
+    from ldm_tf2_tpu_torch.diffusion import sampler as loops
+    from ldm_tf2_tpu_torch.diffusion.schedule import make_schedule
+
+    assert loops.ddpm_runs(12, 5) == [(0, 5), (5, 5), (10, 2)]
+    assert loops.ddpm_runs(1000, 50) == [(n * 50, 50) for n in range(20)]
+    assert loops.ddpm_runs(3, 5) == [(0, 3)]
+    schedule = make_schedule(num_steps=12, beta_start=0.00085, beta_end=0.012,
+                             num_ddim_steps=4)
+    rng = np.random.default_rng(5)
+    w = torch.as_tensor(rng.standard_normal((4, 4)).astype(np.float32) * 0.5).to(dtype)
+    seen = []
+
+    def eps(x, t, c):
+        seen.append(t.tolist())
+        return torch.tanh(x @ w + (t / 1000.0).to(x.dtype)[:, None, None, None])
+
+    context = torch.zeros(4, 3, 8, dtype=dtype)
+    x0 = torch.as_tensor(rng.standard_normal((2, 4, 4, 4)).astype(np.float32)).to(dtype)
+    tables = loops.ddpm_device_tables(schedule, dtype, "cpu")
+    gen = torch.Generator().manual_seed(3)
+    xt, step, covered = x0, torch.zeros(1, dtype=torch.long), []
+    for first, steps in loops.ddpm_runs(12, 5):
+        assert int(step) == first
+        seen.clear()
+        xt, step = loops.ddpm_run(eps, tables, xt, context, step, steps, gen, 5.0)
+        covered.append([t[0] for t in seen])
+        assert all(len(set(t)) == 1 and len(t) == 4 for t in seen)
+    assert covered == [[11, 10, 9, 8, 7], [6, 5, 4, 3, 2], [1, 0]] and int(step) == 12
+    gen_eager = torch.Generator().manual_seed(3)
+    want = loops.ddpm_sample_loop(eps, schedule, context, x0.shape, gen_eager, 5.0,
+                                  init_noise=x0)
+    assert torch.equal(xt, want)
+    assert torch.equal(gen.get_state(), gen_eager.get_state())  # t = 0 draws too
+
+    monkeypatch.setattr(graphs, "DDPM_RUN_STEPS", 5)
+    config = _config("ddpm", 0.0, 3, 12, dtype=str(dtype).split(".")[1])
+    models = _models(config)
+    eager, _ = _served(monkeypatch, config, models, False)
+    got, program = _served(monkeypatch, config, models, True)
+    for g, e in zip(got, eager):
+        assert np.array_equal(g, e)
+    key = program.last_key
+    assert program.last_graphs == {key + ("encode",): 1, key + ("run", 5): 2,
+                                   key + ("run", 2): 1, key + ("decode",): 1}
+    assert len(store.capture_seconds) == 4 and store.replays == 1 + 5 * len(CALLS)
 
 
 @functools.lru_cache(maxsize=None)
